@@ -1,0 +1,186 @@
+"""MMInterleaved, the top-level interleaved image-text model: the text
+generation half (counterpart of `mm_interleaved_tpu/models/mm_interleaved.py`).
+
+One token stream mixes text with per-image blocks of ``<soi>`` +
+``num_img_token`` ``<image>`` placeholders.  The visual tokenizer's query
+embeddings are scattered into the stream, and its pyramids are read by the
+LLM's MMFS layers.  Images arrive padded, ``[B, max_img, H, W, 3]`` with
+``num_image_per_seq``.  The image decoder is not ported yet: a config with
+``image_decoder`` set is rejected.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional
+
+import torch
+from torch import nn
+from einops import rearrange
+
+from . import stream_ops as so
+from .llama import KVCache, LlamaConfig, LlamaModel, TextDecoder
+from .visual_tokenizer import VisualTokenizer, VisualTokenizerConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class SpecialTokens:
+    bos_token_id: int = 1
+    eos_token_id: int = 2
+    pad_token_id: int = 31999
+    soi_token_id: int = 32000
+    image_token_id: int = 32001
+
+
+@dataclasses.dataclass(frozen=True)
+class MMInterleavedConfig:
+    llm: LlamaConfig = dataclasses.field(default_factory=LlamaConfig)
+    visual: VisualTokenizerConfig = dataclasses.field(
+        default_factory=VisualTokenizerConfig
+    )
+    image_decoder: Optional[object] = None  # configs.ImageDecoderConfig
+    special: SpecialTokens = dataclasses.field(default_factory=SpecialTokens)
+    seq_len: int = 2048
+    num_img_token: int = 64
+    max_num_images: int = 10
+    max_context_len: int = 512
+    loss_img_weight: float = 10.0
+    loss_txt_weight: float = 1.0
+    orig_vocab_size: int = 32000
+
+
+class MMInterleaved(nn.Module):
+    def __init__(self, cfg: MMInterleavedConfig):
+        super().__init__()
+        if cfg.image_decoder is not None:
+            raise NotImplementedError(
+                "the image decoder is not ported: use image_decoder=None"
+            )
+        self.cfg = cfg
+        self.visual_tokenizer = VisualTokenizer(cfg.visual)
+        self.mm_decoder = LlamaModel(cfg.llm)
+        self.text_decoder = TextDecoder(cfg.llm,
+                                        orig_vocab_size=cfg.orig_vocab_size)
+        self.soi_token = nn.Parameter(torch.empty(cfg.llm.hidden_size))
+
+    def init_weights(self, g: torch.Generator) -> None:
+        self.soi_token.data.zero_()
+
+    def _encode_images(self, image_tensors: torch.Tensor):
+        """[B, max_img, H, W, 3] -> vis_embed [B, max_img, n_tok, C_llm],
+        pyramid levels each [B, max_img, h, w, C_vis]."""
+        B = image_tensors.shape[0]
+        flat = rearrange(image_tensors, "b n h w c -> (b n) h w c")
+        out = self.visual_tokenizer(flat)
+        vis_embed = rearrange(out["vis_embed"], "(b n) t c -> b n t c", b=B)
+        pyramid = tuple(
+            rearrange(f, "(b n) h w c -> b n h w c", b=B)
+            for f in out["multiscale_features"]
+        )
+        return vis_embed, pyramid
+
+    def _mmfs_value_for_llm(self, pyramid) -> torch.Tensor:
+        """The pyramid levels of ``llm.spatial_shapes``, flattened to the
+        MMFS value layout ``[B, max_img, sum(hw), C]``."""
+        shapes = self.cfg.llm.spatial_shapes
+        chosen = [rearrange(f, "b n h w c -> b n (h w) c")
+                  for f in pyramid if f.shape[2] in shapes]
+        if len(chosen) != len(shapes):
+            raise ValueError(
+                f"pyramid {[tuple(f.shape) for f in pyramid]} lacks the "
+                f"levels {shapes}"
+            )
+        return torch.cat(chosen, dim=2)
+
+    def prepare_mm_embeds(self, text_ids, image_tensors, num_image_per_seq):
+        c = self.cfg
+        max_img = image_tensors.shape[1]
+        text_embeds = self.mm_decoder.embed(text_ids)
+        vis_embed, pyramid = self._encode_images(image_tensors)
+        mm_embeds = so.scatter_image_embeds(
+            text_embeds, text_ids, vis_embed, c.special.image_token_id
+        )
+        mm_embeds = so.add_soi_embeds(
+            mm_embeds, text_ids, self.soi_token.to(mm_embeds.dtype),
+            c.special.soi_token_id,
+        )
+        cross_mask, soi_pos = so.mm_cross_attention_mask(
+            text_ids, num_image_per_seq, c.special.soi_token_id,
+            c.special.bos_token_id, max_img,
+        )
+        return dict(
+            mm_embeds=mm_embeds,
+            cross_attention_mask=cross_mask,
+            mmfs_values=self._mmfs_value_for_llm(pyramid),
+            soi_pos=soi_pos,
+            pyramid=pyramid,
+        )
+
+    def lm_prefill(self, mm_embeds, attention_mask, mmfs_values,
+                   cross_attention_mask, cache: KVCache):
+        """Returns ``(logits, hidden, cache, vision_values)``; the last is the
+        per-cross-layer MMFS value projection for the decode steps."""
+        hidden, cache, vision_values = self.mm_decoder(
+            mm_embeds,
+            attention_mask=attention_mask,
+            vision_hidden_states=mmfs_values,
+            cross_attention_mask=cross_attention_mask,
+            cache=cache,
+        )
+        return self.text_decoder(hidden), hidden, cache, vision_values
+
+    def lm_decode_step(self, token_ids, attention_mask, mmfs_values,
+                       cross_attention_mask, cache: KVCache,
+                       vision_value_cache: Optional[List[torch.Tensor]] = None):
+        """One decode step over ``token_ids [B, 1]``; ``vision_value_cache``
+        (from `lm_prefill`) skips the value projection of the pyramids."""
+        embeds = self.mm_decoder.embed(token_ids)
+        embeds = so.add_soi_embeds(
+            embeds, token_ids, self.soi_token.to(embeds.dtype),
+            self.cfg.special.soi_token_id,
+        )
+        hidden, cache, _ = self.mm_decoder(
+            embeds,
+            attention_mask=attention_mask,
+            vision_hidden_states=mmfs_values,
+            cross_attention_mask=cross_attention_mask,
+            cache=cache,
+            vision_value_cache=vision_value_cache,
+        )
+        return self.text_decoder(hidden), cache
+
+
+def init_weights(model: nn.Module, generator: torch.Generator) -> None:
+    """Seeded random init in place, on the model's own device and dtype:
+    fan-in-scaled normal Linear/Conv kernels, zero biases, unit norms, then
+    each module's own `init_weights` (the JAX package's special inits,
+    zero gates included), children before parents."""
+    g = generator
+    for m in reversed(list(model.modules())):
+        if isinstance(m, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)):
+            w = m.weight.data
+            w.normal_(0.0, w[0].numel() ** -0.5, generator=g)
+            if m.bias is not None:
+                m.bias.data.zero_()
+        elif isinstance(m, nn.LayerNorm):
+            m.weight.data.fill_(1.0)
+            m.bias.data.zero_()
+        elif isinstance(m, nn.Embedding):
+            m.weight.data.normal_(0.0, 0.02, generator=g)
+        if hasattr(m, "init_weights"):
+            m.init_weights(g)
+
+
+def build_model(cfg: MMInterleavedConfig, device, dtype: Optional[torch.dtype] = None,
+                seed: int = 0) -> MMInterleaved:
+    """The model with seeded random weights, made directly on ``device`` in
+    ``dtype`` (default: the LLM's compute dtype): no full-precision copy is
+    ever made on the host."""
+    with torch.device("meta"):
+        model = MMInterleaved(cfg)
+    model = model.to(dtype=dtype or cfg.llm.compute_dtype)
+    model = model.to_empty(device=device)
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    init_weights(model, g)
+    return model.eval()

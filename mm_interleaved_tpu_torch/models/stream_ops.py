@@ -1,0 +1,98 @@
+"""Fixed-shape token-stream ops for interleaved image-text sequences
+(counterpart of `mm_interleaved_tpu/models/stream_ops.py`).
+
+Images arrive padded per sequence (``[B, max_img, ...]`` plus
+``num_image_per_seq``); special-token positions and the "nearest <bos>"
+relation are masked computations over those padded axes.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+
+def token_positions(text_ids: torch.Tensor, token_id: int,
+                    max_count: int) -> torch.Tensor:
+    """Position of the k-th occurrence of ``token_id`` per row:
+    ``[B, max_count]`` int32, with the sentinel ``L`` where a row has fewer
+    occurrences.  Occurrences beyond ``max_count`` are dropped."""
+    B, L = text_ids.shape
+    hit = text_ids == token_id
+    k = torch.cumsum(hit.long(), dim=-1) - 1
+    k = torch.where(hit & (k < max_count), k, torch.full_like(k, max_count))
+    pos = torch.arange(L, dtype=torch.int32,
+                       device=text_ids.device).expand(B, L)
+    out = torch.full((B, max_count + 1), L, dtype=torch.int32,
+                     device=text_ids.device)
+    # only the overflow column receives duplicate writes, and it is dropped
+    out.scatter_(1, k, pos)
+    return out[:, :max_count]
+
+
+def nearest_bos_positions(text_ids: torch.Tensor,
+                          bos_token_id: int) -> torch.Tensor:
+    """Index of the nearest preceding (or equal) <bos> per position; -1
+    before the first <bos>."""
+    B, L = text_ids.shape
+    pos = torch.arange(L, dtype=torch.int32,
+                       device=text_ids.device).expand(B, L)
+    marked = torch.where(text_ids == bos_token_id, pos,
+                         torch.full_like(pos, -1))
+    return torch.cummax(marked, dim=1).values
+
+
+def scatter_image_embeds(
+    text_embeds: torch.Tensor,  # [B, L, C]
+    text_ids: torch.Tensor,  # [B, L]
+    vis_embed: torch.Tensor,  # [B, max_img, num_img_token, C]
+    image_token_id: int,
+) -> torch.Tensor:
+    """Replace the j-th ``<image>`` embedding of a row with token
+    ``j % num_img_token`` of image ``j // num_img_token``."""
+    B, L, C = text_embeds.shape
+    _, max_img, n_tok, _ = vis_embed.shape
+    is_img = text_ids == image_token_id
+    j = (torch.cumsum(is_img.long(), dim=-1) - 1).clamp(min=0)
+    img_idx = (j // n_tok).clamp(0, max_img - 1)
+    slot_idx = j % n_tok
+    b_idx = torch.arange(B, device=text_ids.device)[:, None]
+    gathered = vis_embed[b_idx, img_idx, slot_idx]  # [B, L, C]
+    return torch.where(is_img[..., None], gathered.to(text_embeds.dtype),
+                       text_embeds)
+
+
+def add_soi_embeds(mm_embeds: torch.Tensor, text_ids: torch.Tensor,
+                   soi_embed: torch.Tensor, soi_token_id: int) -> torch.Tensor:
+    """Add the learned <soi> embedding at every <soi> position."""
+    is_soi = (text_ids == soi_token_id)[..., None]
+    return mm_embeds + is_soi.to(mm_embeds.dtype) * soi_embed[None, None, :]
+
+
+def mm_cross_attention_mask(
+    text_ids: torch.Tensor,
+    num_image_per_seq: torch.Tensor,
+    soi_token_id: int,
+    bos_token_id: int,
+    max_img: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-token x per-image causal cross-attention mask: token t sees image
+    k iff the image's first token (soi+1) lies in ``(nearest_bos(t), t]``
+    and k is a real image of the row.
+
+    Returns (mask ``[B, L, max_img]`` int32, soi_pos ``[B, max_img]``).
+    """
+    B, L = text_ids.shape
+    dev = text_ids.device
+    soi_pos = token_positions(text_ids, soi_token_id, max_img)
+    img_pos = soi_pos + 1
+    near_bos = nearest_bos_positions(text_ids, bos_token_id)
+    t = torch.arange(L, dtype=torch.int32, device=dev)[None, :, None]
+    ip = img_pos[:, None, :]
+    k_valid = (
+        torch.arange(max_img, dtype=torch.int32, device=dev)[None, None, :]
+        < num_image_per_seq[:, None, None]
+    )
+    mask = (ip > near_bos[:, :, None]) & (ip <= t) & k_valid
+    return mask.to(torch.int32), soi_pos
