@@ -1,7 +1,12 @@
 """PyTorch port of `mm_interleaved_tpu` for NVIDIA Hopper GPUs.
 
 The package mirrors the JAX package's layout module for module and imports
-no JAX.  Its deformable-attention op launches a CUDA kernel of its own
-(`csrc/`) for CUDA tensors and runs a plain PyTorch version on the CPU.
-Importing the package builds nothing: kernels compile at first use.
+no JAX.  Each op with a TPU kernel in the JAX package (deformable
+attention, the UNet's factorised MMFS, flash attention, GroupNorm+SiLU,
+fused GEGLU) launches a CUDA kernel of its own (`csrc/`) for CUDA tensors
+and runs a plain PyTorch version on the CPU.  Importing the package builds
+nothing: kernels compile at first use.  Entry points:
+`generation.text.generate_texts`, and
+`MMInterleaved.generate_image_inputs` then
+`generation.diffusion.generate_images`.
 """

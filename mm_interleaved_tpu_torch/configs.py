@@ -6,94 +6,21 @@
   * ``base_config``     — ~1.4B LLM + ViT-L/14 + SD-2.1-base-sized UNet.
   * ``flagship_config`` — reference parity: Vicuna-13B + CLIP ViT-L/14 @224
     + SD-2.1-base @512.
-
-The image-decoder configs (`ImageDecoderConfig` and the SD configs) are
-plain data here: the modules that read them are not ported yet, and they
-move to their own modules when those are.
 """
 
 from __future__ import annotations
 
-import dataclasses
-from typing import Optional, Tuple
-
+from .models.image_decoder import ImageDecoderConfig
 from .models.llama import LlamaConfig
 from .models.mm_interleaved import MMInterleavedConfig, SpecialTokens
 from .models.perceiver import PerceiverConfig
+from .models.sd.mmfs_net import MMFSNetConfig
+from .models.sd.scheduler import DiffusionSchedule
+from .models.sd.unet import UNetConfig
+from .models.sd.vae import VAEConfig
 from .models.visual_tokenizer import VisualTokenizerConfig
 from .models.vit import ViTConfig
 from .models.vit_adapter import ViTAdapterConfig
-
-
-@dataclasses.dataclass(frozen=True)
-class VAEConfig:
-    in_channels: int = 3
-    out_channels: int = 3
-    latent_channels: int = 4
-    block_out_channels: Tuple[int, ...] = (128, 256, 512, 512)
-    layers_per_block: int = 2
-    norm_num_groups: int = 32
-    scaling_factor: float = 0.18215
-
-
-@dataclasses.dataclass(frozen=True)
-class MMFSNetConfig:
-    input_channel: int = 1024
-    attn_dim: int = 1024
-    n_heads: int = 16
-    n_points: int = 8
-    feat_spatial_shapes: Tuple[int, ...] = (64, 32, 16, 8)
-    max_num_image_per_seq: int = 10
-    pos_grid_size: int = 64
-
-
-@dataclasses.dataclass(frozen=True)
-class UNetConfig:
-    sample_size: int = 64
-    in_channels: int = 4
-    out_channels: int = 4
-    block_out_channels: Tuple[int, ...] = (320, 640, 1280, 1280)
-    layers_per_block: int = 2
-    cross_attention_dim: int = 1024
-    attention_head_dim: int = 64
-    norm_num_groups: int = 32
-    mmfs: Optional[MMFSNetConfig] = None
-    dtype: str = "float32"
-    remat: bool = False
-
-
-@dataclasses.dataclass(frozen=True)
-class DiffusionSchedule:
-    num_train_timesteps: int = 1000
-    beta_start: float = 0.00085
-    beta_end: float = 0.012
-    beta_schedule: str = "scaled_linear"
-    prediction_type: str = "epsilon"
-
-
-@dataclasses.dataclass(frozen=True)
-class ImageDecoderConfig:
-    vae: VAEConfig = dataclasses.field(default_factory=VAEConfig)
-    unet: UNetConfig = dataclasses.field(default_factory=UNetConfig)
-    schedule: DiffusionSchedule = dataclasses.field(
-        default_factory=DiffusionSchedule
-    )
-    perceiver: PerceiverConfig = dataclasses.field(
-        default_factory=lambda: PerceiverConfig(
-            num_queries=77,
-            hidden_size=1024,
-            encoder_hidden_size=5120,
-            num_hidden_layers=1,
-            num_attention_heads=16,
-            cross_attention_frequency=1,
-        )
-    )
-    uncond_prob: float = 0.1
-    image_size: int = 512
-    spatial_shapes: tuple = (64, 32, 16, 8)
-    vae_encode_mini_bs: int = 32
-    vae_decode_mini_bs: int = 8
-    vae_decode_dtype: str = "bfloat16"
 
 
 def tiny_config(with_image_decoder: bool = True, dtype: str = "float32",

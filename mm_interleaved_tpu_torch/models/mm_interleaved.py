@@ -1,12 +1,15 @@
-"""MMInterleaved, the top-level interleaved image-text model: the text
-generation half (counterpart of `mm_interleaved_tpu/models/mm_interleaved.py`).
+"""MMInterleaved, the top-level interleaved image-text model (counterpart of
+`mm_interleaved_tpu/models/mm_interleaved.py`, the generation pieces).
 
 One token stream mixes text with per-image blocks of ``<soi>`` +
 ``num_img_token`` ``<image>`` placeholders.  The visual tokenizer's query
 embeddings are scattered into the stream, and its pyramids are read by the
-LLM's MMFS layers.  Images arrive padded, ``[B, max_img, H, W, 3]`` with
-``num_image_per_seq``.  The image decoder is not ported yet: a config with
-``image_decoder`` set is rejected.
+LLM's MMFS layers and, through the image decoder's UNet, by image
+generation: `generate_image_inputs` runs the cache-free prefix forward and
+returns each target image's reversed context window and its previous
+image's pyramid, for `generation.diffusion.generate_images`.  Images
+arrive padded, ``[B, max_img, H, W, 3]`` with ``num_image_per_seq``.  The
+training forward belongs to the training slice.
 """
 
 from __future__ import annotations
@@ -18,7 +21,9 @@ import torch
 from torch import nn
 from einops import rearrange
 
+from ..ops.pos_embed import get_1d_sincos_pos_embed
 from . import stream_ops as so
+from .image_decoder import ImageDecoder, ImageDecoderConfig
 from .llama import KVCache, LlamaConfig, LlamaModel, TextDecoder
 from .visual_tokenizer import VisualTokenizer, VisualTokenizerConfig
 
@@ -38,7 +43,7 @@ class MMInterleavedConfig:
     visual: VisualTokenizerConfig = dataclasses.field(
         default_factory=VisualTokenizerConfig
     )
-    image_decoder: Optional[object] = None  # configs.ImageDecoderConfig
+    image_decoder: Optional[ImageDecoderConfig] = None
     special: SpecialTokens = dataclasses.field(default_factory=SpecialTokens)
     seq_len: int = 2048
     num_img_token: int = 64
@@ -52,16 +57,18 @@ class MMInterleavedConfig:
 class MMInterleaved(nn.Module):
     def __init__(self, cfg: MMInterleavedConfig):
         super().__init__()
-        if cfg.image_decoder is not None:
-            raise NotImplementedError(
-                "the image decoder is not ported: use image_decoder=None"
-            )
         self.cfg = cfg
         self.visual_tokenizer = VisualTokenizer(cfg.visual)
         self.mm_decoder = LlamaModel(cfg.llm)
         self.text_decoder = TextDecoder(cfg.llm,
                                         orig_vocab_size=cfg.orig_vocab_size)
         self.soi_token = nn.Parameter(torch.empty(cfg.llm.hidden_size))
+        if cfg.image_decoder is not None:
+            # the JAX module creates its params only where it is called:
+            # on the image-decoder path
+            self.context_feat_proj = nn.Linear(cfg.llm.hidden_size,
+                                               cfg.llm.hidden_size)
+            self.image_decoder = ImageDecoder(cfg.image_decoder)
 
     def init_weights(self, g: torch.Generator) -> None:
         self.soi_token.data.zero_()
@@ -148,6 +155,57 @@ class MMInterleaved(nn.Module):
             vision_value_cache=vision_value_cache,
         )
         return self.text_decoder(hidden), cache
+
+    def _image_decoder_inputs(self, hidden, text_ids, soi_pos, pyramid,
+                              num_image_per_seq):
+        """Context windows and the previous image's pyramid for the image
+        decoder: ``(ctx [(b n), max_ctx, C], ctx_mask [(b n), max_ctx],
+        mmfs_values [(b n), 1, sum(hw), C_vis], mmfs_mask [(b n), 1])``."""
+        c = self.cfg
+        B, L, _ = hidden.shape
+        near_bos = so.nearest_bos_positions(text_ids, c.special.bos_token_id)
+        ctx, ctx_mask = so.context_windows(
+            hidden, soi_pos, near_bos, num_image_per_seq,
+            min(c.max_context_len, L),
+        )
+        ctx = self.context_feat_proj(ctx)
+        pe = torch.from_numpy(get_1d_sincos_pos_embed(c.llm.hidden_size,
+                                                      ctx.shape[2]))
+        ctx = ctx + pe.to(ctx.device, ctx.dtype)[None, None]
+
+        prev_mask = so.previous_image_mask(soi_pos, near_bos,
+                                           num_image_per_seq, L)
+        feats = []
+        for feat in pyramid:
+            if feat.shape[2] in c.image_decoder.spatial_shapes:
+                prev = torch.roll(feat, 1, dims=1)  # image k-1 at slot k
+                prev = prev * prev_mask[:, :, None, None, None].to(prev.dtype)
+                feats.append(rearrange(prev, "b n h w c -> (b n) 1 (h w) c"))
+        mmfs_values = torch.cat(feats, dim=2)
+        return (rearrange(ctx, "b n l c -> (b n) l c"),
+                rearrange(ctx_mask, "b n l -> (b n) l"),
+                mmfs_values,
+                rearrange(prev_mask, "b n -> (b n) 1"))
+
+    @torch.inference_mode()
+    def generate_image_inputs(self, text_ids, image_tensors,
+                              num_image_per_seq, attention_mask=None):
+        """The cache-free prefix forward (causal, with the padding as
+        segment ids), then `_image_decoder_inputs`: the inputs of
+        `generation.diffusion.generate_images` for every image slot."""
+        c = self.cfg
+        if attention_mask is None:
+            attention_mask = (text_ids != c.special.pad_token_id).int()
+        prep = self.prepare_mm_embeds(text_ids, image_tensors,
+                                      num_image_per_seq)
+        hidden, _, _ = self.mm_decoder(
+            prep["mm_embeds"],
+            attention_mask=attention_mask,
+            vision_hidden_states=prep["mmfs_values"],
+            cross_attention_mask=prep["cross_attention_mask"],
+        )
+        return self._image_decoder_inputs(hidden, text_ids, prep["soi_pos"],
+                                          prep["pyramid"], num_image_per_seq)
 
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> None:

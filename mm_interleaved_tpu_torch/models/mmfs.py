@@ -1,9 +1,8 @@
-"""MMFS, the Multi-image Multi-scale Feature Synchronizer: the per-query
-LLM branch (counterpart of `mm_interleaved_tpu/models/mmfs.py`).
+"""MMFS, the Multi-image Multi-scale Feature Synchronizer (counterpart of
+`mm_interleaved_tpu/models/mmfs.py`).
 
-Masked multi-image deformable cross-attention from the token stream onto
-the feature pyramids of the images visible to each token.  As in the JAX
-module:
+Masked multi-image deformable cross-attention from a query stream onto
+the feature pyramids of the images visible to it.  As in the JAX module:
 
   * the relpos embedding is applied by linearity: the offset and attention
     projections run once on the relpos table and are gathered per
@@ -13,21 +12,32 @@ module:
     and a -80 clamp guarding the ignore mass;
   * the ignore token is folded through the output projection.
 
-The JAX module reuses the value projection across decode steps by sowing
-it; here `MMFS.forward` returns it beside the output and takes it back as
-``projected_value``.  The UNet branch (per-image masks, the factorised
-multi-image kernel) belongs to the image half of the port.
+Two branches, chosen by whether `forward` is given an image side:
+
+  * the LLM branch, a per-query mask ``[B, Lq, n_img]``: the wide
+    locations and weights go to `ms_deform_attn_multi_image`.  `forward`
+    returns the value projection beside the output and takes it back as
+    ``projected_value`` on decode steps;
+  * the UNet branch, a per-image mask ``[Bv, n_img]``: the image side
+    (`image_side`: the value, the masked image weight factor and the delta
+    table) depends on the weights and the mask alone, may be computed once
+    for a denoise loop, and may carry a smaller batch than the queries
+    (query row ``c * Bv + b`` reads image row ``b``, the CFG halves).  The
+    readout is the factorised kernel of `ops.ms_deform_attn_mi`; the query
+    weight factor ``Eq * rZ`` is cast to the value dtype before it, as in
+    the JAX package.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 from einops import rearrange
 
 from ..ops.ms_deform_attn import ms_deform_attn_multi_image
+from ..ops.ms_deform_attn_mi import build_delta, mmfs_deform_factorized
 
 
 def image_relpos_from_mask(mask: torch.Tensor,
@@ -85,57 +95,139 @@ class MMFS(nn.Module):
         self.attention_weights.bias.data.zero_()
         self.ignore_token.data.zero_()
 
+    def _tables(self):
+        """Weight-only relpos tables: the offsets ``[R, H, P, 2]`` and the
+        exp-logits ``Et [R, H, L, P]`` of the relpos embedding (bias-free,
+        ``Dense(x) - Dense(0)``), and the logit max ``m_t [H]``."""
+        H, P, R = self.n_heads, self.n_points, self.max_num_image_per_seq
+        L = len(self.level_shapes)
+        emb_mat = self.query_relpos.weight  # [R, d_query]
+        zero_row = torch.zeros((1, self.d_query), dtype=emb_mat.dtype,
+                               device=emb_mat.device)
+        off_tab = (self.sampling_offsets(emb_mat)
+                   - self.sampling_offsets(zero_row))
+        logit_tab = (self.attention_weights(emb_mat)
+                     - self.attention_weights(zero_row))
+        lt = logit_tab.reshape(R, H, L, P + 1)[..., :P].float()
+        m_t = lt.amax(dim=(0, -2, -1))  # [H]
+        Et = torch.exp(lt - m_t[None, :, None, None])
+        return off_tab.float().reshape(R, H, P, 2), Et, m_t
+
+    def image_side(self, attention_mask: torch.Tensor,
+                   projected_value: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """The UNet branch's query-independent inputs for an image mask
+        ``[Bv, n_img]`` and the projected value ``[Bv, n_img, hw, d]``."""
+        mask = attention_mask.long()
+        Bv, n_img = mask.shape
+        relpos = image_relpos_from_mask(mask, self.max_num_image_per_seq)
+        off_tab, Et, m_t = self._tables()
+        Et_g = Et[relpos] * mask[..., None, None, None].float()
+        H = self.n_heads
+        return dict(
+            value=projected_value.reshape(Bv, n_img, -1, H,
+                                          self.d_val_proj // H),
+            Et_g=Et_g,  # [Bv, n_img, H, L, P]
+            delta=build_delta(off_tab[relpos], Et_g, self.level_shapes,
+                              1.0 / self.base_spatial_shape),
+            m_t=m_t,
+        )
+
+    def _ignore_table(self, out_dtype, dev):
+        """Folded ignore path: token_h in head h's slot, projected
+        bias-free, ``[H, d_out]``."""
+        H = self.n_heads
+        ignore_heads = self.ignore_token.float().reshape(H, -1)
+        tok = (torch.eye(H, dtype=torch.float32, device=dev)[:, :, None]
+               * ignore_heads[:, None, :]).reshape(H, self.d_val_proj)
+        tok = tok.to(out_dtype)
+        return (self.output_proj(tok)
+                - self.output_proj(torch.zeros_like(tok[:1])))
+
     def forward(
         self,
         query: torch.Tensor,  # [B, Lq, d_query]
         input_flatten: Optional[torch.Tensor],  # [B, n_img, hw, d_value]
-        attention_mask: torch.Tensor,  # [B, Lq, n_img], 1 = valid
+        attention_mask: Optional[torch.Tensor],  # [B, Lq, n_img]
+        reference_points: Optional[torch.Tensor] = None,  # [B, Lq, 2]
         projected_value: Optional[torch.Tensor] = None,  # [B, n_img, hw, d]
-    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        image_side: Optional[Dict[str, torch.Tensor]] = None,
+    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """Returns ``(out [B, Lq, d_out], projected_value)``; pass the
-        second back on decode steps to skip the value projection."""
-        if attention_mask.dim() != 3:
-            raise NotImplementedError(
-                "MMFS: only the per-query (LLM) mask [B, Lq, n_img] is ported"
-            )
-        n_levels = len(self.level_shapes)
-        B, Lq, _ = query.shape
-        n_img = attention_mask.shape[-1]
-        P, H = self.n_points, self.n_heads
-        R = self.max_num_image_per_seq
-        dev = query.device
-
-        mask = attention_mask.long()
-        image_relpos = image_relpos_from_mask(mask, R)  # [B, Lq, n_img]
-
+        second back on decode steps to skip the value projection.  The UNet
+        branch passes ``image_side`` (from `image_side`) in place of the
+        value and the mask."""
+        if image_side is not None:
+            return self._forward_image_mask(query, reference_points,
+                                            image_side), None
         if projected_value is None:
             projected_value = self.value_proj(input_flatten)
-        value = projected_value.reshape(B, n_img, -1, H, self.d_val_proj // H)
+        return self._forward_query_mask(query, attention_mask,
+                                        projected_value), projected_value
 
+    def _query_logits(self, query):
+        B, Lq, _ = query.shape
+        H, P = self.n_heads, self.n_points
+        L = len(self.level_shapes)
         q = self.dynamic_offset_mask(query)
-        emb_mat = self.query_relpos.weight  # [R, d_query]
-        zero_row = torch.zeros((1, self.d_query), dtype=emb_mat.dtype,
-                               device=dev)
-        off_q = self.sampling_offsets(q)
-        off_tab = self.sampling_offsets(emb_mat) - self.sampling_offsets(zero_row)
-        logit_q = self.attention_weights(q)
-        logit_tab = (self.attention_weights(emb_mat)
-                     - self.attention_weights(zero_row))
-
-        lq = logit_q.reshape(B, Lq, H, n_levels, P + 1)[..., :P].float()
-        lt = logit_tab.reshape(R, H, n_levels, P + 1)[..., :P].float()
+        off_q = self.sampling_offsets(q).float().reshape(B, Lq, H, P, 2)
+        lq = self.attention_weights(q).reshape(B, Lq, H, L, P + 1)[..., :P]
+        lq = lq.float()
         m_q = lq.amax(dim=(-2, -1))  # [B, Lq, H]
-        m_t = lt.amax(dim=(0, -2, -1))  # [H]
         Eq = torch.exp(lq - m_q[..., None, None])
-        Et = torch.exp(lt - m_t[None, :, None, None])
+        return off_q, Eq, m_q
 
+    @staticmethod
+    def _norms(m_q, m_t, S):
+        """(rZ, w_ignore) from the logit maxima and the point mass ``S``."""
         m_sum = m_q + m_t[None, None, :]
         mc = m_sum.clamp(min=-80.0)  # overflow guard on the ignore mass
         point_scale = torch.exp(m_sum - mc)
         ignore_mass = torch.exp(-mc)
+        Z = S.sum(dim=-1) * point_scale + ignore_mass
+        return point_scale / Z, ignore_mass / Z
 
-        off_q_r = off_q.float().reshape(B, Lq, H, P, 2)
-        off_tab_r = off_tab.float().reshape(R, H, P, 2)
+    def _finish(self, out, w_ignore_tot):
+        out = self.output_proj(out)
+        tok_w = self._ignore_table(out.dtype, out.device)
+        return out + torch.einsum("bqh,ho->bqo", w_ignore_tot.to(tok_w.dtype),
+                                  tok_w)
+
+    def _forward_image_mask(self, query, reference_points, side):
+        B, Lq, _ = query.shape
+        Et_g = side["Et_g"]
+        Bv = Et_g.shape[0]
+        if B % Bv:
+            raise ValueError(f"query batch {B} is not a multiple of the "
+                             f"image batch {Bv}")
+        off_q, Eq, m_q = self._query_logits(query)
+        S = torch.einsum("bqhlp,bnhlp->bqhn", Eq, Et_g.repeat(B // Bv, 1, 1,
+                                                               1, 1))
+        rZ, w_ignore_tot = self._norms(m_q, side["m_t"], S)
+        if reference_points is None:
+            ref = torch.full((B, Lq, 2), 0.5, dtype=torch.float32,
+                             device=query.device)
+        else:
+            ref = reference_points.float()
+        value = side["value"]
+        out = mmfs_deform_factorized(
+            value, side["delta"], self.level_shapes, ref, off_q,
+            (Eq * rZ[..., None, None]).to(value.dtype),
+            1.0 / self.base_spatial_shape,
+        )
+        return self._finish(out, w_ignore_tot)
+
+    def _forward_query_mask(self, query, attention_mask, projected_value):
+        B, Lq, _ = query.shape
+        n_img = attention_mask.shape[-1]
+        P, H = self.n_points, self.n_heads
+        dev = query.device
+
+        mask = attention_mask.long()
+        image_relpos = image_relpos_from_mask(
+            mask, self.max_num_image_per_seq)  # [B, Lq, n_img]
+        value = projected_value.reshape(B, n_img, -1, H, self.d_val_proj // H)
+        off_q_r, Eq, m_q = self._query_logits(query)
+        off_tab_r, Et, m_t = self._tables()
 
         per_level = torch.tensor(
             [[w / self.base_spatial_shape / w, h / self.base_spatial_shape / h]
@@ -150,10 +242,7 @@ class MMFS(nn.Module):
         off_full = off_q_r[:, :, None] + off_tab_r[image_relpos]
         Et_b = rearrange(Et_g, "b q n h l p -> b q h n l p")
         off_b = rearrange(off_full, "b q n h p t -> b q h n p t")
-
-        Z = S.sum(dim=-1) * point_scale + ignore_mass
-        rZ = point_scale / Z
-        w_ignore_tot = ignore_mass / Z
+        rZ, w_ignore_tot = self._norms(m_q, m_t, S)
 
         w_points = Eq[:, :, :, None] * Et_b * rZ[:, :, :, None, None, None]
         sampling_locations = (
@@ -167,14 +256,4 @@ class MMFS(nn.Module):
             sampling_locations.to(value.dtype),
             w_points.to(value.dtype),
         )
-        out = self.output_proj(out)
-
-        # folded ignore path: token_h in head h's slot, projected bias-free
-        ignore_heads = self.ignore_token.float().reshape(H, -1)
-        tok = (torch.eye(H, dtype=torch.float32, device=dev)[:, :, None]
-               * ignore_heads[:, None, :]).reshape(H, self.d_val_proj)
-        tok = tok.to(out.dtype)
-        tok_w = self.output_proj(tok) - self.output_proj(torch.zeros_like(tok[:1]))
-        out = out + torch.einsum("bqh,ho->bqo", w_ignore_tot.to(tok_w.dtype),
-                                 tok_w)
-        return out, projected_value
+        return self._finish(out, w_ignore_tot)

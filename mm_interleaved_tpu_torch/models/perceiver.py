@@ -2,7 +2,10 @@
 `mm_interleaved_tpu/models/perceiver.py`): post-LN blocks over learned
 queries with self-attention, cross-attention every
 ``cross_attention_frequency`` layers (from layer 0), an erf-GELU FFN, and
-optional q/k LayerNorm over ``head_dim``."""
+optional q/k LayerNorm over ``head_dim``.  An ``encoder_attention_mask
+[B, S]`` masks the cross-attention keys (a dense mask: that call stays on
+the plain attention path; the mask-free self-attention takes the flash
+kernel on the card)."""
 
 from __future__ import annotations
 
@@ -54,7 +57,7 @@ class _MHA(nn.Module):
             self.k_norm = nn.LayerNorm(hd, eps=cfg.layer_norm_eps)
         self.output = nn.Linear(c, c)
 
-    def forward(self, x, kv):
+    def forward(self, x, kv, kv_mask=None):
         c = self.cfg
         B, T, _ = x.shape
         S = kv.shape[1]
@@ -66,7 +69,8 @@ class _MHA(nn.Module):
         if c.qk_normalization:
             q = self.q_norm(q)
             k = self.k_norm(k)
-        out = dot_product_attention(q, k, v)
+        mask = None if kv_mask is None else kv_mask[:, None, None, :].bool()
+        out = dot_product_attention(q, k, v, mask=mask)
         return self.output(out.reshape(B, T, c.hidden_size))
 
 
@@ -85,10 +89,11 @@ class PerceiverLayer(nn.Module):
         self.ffn_output = nn.Linear(cfg.ffn_size, c)
         self.output_norm = nn.LayerNorm(c, eps=eps)
 
-    def forward(self, x, enc):
+    def forward(self, x, enc, enc_mask=None):
         x = self.attention_norm(x + self.attention(x, x))
         if self.has_cross:
-            x = self.crossattention_norm(x + self.crossattention(x, enc))
+            x = self.crossattention_norm(
+                x + self.crossattention(x, enc, enc_mask))
         h = self.ffn_output(F.gelu(self.intermediate(x)))
         return self.output_norm(x + h)
 
@@ -111,9 +116,11 @@ class PerceiverResampler(nn.Module):
     def init_weights(self, g: torch.Generator) -> None:
         self.queries.data.normal_(0.0, self.cfg.initializer_range, generator=g)
 
-    def forward(self, encoder_hidden_states: torch.Tensor) -> torch.Tensor:
+    def forward(self, encoder_hidden_states: torch.Tensor,
+                encoder_attention_mask: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
         B = encoder_hidden_states.shape[0]
         x = self.input_norm(self.queries.expand(B, -1, -1))
         for layer in self.layers:
-            x = layer(x, encoder_hidden_states)
+            x = layer(x, encoder_hidden_states, encoder_attention_mask)
         return x

@@ -96,3 +96,58 @@ def mm_cross_attention_mask(
     )
     mask = (ip > near_bos[:, :, None]) & (ip <= t) & k_valid
     return mask.to(torch.int32), soi_pos
+
+
+def context_windows(
+    hidden: torch.Tensor,  # [B, L, C]
+    soi_pos: torch.Tensor,  # [B, max_img]
+    near_bos: torch.Tensor,  # [B, L]
+    num_image_per_seq: torch.Tensor,  # [B]
+    max_ctx: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-image reversed context window: window j of image k is
+    ``hidden[soi_pos_k - j]`` for ``j in [0, soi_pos_k - bos_k]`` (index 0
+    is the <soi> token itself), zero elsewhere.
+
+    Returns (ctx ``[B, max_img, max_ctx, C]``, mask ``[B, max_img,
+    max_ctx]`` int32).
+    """
+    B, L, C = hidden.shape
+    max_img = soi_pos.shape[1]
+    dev = hidden.device
+    soi = soi_pos.long()
+    safe_soi = soi.clamp(0, L - 1)
+    bos_at_soi = torch.gather(near_bos.long(), 1, safe_soi).clamp(min=0)
+    ctx_len = safe_soi - bos_at_soi + 1
+    j = torch.arange(max_ctx, device=dev)
+    idx = safe_soi[:, :, None] - j[None, None, :]
+    valid = ((j[None, None, :] < ctx_len[:, :, None])
+             & (soi[:, :, None] < L)
+             & (torch.arange(max_img, device=dev)[None, :, None]
+                < num_image_per_seq[:, None, None]))
+    idx = idx.clamp(0, L - 1)
+    b_idx = torch.arange(B, device=dev)[:, None, None]
+    ctx = hidden[b_idx, idx]  # [B, max_img, max_ctx, C]
+    ctx = torch.where(valid[..., None], ctx, torch.zeros_like(ctx))
+    return ctx, valid.to(torch.int32)
+
+
+def previous_image_mask(
+    soi_pos: torch.Tensor,  # [B, max_img]
+    near_bos: torch.Tensor,  # [B, L]
+    num_image_per_seq: torch.Tensor,  # [B]
+    L: int,
+) -> torch.Tensor:
+    """``[B, max_img]`` int32: 1 where target image k has image k-1 in
+    context (k-1 exists and its <soi> is at or after the nearest <bos> of
+    image k's <soi>, the same packed document)."""
+    B, max_img = soi_pos.shape
+    soi = soi_pos.long()
+    safe_soi = soi.clamp(0, L - 1)
+    bos_at_soi = torch.gather(near_bos.long(), 1, safe_soi).clamp(min=0)
+    prev_soi = torch.roll(soi, 1, dims=1)  # column 0 is invalid
+    k = torch.arange(max_img, device=soi.device)[None, :]
+    has_prev = (k >= 1) & (k < num_image_per_seq[:, None])
+    in_doc = prev_soi >= bos_at_soi
+    cur_valid = soi < L
+    return (has_prev & in_doc & cur_valid & (prev_soi < L)).to(torch.int32)

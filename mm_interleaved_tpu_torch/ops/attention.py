@@ -1,9 +1,14 @@
-"""Scaled dot-product attention with fp32 logits and softmax (counterpart
-of the plain path of `mm_interleaved_tpu/ops/attention.py`, `_xla_attention`).
+"""Scaled dot-product attention with fp32 logits and softmax (counterpart of
+`mm_interleaved_tpu/ops/attention.py`).
 
-The JAX package sends cache-free, mask-free calls with aligned lengths to a
-Pallas flash kernel; none of those calls is on the text-generation path,
-so this module holds the plain math only.
+Dispatch, by device and mask: a CUDA call without a dense ``mask`` launches
+the hand-written flash kernel of `flash_attention` (causal and segment ids
+included, any lengths, ``D <= 128``; a wider head raises).  The TPU's shape
+gates (Tq >= 256, 128-aligned lengths) have no counterpart.  Calls with a
+dense mask (the KV-cache prefill and decode, the image decoder's masked
+cross-attention) and every CPU call take the plain version,
+`flash_attention.attention_plain`, as they take the XLA path in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -11,6 +16,8 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+from . import flash_attention as _fa
 
 
 def dot_product_attention(
@@ -20,6 +27,7 @@ def dot_product_attention(
     *,
     mask: Optional[torch.Tensor] = None,
     causal: bool = False,
+    scale: Optional[float] = None,
     q_segment_ids: Optional[torch.Tensor] = None,
     kv_segment_ids: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
@@ -29,24 +37,13 @@ def dot_product_attention(
       q: ``[B, Tq, H, D]``; k, v: ``[B, Tk, H, D]``.
       mask: boolean mask broadcastable to ``[B, H, Tq, Tk]``, True = attend.
       causal: query i attends keys <= i, aligned to the end of the keys.
+      scale: overrides the default ``1/sqrt(D)``.
       q_segment_ids / kv_segment_ids: ``[B, Tq]`` / ``[B, Tk]``; attention
         only within equal segments.
     """
-    dtype = q.dtype
-    scale = q.shape[-1] ** -0.5
-    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
-
-    neg = torch.finfo(torch.float32).min
-    if causal:
-        tq, tk = q.shape[1], k.shape[1]
-        qi = torch.arange(tq, device=q.device)[:, None] + (tk - tq)
-        ki = torch.arange(tk, device=q.device)[None, :]
-        logits = logits.masked_fill(ki > qi, neg)
-    if q_segment_ids is not None:
-        seg = q_segment_ids[:, :, None] == kv_segment_ids[:, None, :]
-        logits = logits.masked_fill(~seg[:, None], neg)
-    if mask is not None:
-        logits = logits.masked_fill(~mask, neg)
-
-    probs = torch.softmax(logits, dim=-1)
-    return torch.einsum("bhqk,bkhd->bqhd", probs.to(dtype), v)
+    kw = dict(causal=causal, scale=scale, q_segment_ids=q_segment_ids,
+              kv_segment_ids=kv_segment_ids)
+    if q.device.type == "cuda" and mask is None:
+        return _fa.flash_attention(q.contiguous(), k.contiguous(),
+                                   v.contiguous(), **kw)
+    return _fa.attention_plain(q, k, v, mask=mask, **kw)

@@ -6,6 +6,11 @@ root of the checkout (the hash covers the source and the flags, so an edit
 rebuilds).  Libraries load through `ctypes`.  Nothing is built at import:
 `load_library` builds at first use, and `build_all` starts one ``nvcc`` per
 source at once and waits for all of them.
+
+The launch helpers at the end are shared by the kernels' wrappers:
+`CountedKernel` counts launches, `check_cuda` and `forbid_grad` refuse
+what a kernel does not take, `raise_on_error` turns a nonzero return into
+an exception.
 """
 
 from __future__ import annotations
@@ -17,7 +22,9 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Sequence
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -98,3 +105,50 @@ def load_library(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(_target(name)))
         _loaded[name] = lib
     return lib
+
+
+class CountedKernel:
+    """A kernel's wrapper: calling it launches the kernel through
+    ``launch``; ``launches`` counts the launches made (one that raises is
+    not counted)."""
+
+    def __init__(self, launch):
+        self._launch = launch
+        self.launches = 0
+        self.__doc__ = launch.__doc__
+
+    def __call__(self, *args, **kwargs):
+        out = self._launch(*args, **kwargs)
+        self.launches += 1
+        return out
+
+
+def check_cuda(name: str, tensors: Sequence[torch.Tensor],
+               dtypes=(torch.float32, torch.bfloat16)) -> None:
+    """All of ``tensors`` on one CUDA device, contiguous, the first in one
+    of ``dtypes``."""
+    dev = tensors[0].device
+    if any(t.device.type != "cuda" or t.device != dev for t in tensors):
+        raise ValueError(f"{name}: all inputs must be on one CUDA device")
+    if tensors[0].dtype not in dtypes:
+        raise TypeError(f"{name}: dtype {tensors[0].dtype} not in {dtypes}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name}: inputs must be contiguous")
+
+
+def forbid_grad(name: str, *tensors: torch.Tensor) -> None:
+    """The kernels are forward only: refuse a call that autograd would
+    have to differentiate."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{name}: the CUDA kernel is forward only; its gradient belongs "
+            "to the training slice")
+
+
+def raise_on_error(name: str, err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cuda error {err}")
+
+
+def stream_of(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream

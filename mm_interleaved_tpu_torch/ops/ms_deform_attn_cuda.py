@@ -23,7 +23,7 @@ from typing import Sequence, Tuple
 
 import torch
 
-from .cuda_build import load_library
+from .cuda_build import CountedKernel, load_library
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -76,28 +76,8 @@ def ms_deform_attn_plain(
     return acc.reshape(N, Q, H * D).to(value.dtype)
 
 
-class _Kernel:
-    """Callable wrapper of the CUDA kernel; ``launches`` counts the
-    launches it made."""
-
-    def __init__(self):
-        self.launches = 0
-
-    def __call__(
-        self,
-        value: torch.Tensor,
-        level_shapes: Sequence[Tuple[int, int]],
-        sampling_locations: torch.Tensor,
-        attention_weights: torch.Tensor,
-    ) -> torch.Tensor:
-        """Launch the CUDA kernel; raises on input it does not take."""
-        out = _launch(value, level_shapes, sampling_locations,
-                      attention_weights)
-        self.launches += 1
-        return out
-
-
 def _launch(value, level_shapes, sampling_locations, attention_weights):
+    """Launch the CUDA kernel; raises on input it does not take."""
     tensors = (value, sampling_locations, attention_weights)
     if any(t.device.type != "cuda" or t.device != value.device
            for t in tensors):
@@ -154,4 +134,4 @@ def _launch(value, level_shapes, sampling_locations, attention_weights):
     return out
 
 
-ms_deform_attn_cuda = _Kernel()
+ms_deform_attn_cuda = CountedKernel(_launch)

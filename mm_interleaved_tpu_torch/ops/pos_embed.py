@@ -26,6 +26,11 @@ def _sincos_from_grid(embed_dim: int, pos: np.ndarray) -> np.ndarray:
     return np.concatenate([np.sin(out), np.cos(out)], axis=1).astype(np.float32)
 
 
+def get_1d_sincos_pos_embed(embed_dim: int, length: int) -> np.ndarray:
+    """``[length, embed_dim]`` fixed sin-cos table."""
+    return _sincos_from_grid(embed_dim, np.arange(length, dtype=np.float32))
+
+
 def get_2d_sincos_pos_embed(
     embed_dim: int, grid_size: int, cls_token: bool = False
 ) -> np.ndarray:

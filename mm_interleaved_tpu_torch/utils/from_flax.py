@@ -13,9 +13,13 @@ tensors keyed as the port's modules name them, for
     `mm_interleaved_tpu/utils/convert_ref.py`);
   * ``scan_layers`` stacks ``block/layer_{j}`` (leading ``n_blocks`` axis)
     are unstacked to ``layers_{b * freq + j}``;
-  * LayerNorm ``scale`` and Embed ``embedding`` become ``weight``; bare
-    params (``soi_token``, ``gate``, ``gamma``, ``adapter_level_embed``,
-    ``ignore_token``, ``queries``, ...) keep their names.
+  * LayerNorm and GroupNorm ``scale`` and Embed ``embedding`` become
+    ``weight``; bare params (``soi_token``, ``gate``, ``gamma``,
+    ``adapter_level_embed``, ``ignore_token``, ``queries``,
+    ``neg_prompt_embeds``, ...) keep their names;
+  * the image decoder needs no renames: the port's UNet, VAE and MMFSNet
+    keep the JAX module names, and the fused GEGLU's ``ff_in``/``ff_out``
+    params are ``kernel``/``bias`` like any Dense.
 """
 
 from __future__ import annotations

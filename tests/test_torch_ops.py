@@ -206,3 +206,170 @@ def test_cuda_wrapper_refuses_cpu_tensors_and_counts_nothing():
     with pytest.raises(ValueError, match="spatial shapes"):
         ms_deform_attn(t(value), ((4, 5),), t(loc), t(w))
 
+
+
+# --- the image slice's kernels: plain versions against JAX ----------------
+
+from mm_interleaved_tpu.ops.geglu import geglu_mlp as j_geglu
+from mm_interleaved_tpu.ops.group_norm import (
+    group_norm as j_gn, group_norm_silu as j_gn_silu,
+)
+from mm_interleaved_tpu.ops.ms_deform_attn_pallas_mi import (
+    mmfs_deform_factorized as j_mi,
+    mmfs_deform_factorized_prepared as j_mi_prepared,
+    prepare_image_side as j_image_side,
+)
+from mm_interleaved_tpu_torch.ops import flash_attention as fa
+from mm_interleaved_tpu_torch.ops import geglu as tgeglu
+from mm_interleaved_tpu_torch.ops import group_norm as tgn
+from mm_interleaved_tpu_torch.ops import ms_deform_attn_mi as tmi
+
+
+def _mi_inputs(level_shapes, Lq, n_img, Bv, B, seed):
+    """The inputs of tests/test_pallas_kernel.py's factorised-kernel tests,
+    with the last image masked out through its weight factor and offsets
+    large enough to leave the grid."""
+    rng = np.random.RandomState(seed)
+    H, P, D = 4, 3, 8
+    L = len(level_shapes)
+    hw = sum(h * w for h, w in level_shapes)
+    value = rng.randn(Bv, n_img, hw, H, D).astype(np.float32)
+    off_img = (rng.randn(Bv, n_img, H, P, 2) * 2).astype(np.float32)
+    wi = rng.rand(Bv, n_img, H, L, P).astype(np.float32)
+    wi[:, -1] = 0.0
+    ref = rng.rand(B, Lq, 2).astype(np.float32)
+    off_q = (rng.randn(B, Lq, H, P, 2) * 2).astype(np.float32)
+    wq = rng.rand(B, Lq, H, L, P).astype(np.float32)
+    return value, off_img, wi, ref, off_q, wq
+
+
+@pytest.mark.parametrize(
+    "level_shapes,Lq,n_img",
+    [(((8, 8), (4, 4)), 70, 2), (((16, 16), (8, 8), (4, 4), (2, 2)), 128, 3)],
+)
+def test_mi_plain_matches_factorized_kernel_interpret(level_shapes, Lq,
+                                                      n_img):
+    """Plain factorised readout against the Pallas kernel in interpret
+    mode (atol 1e-5: the same sums in another order)."""
+    value, off_img, wi, ref, off_q, wq = _mi_inputs(level_shapes, Lq, n_img,
+                                                    2, 2, 3)
+    base = level_shapes[0][0]
+    want = j_mi(jnp.asarray(value), level_shapes, jnp.asarray(ref),
+                jnp.asarray(off_q), jnp.asarray(off_img), jnp.asarray(wq),
+                jnp.asarray(wi), inv_base=1.0 / base, interpret=True)
+    delta = tmi.build_delta(t(off_img), t(wi), level_shapes, 1.0 / base)
+    before = tmi.ms_deform_attn_mi_cuda.launches
+    got = tmi.mmfs_deform_factorized(t(value), delta, level_shapes, t(ref),
+                                     t(off_q), t(wq), 1.0 / base)
+    assert tmi.ms_deform_attn_mi_cuda.launches == before  # CPU: plain path
+    close(got, want, 0, 1e-5)
+
+
+def test_mi_plain_cfg_shared_image_side():
+    """A half-batch image side (query row c*Bv + b reads image row b)
+    against `mmfs_deform_factorized_prepared` on the same layout."""
+    shapes = ((8, 8), (4, 4))
+    value, off_img, wi, ref, off_q, wq = _mi_inputs(shapes, 70, 2, 2, 4, 7)
+    level_vals, jdelta = j_image_side(jnp.asarray(value), shapes,
+                                      jnp.asarray(off_img), jnp.asarray(wi),
+                                      1.0 / 8)
+    want = j_mi_prepared(level_vals, jdelta, shapes, jnp.asarray(ref),
+                         jnp.asarray(off_q), jnp.asarray(wq), inv_base=1.0 / 8,
+                         interpret=True)
+    delta = tmi.build_delta(t(off_img), t(wi), shapes, 1.0 / 8)
+    close(delta, jdelta, 0, 1e-6)
+    got = tmi.ms_deform_attn_mi_plain(t(value), delta, shapes, t(ref),
+                                      t(off_q), t(wq), 1.0 / 8)
+    close(got, want, 0, 1e-5)
+
+
+@pytest.mark.parametrize("case,D", [
+    ("plain", 8), ("plain", 64), ("causal_segments", 8),
+    ("causal_segments", 64), ("cross", 8), ("cross", 64), ("scale", 16),
+])
+def test_flash_plain_matches_jax_attention(case, D):
+    """The kernel's plain version against JAX `dot_product_attention` on
+    the CPU (its XLA path): non-causal; causal with left-padding segment
+    ids; Tq != Tk; an explicit scale.  atol 1e-5."""
+    rs = np.random.RandomState(D)
+    B, H = 2, 3
+    Tq, Tk = (5, 9) if case == "cross" else (11, 11)
+    q, k, v = (rs.randn(B, T, H, D).astype(np.float32)
+               for T in (Tq, Tk, Tk))
+    kw = {}
+    if case == "causal_segments":
+        seg = np.ones((B, Tq), np.int32)
+        seg[1, :4] = 0  # row 1 is left-padded by 4
+        kw = dict(causal=True, q_segment_ids=seg, kv_segment_ids=seg)
+    if case == "scale":
+        kw = dict(scale=0.3)
+    want = jatt.dot_product_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+        **{a: jnp.asarray(b) if isinstance(b, np.ndarray) else b
+           for a, b in kw.items()})
+    got = dot_product_attention(
+        t(q), t(k), t(v),
+        **{a: t(b) if isinstance(b, np.ndarray) else b
+           for a, b in kw.items()})
+    close(got, want, 0, 1e-5)
+    close(fa.attention_plain(t(q), t(k), t(v), **{
+        a: t(b) if isinstance(b, np.ndarray) else b for a, b in kw.items()}),
+        want, 0, 1e-5)
+
+
+@pytest.mark.parametrize("eps,shape,G", [
+    (1e-5, (2, 8, 8, 32), 4),  # UNet ResnetBlock
+    (1e-6, (2, 16, 16, 16), 4),  # VAE
+    (1e-6, (2, 4, 4, 24), 8),  # SpatialTransformer, C not a power of 2
+])
+def test_group_norm_and_silu_match_jax(eps, shape, G):
+    rs = np.random.RandomState(1)
+    x = (rs.randn(*shape) * 2 + 0.5).astype(np.float32)
+    scale = (1 + 0.1 * rs.randn(shape[-1])).astype(np.float32)
+    bias = (0.1 * rs.randn(shape[-1])).astype(np.float32)
+    args_j = (jnp.asarray(x), jnp.asarray(scale), jnp.asarray(bias), G, eps)
+    args_t = (t(x), t(scale), t(bias), G, eps)
+    close(tgn.group_norm(*args_t), j_gn(*args_j), 0, 1e-5)
+    before = tgn.group_norm_silu_apply_cuda.launches
+    close(tgn.group_norm_silu(*args_t), j_gn_silu(*args_j), 0, 1e-5)
+    assert tgn.group_norm_silu_apply_cuda.launches == before
+
+
+@pytest.mark.parametrize("B,T,C", [(2, 32, 16), (1, 64, 32)])
+def test_geglu_plain_matches_pallas_interpret(B, T, C):
+    """The plain fused feed-forward against the Pallas kernel in interpret
+    mode (its tiling needs T % 512 == 0, so T pads to the tile there).
+    rtol 1e-5."""
+    rs = np.random.RandomState(0)
+    x = rs.randn(B, 512, C).astype(np.float32)
+    w1 = (rs.randn(C, 8 * C) / np.sqrt(C)).astype(np.float32)
+    b1 = (0.1 * rs.randn(8 * C)).astype(np.float32)
+    w2 = (rs.randn(4 * C, C) / np.sqrt(4 * C)).astype(np.float32)
+    b2 = (0.1 * rs.randn(C)).astype(np.float32)
+    want = np.asarray(j_geglu(*(jnp.asarray(a) for a in (x, w1, b1, w2, b2)),
+                              interpret=True))[:, :T]
+    got = tgeglu.geglu_mlp(t(x[:, :T]), t(w1.T.copy()), t(b1),
+                           t(w2.T.copy()), t(b2))
+    close(got, want, 1e-5, 1e-6)
+
+
+def test_new_cuda_wrappers_refuse_cpu_tensors_and_count_nothing():
+    """Each kernel wrapper raises on CPU tensors and does not count."""
+    x = torch.zeros(1, 4, 4, 8)
+    calls = [
+        (fa.flash_attention, (x, x, x)),
+        (tgn.group_norm_silu_apply_cuda,
+         (x, torch.zeros(1, 8), torch.zeros(1, 8))),
+        (tgeglu.geglu_cuda, (torch.zeros(3, 8), torch.zeros(64, 8),
+                             torch.zeros(64), torch.zeros(8, 32),
+                             torch.zeros(8))),
+        (tmi.ms_deform_attn_mi_cuda,
+         (torch.zeros(1, 1, 16, 1, 8), torch.zeros(1, 1, 1, 3),
+          ((4, 4),), torch.zeros(1, 2, 2), torch.zeros(1, 2, 1, 1, 2),
+          torch.zeros(1, 2, 1, 1, 1), 0.25)),
+    ]
+    for kernel, args in calls:
+        before = kernel.launches
+        with pytest.raises(ValueError, match="CUDA"):
+            kernel(*args)
+        assert kernel.launches == before
