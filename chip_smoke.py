@@ -32,7 +32,29 @@ Phases, each of which raises (and exits nonzero) on failure:
    preset's image path (whose widths take the kernels' CUDA-core variants
    in bf16), in bf16 and fp32, each timed with CUDA events (median of 25),
    beside its bound and, for flash attention,
-   `scaled_dot_product_attention`.
+   `scaled_dot_product_attention`;
+8. training: (a) right after phase 3, one `Trainer` step of the tiny preset
+   with its image decoder, fp32, on the card against the CPU with the same
+   injected draws: loss within 1e-5 relative, every trainable gradient
+   within 1e-4 of its scale, then one `Trainer` step at the default lr:
+   the gradient norm within 1e-5 relative, Adam's moments within the
+   gradients' tolerance, each master's update equal to AdamW's formula
+   from the card's own moments (its first call of each backward kernel is
+   the ``tiny`` site);
+   (b) after phase 7, the flagship in its training form (frozen leaves as
+   the JAX package freezes them, bf16 compute, fp32 masters in the
+   optimizer, remat as configured, ``warmup_steps=0``: optax's first
+   update is at count 0) on the phase 5-6 prompt with 512 px targets:
+   step 1 twice from one state (the same loss, the gradient norm and the
+   update within stated tolerances: the value gradient's fp32 atomics sum
+   in varying order), then steps 2 and 3; finite metrics, frozen leaves
+   bit-identical, every trainable group moved, every kernel's launch count
+   equal to the count derived from the config, one step under
+   `torch.profiler`; (c) each backward kernel against the plain version's
+   autograd at every distinct training call shape and at ``tiny``, in
+   bf16 and fp32, timed beside its bound and, for flash attention,
+   autograd through `scaled_dot_product_attention`; flash attention's
+   training forward (output and LSE) against attention in fp64 there.
 
 Prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power line,
 and last ``{"ok": true, "device": {...}}``.  Needs one CUDA card and the
@@ -87,7 +109,30 @@ KERNELS = {
         module="geglu", kernel="geglu_cuda", plain="geglu_plain",
         source="geglu.cu",
         replaces="mm_interleaved_tpu/ops/geglu.py:67 _kernel"),
+    "ms_deform_attn_bwd_value": dict(
+        module="ms_deform_attn_cuda", kernel="ms_deform_attn_bwd_value_cuda",
+        plain="ms_deform_attn_plain", source="ms_deform_attn_bwd.cu",
+        replaces="mm_interleaved_tpu/ops/ms_deform_attn_pallas_v5.py:264 "
+                 "_kernel_v5_bwd_dv"),
+    "ms_deform_attn_bwd_loc_weight": dict(
+        module="ms_deform_attn_cuda",
+        kernel="ms_deform_attn_bwd_loc_weight_cuda",
+        plain="ms_deform_attn_plain", source="ms_deform_attn_bwd.cu",
+        replaces="mm_interleaved_tpu/ops/ms_deform_attn_pallas_v5.py:296 "
+                 "_kernel_v5_bwd_dslab"),
+    "flash_attention_bwd": dict(
+        module="flash_attention", kernel="flash_attention_bwd",
+        plain="attention_plain", source="flash_attention_bwd.cu",
+        replaces="mm_interleaved_tpu/ops/flash_attention.py:19 "
+                 "flash_attention (its backward: dkv, dq)"),
 }
+# the forward kernels of the inference phases and the backward kernels of
+# the training phase
+FORWARD = ("ms_deform_attn_fwd", "ms_deform_attn_mi_fwd",
+           "flash_attention_fwd", "group_norm_silu_apply", "geglu_fwd")
+BACKWARD = ("ms_deform_attn_bwd_value", "ms_deform_attn_bwd_loc_weight",
+            "flash_attention_bwd")
+TRAIN_STEPS = 3
 
 
 def log(*a):
@@ -219,12 +264,28 @@ def _site_geglu(x, w1, b1, w2, b2):
     return f"C{x.shape[-1]}"
 
 
+def _site_deform_bwd(value, shapes, loc, w, grad_out):
+    L, P, Q = loc.shape[3], loc.shape[4], loc.shape[1]
+    if P == 4:
+        return "injector" if L > 1 else "extractor"
+    if L == 4:
+        return f"unet_{int(round(Q ** 0.5))}px"
+    return "mmfs_llm"
+
+
+def _site_flash_bwd(q, k, v, grad_out, lse, **kw):
+    return _site_flash(q, k, v, **kw)
+
+
 SITES = {
     "ms_deform_attn_fwd": _site_deform,
     "ms_deform_attn_mi_fwd": _site_mi,
     "flash_attention_fwd": _site_flash,
     "group_norm_silu_apply": _site_gn,
     "geglu_fwd": _site_geglu,
+    "ms_deform_attn_bwd_value": _site_deform_bwd,
+    "ms_deform_attn_bwd_loc_weight": _site_deform_bwd,
+    "flash_attention_bwd": _site_flash_bwd,
 }
 # "tiny" is the first call of the tiny preset's image path: its widths (head
 # dim 8, GEGLU width 16) take the kernels' CUDA-core variants in bf16
@@ -243,6 +304,13 @@ WANT_SITES = {
     "group_norm_silu_apply": ["unet_64px", "vae_512px", TINY],
     "geglu_fwd": ["C320", "C640", TINY],
 }
+_DEFORM_TRAIN = ["injector", "extractor", "mmfs_llm", "unet_64px",
+                 "unet_32px", "unet_16px", "unet_8px", TINY]
+WANT_SITES.update({
+    "ms_deform_attn_bwd_value": _DEFORM_TRAIN,
+    "ms_deform_attn_bwd_loc_weight": _DEFORM_TRAIN,
+    "flash_attention_bwd": WANT_SITES["flash_attention_fwd"],
+})
 
 
 def check_sites(name, cases):
@@ -408,12 +476,167 @@ def small_reference(cases) -> dict:
     if not img_err <= 1e-4:
         raise AssertionError(f"tiny images card vs CPU: {img_err}")
     counts = read_counts()
-    if any(n == 0 for n in counts.values()):
+    if any(counts[n] == 0 for n in FORWARD):
         raise AssertionError(f"tiny card run missed a kernel: {counts}")
     return dict(logits_max_abs_err=err, logits_scale=scale,
                 top2_margin=margin, tokens_equal=torch.equal(tok_gpu, tok_cpu),
                 image_inputs_max_abs_err=inputs_err,
                 images_max_abs_err=img_err, launches=counts)
+
+
+def tiny_train_batch(cfg, rng):
+    """The small reference's prompt as a training batch (two rows, two
+    images in one document each, 16 px targets) with the image decoder's
+    draws for its 6 image slots (one uncond drop)."""
+    import torch
+
+    s = cfg.special
+    row = [s.bos_token_id, 5, s.soi_token_id] + [s.image_token_id] * \
+        cfg.num_img_token + [7, 8, s.soi_token_id] + \
+        [s.image_token_id] * cfg.num_img_token + [9]
+    ids = torch.tensor([row, [s.pad_token_id] + row[:-1]])
+    idc = cfg.image_decoder
+    n = 2 * cfg.max_num_images
+    lat = (n, idc.latent_size, idc.latent_size, idc.vae.latent_channels)
+    f32 = np.float32
+    batch = dict(
+        text_ids=ids, attention_mask=(ids != s.pad_token_id).int(),
+        image_tensors=torch.from_numpy(
+            rng.rand(2, cfg.max_num_images, 56, 56, 3).astype(f32)),
+        num_image_per_seq=torch.tensor([2, 2]),
+        image_tensors_dec=torch.from_numpy(
+            rng.rand(2, cfg.max_num_images, idc.image_size, idc.image_size,
+                     3).astype(f32)))
+    draws = dict(
+        vae_noise=torch.from_numpy(rng.randn(*lat).astype(f32)),
+        noise=torch.from_numpy(rng.randn(*lat).astype(f32)),
+        timesteps=torch.from_numpy(
+            rng.randint(0, idc.schedule.num_train_timesteps, n)),
+        uncond_drop=torch.arange(n) == 1)
+    return batch, draws
+
+
+def to_dev(d, device):
+    return {k: v.to(device) for k, v in d.items()}
+
+
+def grad_tolerances(want: dict) -> dict:
+    """1e-4 x each leaf's scale, the larger of its largest gradient and 1e-3
+    of the largest of all (a leaf whose exact gradient vanishes holds
+    rounding noise only)."""
+    top = max(float(g.abs().max()) for g in want.values())
+    return {n: 1e-4 * max(float(g.abs().max()), 1e-3 * top)
+            for n, g in want.items()}
+
+
+def small_training_reference(cases) -> dict:
+    """One training step of the tiny preset with its image decoder, fp32:
+    the card (kernels) against the CPU (plain versions) from one seeded
+    model and one set of draws.  Keeps the first inputs of each backward
+    kernel as its ``TINY`` site.  Then one `Trainer` step on each, at the
+    default lr, held by `adamw_check`."""
+    import torch
+
+    from mm_interleaved_tpu_torch.configs import tiny_config
+    from mm_interleaved_tpu_torch.engine.optim import OptimConfig
+    from mm_interleaved_tpu_torch.engine.trainer import Trainer, TrainerConfig
+    from mm_interleaved_tpu_torch.models.mm_interleaved import build_model
+
+    cfg = tiny_config()
+    optim = OptimConfig(warmup_steps=0)
+    cpu = build_model(cfg, "cpu", torch.float32, seed=SEED, optim=optim)
+    perturb_zero_inits(cpu, SEED + 1)
+    gpu = copy.deepcopy(cpu).cuda()
+    batch, draws = tiny_train_batch(cfg, np.random.RandomState(SEED + 2))
+
+    def loss_and_grads(model, device):
+        out = model(**to_dev(batch, device), **to_dev(draws, device))
+        out["loss"].backward()
+        grads = {n: p.grad.cpu() for n, p in model.named_parameters()
+                 if p.requires_grad}
+        for p in model.parameters():
+            p.grad = None
+        return {k: float(v.detach()) for k, v in out.items()}, grads
+
+    want, g_cpu = loss_and_grads(cpu, "cpu")
+    reset_counts()
+    with capture(list(BACKWARD), cases, site=TINY):
+        got, g_gpu = loss_and_grads(gpu, "cuda")
+    counts = read_counts()
+    if any(counts[n] == 0 for n in BACKWARD):
+        raise AssertionError(f"tiny training step missed a kernel: {counts}")
+    loss_err = max(abs(got[k] - want[k]) / abs(want[k]) for k in want)
+    if not loss_err <= 1e-5:
+        raise AssertionError(f"tiny losses card {got} vs CPU {want}")
+    tol = grad_tolerances(g_cpu)
+    grad_err = {n: float((g_gpu[n] - g).abs().max()) for n, g in g_cpu.items()}
+    bad = [n for n in g_cpu if not grad_err[n] <= tol[n]]
+    if bad:
+        raise AssertionError(f"tiny gradients card vs CPU: "
+                             f"{[(n, grad_err[n], tol[n]) for n in bad[:5]]}")
+    tcfg = TrainerConfig(optim=optim)
+    t_cpu, t_gpu = Trainer(cpu, tcfg, "cpu"), Trainer(gpu, tcfg, "cuda")
+    x0 = [x.detach().clone() for x in t_cpu.optimizer.masters]
+    m_cpu = t_cpu.train_step(batch, [draws])
+    m_gpu = t_gpu.train_step(to_dev(batch, "cuda"), [to_dev(draws, "cuda")])
+    gn_err = abs(m_gpu["grad_norm"] - m_cpu["grad_norm"]) / m_cpu["grad_norm"]
+    if not gn_err <= 1e-5:
+        raise AssertionError(f"tiny grad norm card {m_gpu['grad_norm']} vs "
+                             f"CPU {m_cpu['grad_norm']}")
+    adam = adamw_check(t_cpu.optimizer, t_gpu.optimizer, x0)
+    return dict(losses_cpu=want, losses_card=got, loss_max_rel_err=loss_err,
+                grad_max_abs_err=max(grad_err.values()),
+                grad_max_err_over_tol=max(grad_err[n] / tol[n]
+                                          for n in g_cpu),
+                grad_norm_rel_err=gn_err, metrics_cpu=m_cpu,
+                metrics_card=m_gpu, launches=counts, **adam)
+
+
+def adamw_check(opt_cpu, opt_gpu, x0) -> dict:
+    """One AdamW step on the card against the CPU from the same masters
+    ``x0``: (1) the moments m and v within `grad_tolerances` of each leaf's
+    (they are the clipped gradients, scaled and squared); (2) the card's
+    update equal to AdamW's formula in fp64 from the card's own moments,
+    within 2 fp32 ulps of the master plus 1e-6 of the step (a flipped sign,
+    a wrong bias correction, lr or weight decay moves a master by far more).
+    The update's difference from the CPU's, over the norm of the CPU's, is
+    reported and not checked: a leaf whose exact gradient vanishes (a key
+    bias before a softmax) holds rounding noise, and Adam turns noise into
+    steps of +-lr with the noise's sign."""
+    c = opt_cpu.cfg
+    names = opt_cpu.names
+    for key in ("m", "v"):
+        want = dict(zip(names, getattr(opt_cpu, key)))
+        tol = grad_tolerances(want)
+        got = {n: x.cpu() for n, x in zip(names, getattr(opt_gpu, key))}
+        bad = [(n, float((got[n] - w).abs().max()), tol[n])
+               for n, w in want.items()
+               if not float((got[n] - w).abs().max()) <= tol[n]]
+        if bad:
+            raise AssertionError(f"tiny AdamW {key} card vs CPU: {bad[:5]}")
+    lr = opt_cpu.schedule(0)
+    bc1, bc2 = 1.0 - c.beta1, 1.0 - c.beta2
+    arith, diff2, norm2 = 0.0, 0.0, 0.0
+    for i, n in enumerate(names):
+        scale, wd = opt_gpu.group_of[i]
+        wd = c.weight_decay if wd is None else wd
+        x = x0[i].double()
+        m, v = opt_gpu.m[i].cpu().double(), opt_gpu.v[i].cpu().double()
+        u = (m / bc1) / ((v / bc2).sqrt() + c.eps) + wd * x
+        want = x - lr * scale * u
+        got = opt_gpu.masters[i].cpu().double()
+        tol = (2.0 ** -22 * float(want.abs().max())
+               + 1e-6 * lr * scale * float(u.abs().max()))
+        err = float((got - want).abs().max())
+        if not err <= tol:
+            raise AssertionError(f"tiny AdamW update of {n} on the card: "
+                                 f"{err} from the formula > {tol}")
+        arith = max(arith, err / tol)
+        d_cpu = opt_cpu.masters[i].double() - x
+        diff2 += float((got - x - d_cpu).pow(2).sum())
+        norm2 += float(d_cpu.pow(2).sum())
+    return dict(adamw_lr=lr, adamw_max_err_over_tol=arith,
+                update_rel_diff_vs_cpu=(diff2 / norm2) ** 0.5)
 
 
 # --------------------------------------------------------------------------
@@ -545,6 +768,53 @@ def expected_image_launches(cfg, steps: int, rows: int) -> dict:
         "group_norm_silu_apply": ((2 * resnets + 1) * steps
                                   + (2 * vae_resnets + 1) * chunks),
         "geglu_fwd": geglu_blocks * steps,
+        # inference records no graph: no backward kernel runs
+        **{name: 0 for name in BACKWARD},
+    }
+
+
+def unet_counts(cfg):
+    """(ResnetBlocks, SpatialTransformers, MMFS blocks) of the UNet."""
+    u = cfg.image_decoder.unet
+    n, lpb = len(u.block_out_channels), u.layers_per_block
+    return (n * lpb + 2 + n * (lpb + 1), (n - 1) * lpb + 1 + (n - 1) * (lpb + 1),
+            len(u.down_residual_spec()[0]) + 1)
+
+
+def expected_train_launches(cfg, images: int) -> dict:
+    """Each kernel's launches in one training step (one micro-batch),
+    derived from the config.  Every deformable and mask-free attention call
+    of the step needs its backward (the adapter, the Q-Former, the LLM's
+    MMFS and the UNet train, and each feeds the calls after it); remat
+    runs the forward of each remat'd LLM layer and UNet block again in the
+    backward; the VAE encodes without gradient; the fused GEGLU and the
+    factorised MMFS kernel serve inference alone."""
+    idc = cfg.image_decoder
+    resnets, transformers, mmfs_blocks = unet_counts(cfg)
+    adapter = cfg.visual.encoder
+    n_cross = cfg.llm.num_hidden_layers // cfg.llm.cross_attention_frequency
+    llm_r = 2 if cfg.llm.remat else 1
+    unet_r = 2 if idc.unet.remat else 1
+    mini = idc.vae_encode_mini_bs
+    chunks = images // mini if 0 < mini < images and images % mini == 0 else 1
+    vae = idc.vae
+    enc_resnets = len(vae.block_out_channels) * vae.layers_per_block + 2
+    deform = 2 * adapter.num_interactions + adapter.extra_extractors \
+        + n_cross + mmfs_blocks
+    flash = (encoder_flash_calls(cfg) + cfg.llm.num_hidden_layers
+             + idc.perceiver.num_hidden_layers + 2 * transformers)
+    return {
+        "ms_deform_attn_fwd": deform + (llm_r - 1) * n_cross,
+        "ms_deform_attn_mi_fwd": 0,
+        "flash_attention_fwd": flash
+        + (llm_r - 1) * cfg.llm.num_hidden_layers
+        + (unet_r - 1) * 2 * transformers,
+        "group_norm_silu_apply": (2 * resnets * unet_r + 1
+                                  + (2 * enc_resnets + 1) * chunks),
+        "geglu_fwd": 0,
+        "ms_deform_attn_bwd_value": deform,
+        "ms_deform_attn_bwd_loc_weight": deform,
+        "flash_attention_bwd": flash,
     }
 
 
@@ -581,9 +851,9 @@ def run_image_slice(model, device: str, cases) -> dict:
         t2 = time.perf_counter()
         return out, mask, (t1 - t0) * 1e3, (t2 - t1) * 1e3
 
-    with capture([k for k in KERNELS if k != "ms_deform_attn_fwd"], cases):
+    with capture([k for k in FORWARD if k != "ms_deform_attn_fwd"], cases):
         run(2)
-    for name in KERNELS:
+    for name in FORWARD:
         check_sites(name, cases)
 
     torch.cuda.reset_peak_memory_stats()
@@ -668,6 +938,141 @@ def profile_step(model, device: str) -> dict:
                 launches=launches[1] - launches[0],
                 top=[dict(kernel=k[:80], ms=round(ms, 3))
                      for k, ms in step[:12]])
+
+
+# --------------------------------------------------------------------------
+# the flagship training step
+
+
+def train_inputs(cfg, device):
+    """The phase 5-6 prompt as a training batch, with the 512 px targets of
+    its image decoder."""
+    import torch
+
+    ids, images, n_img, att = prompt_inputs(cfg, device)
+    g = torch.Generator(device=device)
+    g.manual_seed(SEED + 3)
+    size = cfg.image_decoder.image_size
+    dec = torch.rand((B, N_IMG, size, size, 3), generator=g, device=device)
+    return dict(text_ids=ids, image_tensors=images, num_image_per_seq=n_img,
+                attention_mask=att, image_tensors_dec=dec)
+
+
+def run_training(device: str, cases) -> dict:
+    """The flagship's training form, 3 AdamW steps on the prompt: step 1
+    twice from one state (the first capturing the backward kernels'
+    inputs), then steps 2 and 3, the last under `torch.profiler`.  Raises
+    on any failed check."""
+    import torch
+
+    from mm_interleaved_tpu_torch.configs import flagship_config
+    from mm_interleaved_tpu_torch.engine.optim import OptimConfig
+    from mm_interleaved_tpu_torch.engine.trainer import Trainer, TrainerConfig
+    from mm_interleaved_tpu_torch.models.mm_interleaved import build_model
+
+    cfg = flagship_config(max_num_images=N_IMG)
+    optim = OptimConfig(warmup_steps=0)
+    t0 = time.perf_counter()
+    model = build_model(cfg, device, torch.bfloat16, seed=SEED, optim=optim)
+    perturb_zero_inits(model, SEED + 1)
+    trainer = Trainer(model, TrainerConfig(optim=optim), device)
+    opt = trainer.optimizer
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    params = dict(model.named_parameters())
+    frozen = {n: p.detach().to("cpu", copy=True) for n, p in params.items()
+              if not p.requires_grad}
+    start = [p.detach().to("cpu", copy=True) for p in opt.params]
+    n_train = sum(p.numel() for p in opt.params)
+    log(f"flagship training form: {n_train / 1e9:.3f} B trainable (fp32 "
+        f"masters), {sum(t.numel() for t in frozen.values()) / 1e9:.3f} B "
+        f"frozen, bf16 compute, remat llm={cfg.llm.remat} "
+        f"unet={cfg.image_decoder.unet.remat}, built in {build_s:.1f} s")
+    batch = train_inputs(cfg, device)
+
+    def step():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        m = trainer.train_step(batch)
+        torch.cuda.synchronize()
+        return m, (time.perf_counter() - t) * 1e3
+
+    torch.cuda.reset_peak_memory_stats()
+    with capture(list(BACKWARD), cases):
+        m_first, _ = step()
+    for name in BACKWARD:
+        check_sites(name, cases)
+    first = [x.detach().to("cpu", copy=True) for x in opt.masters]
+    # back to the starting state: zero moments and count; the masters were
+    # the bf16 parameters made fp32
+    with torch.no_grad():
+        for p, x0, x, m, v in zip(opt.params, start, opt.masters, opt.m,
+                                  opt.v):
+            p.copy_(x0)
+            x.copy_(x0)
+            m.zero_()
+            v.zero_()
+    opt.count, trainer.step = 0, 0
+    reset_counts()
+    m1, ms1 = step()
+    launches = read_counts()
+    images = B * N_IMG
+    expected = expected_train_launches(cfg, images)
+    if launches != expected:
+        raise AssertionError(f"training launches {launches} != {expected}")
+    # the two runs of step 1
+    upd_diff = upd_norm = 0.0
+    for x0, x1, x in zip(start, first, opt.masters):
+        x0 = x0.to(device).float()
+        d1 = x1.to(device) - x0
+        d2 = x - x0
+        upd_diff += float((d2 - d1).pow(2).sum())
+        upd_norm += float(d1.pow(2).sum())
+    upd_rel = (upd_diff / upd_norm) ** 0.5
+    loss_rel = abs(m1["loss"] - m_first["loss"]) / abs(m_first["loss"])
+    gn_rel = abs(m1["grad_norm"] - m_first["grad_norm"]) / m_first["grad_norm"]
+    if not (loss_rel <= 1e-6 and gn_rel <= 1e-3 and upd_rel <= 1e-2):
+        raise AssertionError(f"two runs of step 1 differ: loss {loss_rel}, "
+                             f"grad norm {gn_rel}, update {upd_rel}")
+    m2, ms2 = step()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        m3, ms3 = step()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    metrics = [m1, m2, m3]
+    for m in metrics:
+        if not all(np.isfinite(v) for v in m.values()):
+            raise AssertionError(f"non-finite training metrics {m}")
+    for n, t in frozen.items():
+        if not torch.equal(params[n].detach(), t.to(device)):
+            raise AssertionError(f"frozen parameter {n} changed")
+    moved = {}  # by the fp32 masters: a bf16 weight moves by whole ulps
+    for lab, x, x0 in zip(opt.labels, opt.masters, start):
+        d = float((x - x0.to(device).float()).abs().max())
+        moved[lab] = max(moved.get(lab, 0.0), d)
+    if not all(d > 0 for d in moved.values()):
+        raise AssertionError(f"a trainable group did not move: {moved}")
+    per_kernel, n_launch = {}, 0
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        t = getattr(ev, "device_time_total", None)
+        if t is None:
+            t = ev.cuda_time_total
+        per_kernel[ev.key] = per_kernel.get(ev.key, 0.0) + t / 1e3
+        n_launch += ev.count
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])
+    device_ms = sum(per_kernel.values())
+    del model, trainer, opt, params
+    torch.cuda.empty_cache()
+    return dict(metrics=metrics, step_ms=[ms1, ms2, ms3],
+                first_run=m_first, loss_rel=loss_rel, grad_norm_rel=gn_rel,
+                update_rel=upd_rel, launches=launches, expected=expected,
+                peak_gb=peak_gb, moved=moved, trainable=n_train,
+                device_ms=device_ms, busy=device_ms / ms2,
+                profiled_launches=n_launch,
+                top=[dict(kernel=k[:80], ms=round(v, 3)) for k, v in top[:14]])
 
 
 # --------------------------------------------------------------------------
@@ -764,25 +1169,21 @@ CAST = {
 }
 
 
-def sdpa_call(args, kw):
+def sdpa_call(args, kw, transposed=False):
     """One `scaled_dot_product_attention` call computing the same function
-    (the yardstick; the port never calls it)."""
-    import torch
+    (the yardstick; the port never calls it); ``args`` are ``[B, T, H,
+    D]``, or ``[B, H, T, D]`` when ``transposed``."""
     import torch.nn.functional as F
 
-    q, k, v = (a.transpose(1, 2) for a in args)
+    q, k, v = (args[:3] if transposed
+               else (a.transpose(1, 2) for a in args[:3]))
     mask = None
     if kw.get("causal") or kw.get("q_segment_ids") is not None:
-        Tq, Tk = q.shape[2], k.shape[2]
-        dev = q.device
-        mask = torch.ones((q.shape[0], 1, Tq, Tk), dtype=torch.bool,
-                          device=dev)
-        if kw.get("causal"):
-            qi = torch.arange(Tq, device=dev)[:, None] + (Tk - Tq)
-            mask &= (torch.arange(Tk, device=dev)[None, :] <= qi)
-        if kw.get("q_segment_ids") is not None:
-            mask &= (kw["q_segment_ids"][:, None, :, None]
-                     == kw["kv_segment_ids"][:, None, None, :])
+        # the helper takes [B, T, H, D]
+        mask = attention_allowed(q.transpose(1, 2), k.transpose(1, 2),
+                                 kw.get("causal", False),
+                                 kw.get("q_segment_ids"),
+                                 kw.get("kv_segment_ids"))
     return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
                                                   scale=kw.get("scale"))
 
@@ -840,6 +1241,286 @@ def compare_kernel(name, sites_cases) -> dict:
         sites.append(rec)
         log(f"kernel vs plain, {name} {site}: {json.dumps(rec)}")
         torch.cuda.empty_cache()
+    return sites
+
+
+def work_deform_bwd_value(args, kw, out):
+    """Bytes: dOut, the locations and weights read, the value gradient
+    written once; operations: 8 per sample and channel (the corner weights
+    times w * dOut, and the four adds)."""
+    value, shapes, loc, w, grad_out = args
+    N, Q, H, L, P, _ = loc.shape
+    samples = N * Q * H * L * P
+    return (8 * samples * value.shape[3],
+            _nbytes(grad_out, loc, w, value), PEAK_FP32_FLOPS)
+
+
+def work_deform_bwd_loc_weight(args, kw, out):
+    """Bytes: the corners the samples can touch (as `work_deform`), dOut,
+    the locations and weights read, their gradients written; operations: 8
+    per sample and channel (the four corner dot products)."""
+    value, shapes, loc, w, grad_out = args
+    N, Q, H, L, P, _ = loc.shape
+    D = value.shape[3]
+    samples = N * Q * H * L * P
+    touched = min(value.numel(), 4 * samples * D) * value.element_size()
+    return (8 * samples * D, touched + _nbytes(grad_out, loc, w, *out),
+            PEAK_FP32_FLOPS)
+
+
+def work_flash_bwd(args, kw, out):
+    """Operations: 10 per unmasked (query, key) pair, head and channel (the
+    recomputed S, dP, and the dV, dK, dQ products); bytes: q, k, v, dOut
+    and the LSE read, dq, dk, dv written."""
+    q, k, v, grad_out, lse = args
+    flops, _, rate = work_flash((q, k, v), kw, q)
+    return flops // 4 * 10, _nbytes(q, k, v, grad_out, lse, *out), rate
+
+
+WORK.update({
+    "ms_deform_attn_bwd_value": work_deform_bwd_value,
+    "ms_deform_attn_bwd_loc_weight": work_deform_bwd_loc_weight,
+    "flash_attention_bwd": work_flash_bwd,
+})
+
+
+def _backward_case(name, args, kw, dt):
+    """The captured inputs in ``dt`` (flash attention's LSE recomputed by
+    the forward kernel from the cast q, k, v), the number of them the plain
+    forward takes, the positions the gradient is taken for, that plain
+    forward, and the training forward's outputs (flash attention; else
+    None)."""
+    import torch
+
+    from mm_interleaved_tpu_torch.ops import flash_attention as fa
+    from mm_interleaved_tpu_torch.ops import ms_deform_attn_cuda as dk
+
+    if name == "flash_attention_bwd":
+        q, k, v, grad_out, _ = args
+        q, k, v, grad_out = (x.to(dt) for x in (q, k, v, grad_out))
+        with torch.no_grad():
+            out, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+        return ((q, k, v, grad_out, lse), 3, (0, 1, 2),
+                lambda *x: fa.attention_plain(*x, **kw),
+                dict(out=out, lse=lse))
+    value, shapes, loc, w, grad_out = args
+    value, loc, w, grad_out = (x.to(dt) for x in (value, loc, w, grad_out))
+    wrt = (0,) if name == "ms_deform_attn_bwd_value" else (2, 3)
+    return ((value, shapes, loc, w, grad_out), 4, wrt,
+            dk.ms_deform_attn_plain, None)
+
+
+def _grad_timer(fn, a, wrt, grad_out):
+    """One backward through ``fn``'s graph on ``a`` (built once)."""
+    import torch
+
+    with torch.enable_grad():
+        ins = [x.detach().requires_grad_(i in wrt) if hasattr(x, "detach")
+               else x for i, x in enumerate(a)]
+        out = fn(*ins)
+    wanted = [ins[i] for i in wrt]
+    return lambda: torch.autograd.grad(out, wanted, grad_out,
+                                       retain_graph=True)
+
+
+def sdpa_grad_timer(a, kw):
+    """Autograd through `scaled_dot_product_attention` on the same inputs
+    (the yardstick; the port never calls it)."""
+    import torch
+
+    q, k, v, grad_out, _ = a
+    ins = [x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v)]
+    with torch.enable_grad():
+        out = sdpa_call(ins, kw, transposed=True)()
+    return lambda: torch.autograd.grad(out, ins, grad_out.transpose(1, 2),
+                                       retain_graph=True)
+
+
+def attention_allowed(q, k, causal=False, q_segment_ids=None,
+                      kv_segment_ids=None):
+    """The pairs a query may attend to, ``[B, 1, Tq, Tk]`` bool, or None."""
+    import torch
+
+    tq, tk = q.shape[1], k.shape[1]
+    ok = torch.ones((q.shape[0], 1, tq, tk), dtype=torch.bool,
+                    device=q.device)
+    if causal:
+        qi = torch.arange(tq, device=q.device)[:, None] + (tk - tq)
+        ok &= torch.arange(tk, device=q.device)[None, :] <= qi
+    if q_segment_ids is not None:
+        ok &= (q_segment_ids[:, None, :, None]
+               == kv_segment_ids[:, None, None, :])
+    return ok
+
+
+def attention_f64(q, k, v, causal=False, scale=None, q_segment_ids=None,
+                  kv_segment_ids=None, with_lse=False):
+    """Attention in the inputs' dtype throughout (fp64 for the reference
+    of the flash backward), with the plain version's masks; with
+    ``with_lse`` also the log-sum-exp ``[B, H, Tq]`` of the scaled logits."""
+    import torch
+
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+    ok = attention_allowed(q, k, causal, q_segment_ids, kv_segment_ids)
+    logits = logits.masked_fill(~ok, torch.finfo(torch.float32).min)
+    out = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(logits, dim=-1), v)
+    return (out, torch.logsumexp(logits, dim=-1)) if with_lse else out
+
+
+def check_training_forward(a, kw, fwd, tag, fails) -> dict:
+    """The training forward's outputs (the forward kernel that also writes
+    the LSE) against attention in fp64 on the same inputs; a miss is
+    appended to ``fails``.  The output within one bf16 ulp at its scale
+    (bf16) or 1e-5 of the largest |v| (at least 1; fp32); the LSE within
+    1e-5 of its largest magnitude (at least 1); a row whose keys are all
+    masked carries -FLT_MAX there and in the reference's lowest-finite
+    fill."""
+    import torch
+
+    q, k, v = (x.double() for x in a[:3])
+    out_ref, lse_ref = attention_f64(q, k, v, with_lse=True, **kw)
+    scale = float(out_ref.abs().max())
+    tol = (float(2.0 ** (np.floor(np.log2(max(scale, 1e-30))) - 7))
+           if tag == "bf16" else 1e-5 * max(float(v.abs().max()), 1.0))
+    dead = lse_ref < -1e30
+    lse = fwd["lse"].double()
+    if not torch.equal(dead, lse < -1e30):
+        fails.append(f"flash training forward {tag}: fully masked rows "
+                     "differ")
+    lse_ref = lse_ref.masked_fill(dead, 0.0)
+    checks = [("out", fwd["out"], out_ref, tol),
+              ("lse", lse.masked_fill(dead, 0.0), lse_ref,
+               1e-5 * max(float(lse_ref.abs().max()), 1.0))]
+    res = {}
+    for key, t, ref, tol in checks:
+        err = float((t.double() - ref).abs().max())
+        if not err <= tol:
+            fails.append(f"flash training forward {tag} {key}: {err} > {tol}")
+        res[key], res[f"{key}_tol"] = err, tol
+    return res
+
+
+def delta_reading(a, kw, out, dq_ref) -> dict:
+    """Why delta comes from P and dP: dQ recomputed in fp32 torch from the
+    kernels' own LSE, with P = exp(S * scale - LSE) and delta taken as
+    FlashAttention-2 takes it, rowsum(dO * O) from the forward's output
+    ``out``, or as the kernels take it, sum P dP / sum P; each one's
+    largest error against the fp64 dQ, beside how far sum P strays from
+    1."""
+    import torch
+
+    q, k, v, g, lse = (x.float() for x in a)
+    scale = kw.get("scale") or q.shape[-1] ** -0.5
+    ok = attention_allowed(q, k, kw.get("causal", False),
+                           kw.get("q_segment_ids"), kw.get("kv_segment_ids"))
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+    p = torch.where(ok, torch.exp(s - lse[..., None]), 0.0)
+    dp = torch.einsum("bqhd,bkhd->bhqk", g, v)
+    p_sum = p.sum(-1)
+    live = p_sum > 0
+    deltas = dict(from_o=(g * out.float()).sum(-1).permute(0, 2, 1),
+                  from_p=(p * dp).sum(-1) / p_sum.clamp_min(1e-30))
+    res = dict(p_sum_max_dev=float((p_sum - 1).abs()[live].max()))
+    for key, d in deltas.items():
+        ds = p * (dp - d[..., None])
+        dq = torch.einsum("bhqk,bkhd->bqhd", ds, k) * scale
+        res[f"dq_err_delta_{key}"] = float((dq.double() - dq_ref).abs().max())
+        del ds, dq
+    return res
+
+
+def compare_backward(name, sites_cases) -> list:
+    """Each backward kernel at each captured site, its inputs rounded to
+    bf16 or kept fp32, against autograd through a reference on the same
+    inputs: the plain version in fp32 for the deformable kernels, attention
+    in fp64 for flash attention (with `check_training_forward` on its
+    forward and `delta_reading` on its dQ).  Tolerance:
+    the larger of the base and, for flash attention, 4x the error the
+    plain version makes itself in the same dtype against the fp64
+    reference (dQ is a small difference of large terms where the keys
+    share a common component, as the ViT's and the Q-Former's do).  Base,
+    fp32: 1e-5 x each gradient's scale (the same sums in another order);
+    bf16: a few ulps at the scale, 2 for the deformable kernels, which
+    round only their outputs, 4 for flash attention, which also rounds P
+    and dS to bf16 for dV and dK.  Each site's failures are gathered and
+    the phase fails after the last site.  Timed beside the plain version's
+    backward in the same dtype."""
+    import torch
+
+    from mm_interleaved_tpu_torch.ops import flash_attention as fa
+
+    kernel = kernel_of(name)
+    flash = name == "flash_attention_bwd"
+    ulps = 4 if flash else 2
+    sites, fails = [], []
+    for site in WANT_SITES[name]:
+        args, kw = sites_cases[site]
+        kw = {k: v for k, v in kw.items() if k != "return_lse"}
+        rec = dict(site=site, shapes=[list(x.shape) for x in args
+                                      if isinstance(x, torch.Tensor)])
+        for dt, tag in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+            a, n_in, wrt, fn, fwd = _backward_case(name, args, kw, dt)
+            if flash:
+                rec[f"forward_{tag}"] = check_training_forward(a, kw, fwd, tag,
+                                                              fails)
+            got = kernel(*a, **kw)
+            got = got if isinstance(got, tuple) else (got,)
+            grad_out = a[3] if flash else a[4]
+            ref_dt = torch.float64 if flash else torch.float32
+            ref_fn = ((lambda *x: attention_f64(*x, **kw)) if flash else fn)
+            with torch.enable_grad():
+                ins = [x.detach().to(ref_dt).requires_grad_(i in wrt)
+                       if isinstance(x, torch.Tensor) else x
+                       for i, x in enumerate(a[:n_in])]
+                ref = torch.autograd.grad(ref_fn(*ins),
+                                          [ins[i] for i in wrt],
+                                          grad_out.to(ref_dt))
+            plain = (fa.attention_plain_backward(*a[:3], grad_out, **kw)
+                     if flash else None)
+            torch.cuda.synchronize()
+            errs, tols, scales, plain_errs = [], [], [], []
+            for i, (g, r) in enumerate(zip(got, ref)):
+                err = float((g.double() - r).abs().max())
+                scale = float(r.abs().max())
+                tol = (1e-5 * scale if tag == "fp32"
+                       else float(ulps * 2.0 ** (
+                           np.floor(np.log2(max(scale, 1e-30))) - 7)))
+                if plain is not None:
+                    plain_errs.append(float(
+                        (plain[i].double() - r).abs().max()))
+                    tol = max(tol, 4 * plain_errs[-1])
+                if not err <= tol:
+                    fails.append(f"{name} {site} {tag}: kernel vs plain "
+                                 f"{err} > {tol}")
+                errs.append(err), tols.append(tol), scales.append(scale)
+            if flash:
+                rec[f"plain_errs_{tag}"] = plain_errs
+                rec[f"delta_reading_{tag}"] = delta_reading(
+                    a, kw, fwd["out"], ref[0])
+            rec[f"max_abs_err_{tag}"] = max(errs)
+            rec[f"errs_{tag}"] = errs
+            rec[f"tol_{tag}"] = tols
+            rec[f"scale_{tag}"] = scales
+            rec[f"ms_{tag}"] = time_ms(lambda: kernel(*a, **kw))
+            rec[f"plain_ms_{tag}"] = time_ms(_grad_timer(fn, a[:n_in], wrt,
+                                                         grad_out))
+            if tag == "bf16":
+                flops, nbytes, rate = WORK[name](a, kw, got)
+                rec["ops_ms"], rec["bytes_ms"] = _bound(flops, nbytes, rate)
+                rec["bound_ms"] = max(rec["ops_ms"], rec["bytes_ms"])
+                rec["bound_by"] = ("operations" if rec["ops_ms"]
+                                   > rec["bytes_ms"] else "bytes")
+                rec["flops"], rec["bytes"] = flops, nbytes
+                rec["library_ms"] = (time_ms(sdpa_grad_timer(a, kw))
+                                     if name == "flash_attention_bwd"
+                                     else None)
+            del got, ref, plain, a, fwd
+        sites.append(rec)
+        log(f"kernel vs plain, {name} {site}: {json.dumps(rec)}")
+        torch.cuda.empty_cache()
+    if fails:
+        raise AssertionError(f"{len(fails)} failed checks: {fails}")
     return sites
 
 
@@ -905,6 +1586,9 @@ def main() -> int:
     cases = {}
     ref = small_reference(cases)
     log(f"small reference (tiny, fp32, card vs CPU): {json.dumps(ref)}")
+    tref = small_training_reference(cases)
+    log(f"small training reference (tiny, fp32, one AdamW step, card vs "
+        f"CPU): {json.dumps(tref)}")
 
     # 4. the flagship model with its image decoder
     cfg = flagship_config(max_num_images=N_IMG)
@@ -951,7 +1635,29 @@ def main() -> int:
     launches = dict(img["launches"])
     launches["ms_deform_attn_fwd"] = res["launches"]["ms_deform_attn_fwd"]
     lines = [kernel_line(name, compare_kernel(name, cases[name]),
-                         launches[name]) for name in KERNELS]
+                         launches[name]) for name in FORWARD]
+
+    # 8. the flagship training step, then the backward kernels against
+    # their plain versions at the captured shapes
+    tr = run_training("cuda", cases)
+    m = tr["metrics"]
+    log(f"training: B={B} rows of {PROMPT_LEN} tokens, {B * N_IMG} target "
+        f"images at {cfg.image_decoder.image_size} px, {TRAIN_STEPS} AdamW "
+        f"steps: {[round(x, 1) for x in tr['step_ms']]} ms/step, peak "
+        f"memory {tr['peak_gb']:.2f} GB; loss {[x['loss'] for x in m]}, "
+        f"loss_txt {[x['loss_txt'] for x in m]}, loss_img "
+        f"{[x['loss_img'] for x in m]}, grad_norm "
+        f"{[x['grad_norm'] for x in m]}")
+    log(f"training step 1 twice: loss rel {tr['loss_rel']:.2e}, grad norm "
+        f"rel {tr['grad_norm_rel']:.2e}, update rel {tr['update_rel']:.2e}; "
+        f"groups moved {json.dumps(tr['moved'])}; launches "
+        f"{json.dumps(tr['launches'])} (derived {json.dumps(tr['expected'])})")
+    log(f"one training step (torch.profiler): device time "
+        f"{tr['device_ms']:.1f} ms, {tr['profiled_launches']} kernel "
+        f"launches, busy share {tr['busy']:.2f} of the unprofiled step; by "
+        f"kernel {json.dumps(tr['top'])}")
+    lines += [kernel_line(name, compare_backward(name, cases[name]),
+                          tr["launches"][name]) for name in BACKWARD]
     log(json.dumps({"kernels": lines}))
     log(smi)
     print(json.dumps({"ok": True, "device": {

@@ -26,6 +26,9 @@
 // does, so a fully masked row averages V instead of producing NaN; keys
 // past the end of the sequence take -inf and weigh exactly nothing.
 //
+// For the backward (csrc/flash_attention_bwd.cu) the forward can also
+// write each row's log-sum-exp.
+//
 // C interface (ctypes): mmi_flash_attention_fwd, see the end of the file.
 
 #include <cuda_bf16.h>
@@ -56,6 +59,12 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
+// The log-sum-exp of a row's scaled logits, for the backward; -FLT_MAX
+// marks a row whose keys are all masked (it averages V uniformly).
+__device__ __forceinline__ float row_lse(float m, float l) {
+  return m == -FLT_MAX ? -FLT_MAX : m + logf(l);
+}
+
 size_t smem_bytes(int D) {
   return sizeof(float) * ((size_t)kBM * (D + 4) + 2 * (size_t)kBN * D +
                           (size_t)kBM * kPS) +
@@ -69,7 +78,8 @@ __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ out,
                  const int* __restrict__ qseg, const int* __restrict__ kseg,
-                 int Tq, int Tk, int H, int D, float scale, int causal) {
+                 float* __restrict__ lse, int Tq, int Tk, int H, int D,
+                 float scale, int causal) {
   extern __shared__ float smem[];
   const int QS = D + 4;
   float* Qs = smem;             // [kBM][QS]
@@ -212,6 +222,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < 4; ++i) {
     if (qrow[i] >= Tq) continue;
     const float inv = 1.f / l[i];
+    if (lse != nullptr && tx == 0)
+      lse[((int64_t)b * H + h) * Tq + qrow[i]] = row_lse(m[i], l[i]);
 #pragma unroll
     for (int j = 0; j < kMaxD / 16; ++j) {
       const int d = tx + 16 * j;
@@ -261,8 +273,8 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ v,
                      __nv_bfloat16* __restrict__ out,
                      const int* __restrict__ qseg,
-                     const int* __restrict__ kseg, int Tq, int Tk, int H,
-                     float scale, int causal) {
+                     const int* __restrict__ kseg, float* __restrict__ lse,
+                     int Tq, int Tk, int H, float scale, int causal) {
   constexpr int QS = D + kPad;   // row stride of Qs and Ks
   constexpr int VS = kBN + kPad; // row stride of Vt
   constexpr int KSTEPS = D / 16;
@@ -427,6 +439,8 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
   for (int i = 0; i < 2; ++i) {
     if (qrow[i] >= Tq) continue;
     const float inv = 1.f / l[i];
+    if (lse != nullptr && tig == 0)
+      lse[((int64_t)b * H + h) * Tq + qrow[i]] = row_lse(m[i], l[i]);
 #pragma unroll
     for (int j = 0; j < NB_D; ++j) {
       *reinterpret_cast<__nv_bfloat162*>(ob + (int64_t)qrow[i] * row + j * 8 +
@@ -438,8 +452,8 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
 
 template <int D>
 int launch_mma(const void* q, const void* k, const void* v, void* out,
-               const int* qseg, const int* kseg, int B, int Tq, int Tk, int H,
-               float scale, int causal, cudaStream_t stream) {
+               const int* qseg, const int* kseg, float* lse, int B, int Tq,
+               int Tk, int H, float scale, int causal, cudaStream_t stream) {
   const size_t bytes = mma_smem_bytes(D);
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -450,18 +464,19 @@ int launch_mma(const void* q, const void* k, const void* v, void* out,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v),
-      static_cast<__nv_bfloat16*>(out), qseg, kseg, Tq, Tk, H, scale, causal);
+      static_cast<__nv_bfloat16*>(out), qseg, kseg, lse, Tq, Tk, H, scale,
+      causal);
   return (int)cudaGetLastError();
 }
 
 int launch_mma_any(int D, const void* q, const void* k, const void* v,
-                   void* out, const int* qseg, const int* kseg, int B, int Tq,
-                   int Tk, int H, float scale, int causal,
+                   void* out, const int* qseg, const int* kseg, float* lse,
+                   int B, int Tq, int Tk, int H, float scale, int causal,
                    cudaStream_t stream) {
   switch (D) {
 #define MMI_CASE(d)                                                          \
   case d:                                                                    \
-    return launch_mma<d>(q, k, v, out, qseg, kseg, B, Tq, Tk, H, scale,      \
+    return launch_mma<d>(q, k, v, out, qseg, kseg, lse, B, Tq, Tk, H, scale, \
                          causal, stream);
     MMI_CASE(16) MMI_CASE(32) MMI_CASE(48) MMI_CASE(64) MMI_CASE(80)
     MMI_CASE(96) MMI_CASE(112) MMI_CASE(128)
@@ -473,8 +488,9 @@ int launch_mma_any(int D, const void* q, const void* k, const void* v,
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, void* out,
-           const int* qseg, const int* kseg, int B, int Tq, int Tk, int H,
-           int D, float scale, int causal, cudaStream_t stream) {
+           const int* qseg, const int* kseg, float* lse, int B, int Tq,
+           int Tk, int H, int D, float scale, int causal,
+           cudaStream_t stream) {
   const size_t bytes = smem_bytes(D);
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -483,21 +499,22 @@ int launch(const void* q, const void* k, const void* v, void* out,
   dim3 grid((Tq + kBM - 1) / kBM, H, B);
   flash_fwd_kernel<T><<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), qseg, kseg, Tq, Tk, H, D,
-      scale, causal);
+      static_cast<const T*>(v), static_cast<T*>(out), qseg, kseg, lse, Tq, Tk,
+      H, D, scale, causal);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  qseg/kseg: int32 segment ids or both
-// null.  Returns a cudaError_t code (0 = launched).
+// null.  lse: fp32 [B, H, Tq] for the backward, or null.  Returns a
+// cudaError_t code (0 = launched).
 extern "C" int mmi_flash_attention_fwd(int device, int dtype, const void* q,
                                        const void* k, const void* v,
                                        void* out, const void* qseg,
-                                       const void* kseg, int B, int Tq, int Tk,
-                                       int H, int D, float scale, int causal,
-                                       void* stream) {
+                                       const void* kseg, float* lse, int B,
+                                       int Tq, int Tk, int H, int D,
+                                       float scale, int causal, void* stream) {
   if (D < 1 || D > kMaxD || D % 8 != 0 || Tk < 1 || H > 65535 ||
       B > 65535) {
     return (int)cudaErrorInvalidValue;
@@ -510,8 +527,8 @@ extern "C" int mmi_flash_attention_fwd(int device, int dtype, const void* q,
   const int* qs = static_cast<const int*>(qseg);
   const int* ks = static_cast<const int*>(kseg);
   if (dtype == 0) {
-    return launch<float>(q, k, v, out, qs, ks, B, Tq, Tk, H, D, scale, causal,
-                         s);
+    return launch<float>(q, k, v, out, qs, ks, lse, B, Tq, Tk, H, D, scale,
+                         causal, s);
   }
   if (dtype == 1) {
     const uintptr_t addr = reinterpret_cast<uintptr_t>(q) |
@@ -519,11 +536,11 @@ extern "C" int mmi_flash_attention_fwd(int device, int dtype, const void* q,
                            reinterpret_cast<uintptr_t>(v) |
                            reinterpret_cast<uintptr_t>(out);
     if (D % 16 == 0 && addr % 16 == 0) {
-      return launch_mma_any(D, q, k, v, out, qs, ks, B, Tq, Tk, H, scale,
+      return launch_mma_any(D, q, k, v, out, qs, ks, lse, B, Tq, Tk, H, scale,
                             causal, s);
     }
-    return launch<__nv_bfloat16>(q, k, v, out, qs, ks, B, Tq, Tk, H, D, scale,
-                                 causal, s);
+    return launch<__nv_bfloat16>(q, k, v, out, qs, ks, lse, B, Tq, Tk, H, D,
+                                 scale, causal, s);
   }
   return (int)cudaErrorInvalidValue;
 }

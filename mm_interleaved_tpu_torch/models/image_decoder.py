@@ -1,9 +1,12 @@
 """Image decoder: the perceiver-resampled LLM context conditioning the SD
 UNet, with MMFS injection of the previous image's pyramid (counterpart of
-`mm_interleaved_tpu/models/image_decoder.py`, the generation pieces).
+`mm_interleaved_tpu/models/image_decoder.py`).
 
-The training ``__call__`` (VAE encode, noising, the diffusion loss) belongs
-to the training slice; the denoise loop is `generation.diffusion`.
+`forward` is the diffusion training loss; the denoise loop is
+`generation.diffusion`.  The loss's random draws (the VAE's sampling
+noise, the diffusion noise, the timesteps and the uncond drops) come from a
+`torch.Generator` or are injected, so that a test can feed the JAX
+package's own draws.
 """
 
 from __future__ import annotations
@@ -62,6 +65,65 @@ class ImageDecoder(nn.Module):
 
     def init_weights(self, g: torch.Generator) -> None:
         self.neg_prompt_embeds.data.normal_(0.0, 0.02, generator=g)
+
+    def vae_encode(self, image: torch.Tensor,
+                   noise: torch.Tensor) -> torch.Tensor:
+        """fp32 VAE encode of ``image [B, H, W, 3]`` in [-1, 1] with its
+        sampling ``noise`` (the latents' shape), in chunks of
+        ``vae_encode_mini_bs`` when the batch divides evenly."""
+        B = image.shape[0]
+        mini = self.cfg.vae_encode_mini_bs
+        if mini <= 0 or B <= mini or B % mini:
+            return self.vae.encode(image, noise)
+        return torch.cat([self.vae.encode(x, n) for x, n in
+                          zip(image.split(mini), noise.split(mini))])
+
+    def forward(self, image_tensors, context_features, context_attention_mask,
+                image_loss_mask=None, mmfs_features=None, mmfs_mask=None, *,
+                generator: Optional[torch.Generator] = None,
+                vae_noise=None, noise=None, timesteps=None, uncond_drop=None):
+        """Diffusion training loss (a scalar): ``image_tensors [B, H, W, 3]``
+        in [0, 1] are the targets; the context is resampled (and replaced
+        by ``neg_prompt_embeds`` where ``uncond_drop [B]``, drawn with
+        probability ``uncond_prob``); the fp32 VAE latents, without
+        gradient, are noised at ``timesteps [B]`` and the UNet's prediction
+        is held against the training target, per image, masked by
+        ``image_loss_mask [B]`` and averaged over the batch."""
+        c = self.cfg
+        B = image_tensors.shape[0]
+        dev = image_tensors.device
+
+        ctx = self.perceiver_resampler(context_features,
+                                       context_attention_mask)
+        if c.uncond_prob > 0:
+            if uncond_drop is None:
+                uncond_drop = torch.rand((B,), generator=generator,
+                                         device=dev) < c.uncond_prob
+            ctx = torch.where(uncond_drop.to(dev)[:, None, None],
+                              self.neg_prompt_embeds.to(ctx.dtype), ctx)
+
+        image = image_tensors.float() * 2.0 - 1.0
+        n = c.latent_size
+        shape = (B, n, n, c.vae.latent_channels)
+        if vae_noise is None:
+            vae_noise = torch.randn(shape, generator=generator, device=dev)
+        with torch.no_grad():
+            latents = self.vae_encode(image, vae_noise.float())
+        if noise is None:
+            noise = torch.randn(shape, generator=generator, device=dev)
+        if timesteps is None:
+            timesteps = torch.randint(0, c.schedule.num_train_timesteps, (B,),
+                                      generator=generator, device=dev)
+        noise = noise.float()
+        noisy = c.schedule.add_noise(latents, noise, timesteps)
+        target = c.schedule.training_target(latents, noise, timesteps)
+
+        pred = self.unet(noisy, timesteps, ctx, mmfs_values=mmfs_features,
+                         mmfs_mask=mmfs_mask)
+        loss = (pred.float() - target).square().mean(dim=(1, 2, 3))
+        if image_loss_mask is not None:
+            loss = loss * image_loss_mask.float()
+        return loss.mean()
 
     def resample_context(self, context_features: torch.Tensor,
                          context_attention_mask: torch.Tensor

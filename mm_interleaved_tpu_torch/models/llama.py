@@ -8,9 +8,10 @@ of `mm_interleaved_tpu/models/llama.py`).
   * fp32 softmax attention, GQA, and left-padded positions.
 
 The stack is one unrolled list of layers; the JAX ``scan_layers`` layout
-is unstacked by the weight bridge (`utils/from_flax.py`).  ``remat`` and
-``scan_layers`` stay in the config for parity with the JAX presets and do
-not change what this module runs.
+is unstacked by the weight bridge (`utils/from_flax.py`), and
+``scan_layers`` stays in the config for parity with the JAX presets.  With
+``remat``, each decoder layer (its MMFS cross-attention included) is
+recomputed in the backward of a call that autograd records.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from ..ops.attention import dot_product_attention
 from ..ops.rmsnorm import rms_norm
 from ..ops.rotary import apply_rotary_embedding, rotary_cos_sin
 from .mmfs import MMFS
+from .remat import remat_call
 
 
 @dataclasses.dataclass(frozen=True)
@@ -315,7 +317,8 @@ class LlamaModel(nn.Module):
                 vision_value = vision_value_cache[
                     i // cfg.cross_attention_frequency
                 ]
-            h, value = layer(
+            h, value = remat_call(
+                cfg.remat, layer,
                 h, positions, rope, attn_mask, vision_hidden_states,
                 cross_attention_mask, cache_kv, cache_length, causal,
                 segment_ids, vision_value,

@@ -8,8 +8,9 @@ LLM's MMFS layers and, through the image decoder's UNet, by image
 generation: `generate_image_inputs` runs the cache-free prefix forward and
 returns each target image's reversed context window and its previous
 image's pyramid, for `generation.diffusion.generate_images`.  Images
-arrive padded, ``[B, max_img, H, W, 3]`` with ``num_image_per_seq``.  The
-training forward belongs to the training slice.
+arrive padded, ``[B, max_img, H, W, 3]`` with ``num_image_per_seq``.
+`forward` is the training loss: the next-token cross-entropy plus 10x the
+image decoder's diffusion loss.
 """
 
 from __future__ import annotations
@@ -187,6 +188,63 @@ class MMInterleaved(nn.Module):
                 mmfs_values,
                 rearrange(prev_mask, "b n -> (b n) 1"))
 
+    def forward(self, text_ids, image_tensors, num_image_per_seq,
+                attention_mask=None, image_tensors_dec=None,
+                image_loss_mask=None, gt_text_ids=None,
+                ignore_prompt_token_offset=0,
+                ignore_noimage_cond_loss: bool = False,
+                generator: Optional[torch.Generator] = None, **draws):
+        """The training losses ``{"loss_txt", "loss_img", "loss"}``: the
+        cache-free LLM pass, the CE over `stream_ops.prepare_gt_text_ids`
+        labels (or ``gt_text_ids[:, 1:]``), and, with the image decoder, its
+        loss on ``image_tensors_dec`` (default ``image_tensors``) for the
+        real images with more than 2 context tokens, times
+        ``image_loss_mask``.  ``generator`` and ``draws`` (``vae_noise``,
+        ``noise``, ``timesteps``, ``uncond_drop``) go to
+        `ImageDecoder.forward`."""
+        c = self.cfg
+        if attention_mask is None:
+            attention_mask = (text_ids != c.special.pad_token_id).int()
+        prep = self.prepare_mm_embeds(text_ids, image_tensors,
+                                      num_image_per_seq)
+        hidden, _, _ = self.mm_decoder(
+            prep["mm_embeds"],
+            attention_mask=attention_mask,
+            vision_hidden_states=prep["mmfs_values"],
+            cross_attention_mask=prep["cross_attention_mask"],
+        )
+        logits = self.text_decoder(hidden)
+        if gt_text_ids is not None:
+            labels = gt_text_ids[:, 1:]
+        else:
+            labels = so.prepare_gt_text_ids(
+                text_ids, attention_mask, c.special,
+                ignore_prompt_token_offset=ignore_prompt_token_offset,
+                ignore_noimage_cond_loss=ignore_noimage_cond_loss,
+            )
+        loss_txt = so.cross_entropy_ignore(logits[:, :-1], labels)
+        out = dict(loss_txt=loss_txt, loss=loss_txt * c.loss_txt_weight)
+        if c.image_decoder is None:
+            return out
+
+        ctx, ctx_mask, mmfs_values, mmfs_mask = self._image_decoder_inputs(
+            hidden, text_ids, prep["soi_pos"], prep["pyramid"],
+            num_image_per_seq)
+        targets = (image_tensors_dec if image_tensors_dec is not None
+                   else image_tensors)
+        max_img = image_tensors.shape[1]
+        img_valid = (torch.arange(max_img, device=text_ids.device)[None, :]
+                     < num_image_per_seq[:, None]).float().reshape(-1)
+        img_valid = img_valid * (ctx_mask.sum(dim=-1) > 2).float()
+        if image_loss_mask is not None:
+            img_valid = img_valid * image_loss_mask.reshape(-1).float()
+        loss_img = self.image_decoder(
+            rearrange(targets, "b n h w c -> (b n) h w c"), ctx, ctx_mask,
+            img_valid, mmfs_values, mmfs_mask, generator=generator, **draws)
+        out["loss_img"] = loss_img
+        out["loss"] = out["loss"] + loss_img * c.loss_img_weight
+        return out
+
     @torch.inference_mode()
     def generate_image_inputs(self, text_ids, image_tensors,
                               num_image_per_seq, attention_mask=None):
@@ -230,10 +288,16 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
 
 
 def build_model(cfg: MMInterleavedConfig, device, dtype: Optional[torch.dtype] = None,
-                seed: int = 0) -> MMInterleaved:
+                seed: int = 0, optim=None) -> MMInterleaved:
     """The model with seeded random weights, made directly on ``device`` in
     ``dtype`` (default: the LLM's compute dtype): no full-precision copy is
-    ever made on the host."""
+    ever made on the host.
+
+    With ``optim`` (an `engine.optim.OptimConfig`), the training form: the
+    leaves that ``optim`` freezes get ``requires_grad=False``, and the
+    model is in train mode.  Every leaf stays in ``dtype``, the compute
+    dtype; `engine.optim.AdamW` keeps the fp32 masters of the trainable
+    ones."""
     with torch.device("meta"):
         model = MMInterleaved(cfg)
     model = model.to(dtype=dtype or cfg.llm.compute_dtype)
@@ -241,4 +305,9 @@ def build_model(cfg: MMInterleavedConfig, device, dtype: Optional[torch.dtype] =
     g = torch.Generator(device=device)
     g.manual_seed(seed)
     init_weights(model, g)
-    return model.eval()
+    if optim is None:
+        return model.eval()
+    from ..engine.optim import freeze
+
+    freeze(model, optim)
+    return model.train()

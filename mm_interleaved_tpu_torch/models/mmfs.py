@@ -25,7 +25,11 @@ Two branches, chosen by whether `forward` is given an image side:
     (query row ``c * Bv + b`` reads image row ``b``, the CFG halves).  The
     readout is the factorised kernel of `ops.ms_deform_attn_mi`; the query
     weight factor ``Eq * rZ`` is cast to the value dtype before it, as in
-    the JAX package.
+    the JAX package.  That kernel is forward only, as the JAX one serves
+    inference traces alone: a call that autograd records takes the JAX
+    package's non-factorised route instead (``off_q + off_img`` and the
+    wide weights ``Eq * Et * rZ`` through `ms_deform_attn_multi_image`, the
+    differentiable deformable op).
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ import torch
 from torch import nn
 from einops import rearrange
 
+from ..ops.cuda_build import needs_grad
 from ..ops.ms_deform_attn import ms_deform_attn_multi_image
 from ..ops.ms_deform_attn_mi import build_delta, mmfs_deform_factorized
 
@@ -122,12 +127,14 @@ class MMFS(nn.Module):
         relpos = image_relpos_from_mask(mask, self.max_num_image_per_seq)
         off_tab, Et, m_t = self._tables()
         Et_g = Et[relpos] * mask[..., None, None, None].float()
+        off_img = off_tab[relpos]  # [Bv, n_img, H, P, 2]
         H = self.n_heads
         return dict(
             value=projected_value.reshape(Bv, n_img, -1, H,
                                           self.d_val_proj // H),
             Et_g=Et_g,  # [Bv, n_img, H, L, P]
-            delta=build_delta(off_tab[relpos], Et_g, self.level_shapes,
+            off_img=off_img,
+            delta=build_delta(off_img, Et_g, self.level_shapes,
                               1.0 / self.base_spatial_shape),
             m_t=m_t,
         )
@@ -186,6 +193,28 @@ class MMFS(nn.Module):
         Z = S.sum(dim=-1) * point_scale + ignore_mass
         return point_scale / Z, ignore_mass / Z
 
+    def _wide_readout(self, value, Eq, Et_b, off_b, rZ, ref):
+        """The non-factorised readout: per-(query, image) locations and
+        weights through `ms_deform_attn_multi_image`.  ``Et_b [B, Lq or 1,
+        H, n_img, L, P]``, ``off_b [B, Lq, H, n_img, P, 2]``."""
+        per_level = torch.tensor(
+            [[w / self.base_spatial_shape / w, h / self.base_spatial_shape / h]
+             for (h, w) in self.level_shapes],
+            dtype=torch.float32, device=Eq.device,
+        )
+        w_points = Eq[:, :, :, None] * Et_b * rZ[:, :, :, None, None, None]
+        sampling_locations = (
+            ref[:, :, None, None, None, None, :]
+            + off_b[:, :, :, :, None, :, :]
+            * per_level[None, None, None, None, :, None, :]
+        )
+        return ms_deform_attn_multi_image(
+            value,
+            self.level_shapes,
+            sampling_locations.to(value.dtype),
+            w_points.to(value.dtype),
+        )
+
     def _finish(self, out, w_ignore_tot):
         out = self.output_proj(out)
         tok_w = self._ignore_table(out.dtype, out.device)
@@ -200,8 +229,8 @@ class MMFS(nn.Module):
             raise ValueError(f"query batch {B} is not a multiple of the "
                              f"image batch {Bv}")
         off_q, Eq, m_q = self._query_logits(query)
-        S = torch.einsum("bqhlp,bnhlp->bqhn", Eq, Et_g.repeat(B // Bv, 1, 1,
-                                                               1, 1))
+        rep = B // Bv
+        S = torch.einsum("bqhlp,bnhlp->bqhn", Eq, Et_g.repeat(rep, 1, 1, 1, 1))
         rZ, w_ignore_tot = self._norms(m_q, side["m_t"], S)
         if reference_points is None:
             ref = torch.full((B, Lq, 2), 0.5, dtype=torch.float32,
@@ -209,11 +238,20 @@ class MMFS(nn.Module):
         else:
             ref = reference_points.float()
         value = side["value"]
-        out = mmfs_deform_factorized(
-            value, side["delta"], self.level_shapes, ref, off_q,
-            (Eq * rZ[..., None, None]).to(value.dtype),
-            1.0 / self.base_spatial_shape,
-        )
+        if needs_grad(off_q, Eq, value, Et_g, side["off_img"]):
+            off_img = side["off_img"].repeat(rep, 1, 1, 1, 1)
+            off_full = off_q[:, :, None] + off_img[:, None]
+            out = self._wide_readout(
+                value.repeat(rep, 1, 1, 1, 1), Eq,
+                rearrange(Et_g.repeat(rep, 1, 1, 1, 1),
+                          "b n h l p -> b () h n l p"),
+                rearrange(off_full, "b q n h p t -> b q h n p t"), rZ, ref)
+        else:
+            out = mmfs_deform_factorized(
+                value, side["delta"], self.level_shapes, ref, off_q,
+                (Eq * rZ[..., None, None]).to(value.dtype),
+                1.0 / self.base_spatial_shape,
+            )
         return self._finish(out, w_ignore_tot)
 
     def _forward_query_mask(self, query, attention_mask, projected_value):
@@ -228,32 +266,14 @@ class MMFS(nn.Module):
         value = projected_value.reshape(B, n_img, -1, H, self.d_val_proj // H)
         off_q_r, Eq, m_q = self._query_logits(query)
         off_tab_r, Et, m_t = self._tables()
-
-        per_level = torch.tensor(
-            [[w / self.base_spatial_shape / w, h / self.base_spatial_shape / h]
-             for (h, w) in self.level_shapes],
-            dtype=torch.float32, device=dev,
-        )
         # the LLM branch samples around the fixed reference (0.5, 0.5)
         ref = torch.full((B, Lq, 2), 0.5, dtype=torch.float32, device=dev)
 
         Et_g = Et[image_relpos] * mask[..., None, None, None].float()
         S = torch.einsum("bqhlp,bqnhlp->bqhn", Eq, Et_g)
         off_full = off_q_r[:, :, None] + off_tab_r[image_relpos]
-        Et_b = rearrange(Et_g, "b q n h l p -> b q h n l p")
-        off_b = rearrange(off_full, "b q n h p t -> b q h n p t")
         rZ, w_ignore_tot = self._norms(m_q, m_t, S)
-
-        w_points = Eq[:, :, :, None] * Et_b * rZ[:, :, :, None, None, None]
-        sampling_locations = (
-            ref[:, :, None, None, None, None, :]
-            + off_b[:, :, :, :, None, :, :]
-            * per_level[None, None, None, None, :, None, :]
-        )
-        out = ms_deform_attn_multi_image(
-            value,
-            self.level_shapes,
-            sampling_locations.to(value.dtype),
-            w_points.to(value.dtype),
-        )
+        out = self._wide_readout(
+            value, Eq, rearrange(Et_g, "b q n h l p -> b q h n l p"),
+            rearrange(off_full, "b q n h p t -> b q h n p t"), rZ, ref)
         return self._finish(out, w_ignore_tot)

@@ -8,7 +8,9 @@ Modules keep the JAX names (``down_{i}_res_{j}``, ``down_{i}_attn_{j}``,
 rename-free map.  Attention goes through `ops.attention` (the flash kernel
 on the card), the ResnetBlock norms through the GroupNorm+SiLU kernel, and
 the feed-forward of the blocks of width <= 640 through the fused GEGLU
-kernel.  ``remat`` is ignored: this module runs forward only.
+kernel when autograd does not record the call.  With ``remat``, each
+ResnetBlock and SpatialTransformer is recomputed in the backward of a call
+that autograd records.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import torch.nn.functional as F
 from ...ops.attention import dot_product_attention
 from ...ops.geglu import geglu_fused_eligible, geglu_mlp
 from ...ops.group_norm import GroupNorm, GroupNormSiLU
+from ..remat import remat_call
 from .mmfs_net import MMFSNet, MMFSNetConfig
 from .nhwc import Conv2d, upsample2x
 
@@ -128,7 +131,9 @@ class TransformerBlock(nn.Module):
         h = self.norm2(x)
         x = x + self._attend(h, context, "attn2")
         h = self.norm3(x)
-        if geglu_fused_eligible(x.shape[-1]):
+        if geglu_fused_eligible(x.shape[-1], h, self.ff_in.weight,
+                                self.ff_in.bias, self.ff_out.weight,
+                                self.ff_out.bias):
             return x + geglu_mlp(h, self.ff_in.weight, self.ff_in.bias,
                                  self.ff_out.weight, self.ff_out.bias)
         a, g = self.ff_in(h).chunk(2, dim=-1)
@@ -217,20 +222,23 @@ class UNet2DConditionModel(nn.Module):
         ctx = encoder_hidden_states.to(dtype)
         h = self.conv_in(sample.to(dtype))
 
+        def block(name, *args):
+            return remat_call(c.remat, getattr(self, name), *args)
+
         res_stack = [h]
         for i in range(n):
             for j in range(c.layers_per_block):
-                h = getattr(self, f"down_{i}_res_{j}")(h, temb)
+                h = block(f"down_{i}_res_{j}", h, temb)
                 if i != n - 1:
-                    h = getattr(self, f"down_{i}_attn_{j}")(h, ctx)
+                    h = block(f"down_{i}_attn_{j}", h, ctx)
                 res_stack.append(h)
             if i != n - 1:
                 h = getattr(self, f"down_{i}_downsample")(h)
                 res_stack.append(h)
 
-        h = self.mid_res_0(h, temb)
-        h = self.mid_attn(h, ctx)
-        h = self.mid_res_1(h, temb)
+        h = block("mid_res_0", h, temb)
+        h = block("mid_attn", h, ctx)
+        h = block("mid_res_1", h, temb)
 
         if c.mmfs is not None and mmfs_prepared is None \
                 and mmfs_values is not None:
@@ -242,9 +250,9 @@ class UNet2DConditionModel(nn.Module):
         for i in range(n):
             for j in range(c.layers_per_block + 1):
                 h = torch.cat([h, res_stack.pop()], dim=-1)
-                h = getattr(self, f"up_{i}_res_{j}")(h, temb)
+                h = block(f"up_{i}_res_{j}", h, temb)
                 if i != 0:
-                    h = getattr(self, f"up_{i}_attn_{j}")(h, ctx)
+                    h = block(f"up_{i}_attn_{j}", h, ctx)
             if i != n - 1:
                 h = getattr(self, f"up_{i}_upsample")(upsample2x(h))
 

@@ -151,3 +151,52 @@ def previous_image_mask(
     in_doc = prev_soi >= bos_at_soi
     cur_valid = soi < L
     return (has_prev & in_doc & cur_valid & (prev_soi < L)).to(torch.int32)
+
+
+def prepare_gt_text_ids(
+    text_ids: torch.Tensor,
+    attention_mask: torch.Tensor,
+    special,
+    ignore_prompt_token_offset=0,
+    ignore_noimage_cond_loss: bool = False,
+) -> torch.Tensor:
+    """Next-token labels ``[B, L-1]`` aligned with ``logits[:, :-1]``: -100
+    on prompt offsets (an int or ``[B]``), pads, image placeholders,
+    ``<bos>``, ``<bos>``->``<soi>`` transitions and, with
+    ``ignore_noimage_cond_loss``, tokens with no preceding image in their
+    document.  ``special`` is a `SpecialTokens`."""
+    B, L = text_ids.shape
+    dev = text_ids.device
+    pos = torch.arange(L, device=dev)[None, :]
+    offset = torch.as_tensor(ignore_prompt_token_offset, device=dev).long()
+    if offset.dim() == 0:
+        offset = offset.expand(B)
+    ignore = torch.full_like(text_ids, -100)
+    gt = torch.where(pos < offset[:, None], ignore, text_ids)
+    if ignore_noimage_cond_loss:
+        near_bos = nearest_bos_positions(text_ids, special.bos_token_id)
+        near_bos = near_bos.clamp(min=0)
+        marked = torch.where(text_ids == special.soi_token_id,
+                             pos.expand(B, L), torch.full_like(text_ids, -1))
+        near_soi = torch.cummax(marked, dim=1).values
+        noimage = (near_soi < near_bos) | (near_soi == -1)
+        gt = torch.where(noimage, ignore, gt)
+    gt = gt[:, 1:]
+    nxt = text_ids[:, 1:]
+    drop = ((nxt == special.pad_token_id) | (nxt == special.image_token_id)
+            | (attention_mask[:, 1:] == 0)
+            | ((text_ids[:, :-1] == special.bos_token_id)
+               & (nxt == special.soi_token_id))
+            | (nxt == special.bos_token_id))
+    return torch.where(drop, ignore[:, 1:], gt)
+
+
+def cross_entropy_ignore(logits: torch.Tensor, labels: torch.Tensor,
+                         ignore_index: int = -100) -> torch.Tensor:
+    """Mean cross-entropy in fp32 over the positions whose label is not
+    ``ignore_index`` (0 when there are none)."""
+    valid = labels != ignore_index
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, labels.clamp(min=0)[..., None])[..., 0]
+    nll = torch.where(valid, nll, torch.zeros_like(nll))
+    return nll.sum() / valid.sum().clamp(min=1)

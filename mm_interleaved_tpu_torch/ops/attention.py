@@ -1,14 +1,15 @@
 """Scaled dot-product attention with fp32 logits and softmax (counterpart of
 `mm_interleaved_tpu/ops/attention.py`).
 
-Dispatch, by device and mask: a CUDA call without a dense ``mask`` launches
-the hand-written flash kernel of `flash_attention` (causal and segment ids
-included, any lengths, ``D <= 128``; a wider head raises).  The TPU's shape
-gates (Tq >= 256, 128-aligned lengths) have no counterpart.  Calls with a
-dense mask (the KV-cache prefill and decode, the image decoder's masked
-cross-attention) and every CPU call take the plain version,
-`flash_attention.attention_plain`, as they take the XLA path in the JAX
-package.
+Dispatch, by device and mask: a CUDA call without a dense ``mask`` goes
+through `flash_attention.FlashAttentionFunction`, the hand-written flash
+kernels (causal and segment ids included, any lengths, ``D <= 128``; a
+wider head raises), forward and, when autograd records the call, backward.
+The TPU's shape gates (Tq >= 256, 128-aligned lengths) have no
+counterpart.  Calls with a dense mask (the KV-cache prefill and decode, the
+image decoder's masked cross-attention) and every CPU call take the plain
+version, `flash_attention.attention_plain`, which autograd differentiates,
+as they take the XLA path in the JAX package.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from typing import Optional
 import torch
 
 from . import flash_attention as _fa
+from .cuda_build import needs_grad
 
 
 def dot_product_attention(
@@ -41,9 +43,10 @@ def dot_product_attention(
       q_segment_ids / kv_segment_ids: ``[B, Tq]`` / ``[B, Tk]``; attention
         only within equal segments.
     """
-    kw = dict(causal=causal, scale=scale, q_segment_ids=q_segment_ids,
-              kv_segment_ids=kv_segment_ids)
     if q.device.type == "cuda" and mask is None:
-        return _fa.flash_attention(q.contiguous(), k.contiguous(),
-                                   v.contiguous(), **kw)
-    return _fa.attention_plain(q, k, v, mask=mask, **kw)
+        return _fa.FlashAttentionFunction.apply(
+            q.contiguous(), k.contiguous(), v.contiguous(), causal, scale,
+            q_segment_ids, kv_segment_ids, needs_grad(q, k, v))
+    return _fa.attention_plain(q, k, v, mask=mask, causal=causal, scale=scale,
+                               q_segment_ids=q_segment_ids,
+                               kv_segment_ids=kv_segment_ids)

@@ -9,8 +9,9 @@ source at once and waits for all of them.
 
 The launch helpers at the end are shared by the kernels' wrappers:
 `CountedKernel` counts launches, `check_cuda` and `forbid_grad` refuse
-what a kernel does not take, `raise_on_error` turns a nonzero return into
-an exception.
+what a kernel does not take, `needs_grad` tells whether autograd records a
+call (the autograd functions and the training-only routes decide on it),
+`raise_on_error` turns a nonzero return into an exception.
 """
 
 from __future__ import annotations
@@ -136,13 +137,21 @@ def check_cuda(name: str, tensors: Sequence[torch.Tensor],
         raise ValueError(f"{name}: inputs must be contiguous")
 
 
+def needs_grad(*tensors) -> bool:
+    """Whether autograd records a call on ``tensors`` (None entries are
+    skipped)."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
 def forbid_grad(name: str, *tensors: torch.Tensor) -> None:
-    """The kernels are forward only: refuse a call that autograd would
-    have to differentiate."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+    """A bare forward launch has no backward: refuse a call that autograd
+    would have to differentiate (a differentiable kernel goes through its
+    `torch.autograd.Function`, whose forward runs with grad disabled)."""
+    if needs_grad(*tensors):
         raise NotImplementedError(
-            f"{name}: the CUDA kernel is forward only; its gradient belongs "
-            "to the training slice")
+            f"{name}: the bare CUDA forward has no gradient; differentiate "
+            "through its autograd function or the training-only route")
 
 
 def raise_on_error(name: str, err: int) -> None:

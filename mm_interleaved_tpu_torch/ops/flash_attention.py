@@ -1,14 +1,23 @@
-"""The flash-attention forward kernel and its plain version (counterpart of
-`mm_interleaved_tpu/ops/flash_attention.py`, forward only).
+"""The flash-attention kernels, forward and backward, and their plain
+version (counterpart of `mm_interleaved_tpu/ops/flash_attention.py`).
 
 * `flash_attention` launches ``csrc/flash_attention.cu`` on PyTorch's
-  current stream; ``flash_attention.launches`` counts its launches.  It
-  takes CUDA tensors only, ``D <= 128`` and a multiple of 8, and no dense
-  mask, and raises on anything else.
+  current stream; with ``return_lse`` it also returns, for the backward,
+  the fp32 log-sum-exp ``[B, H, Tq]`` of each row.
+  `flash_attention_bwd` launches ``csrc/flash_attention_bwd.cu`` (the dQ
+  kernel, which also takes each row's delta, then the dK/dV kernel) on
+  q, k, v, the output's gradient and the LSE, and returns ``(dq, dk,
+  dv)``.  ``.launches`` counts each
+  wrapper's launches.  They take CUDA tensors only, ``D <= 128`` and a
+  multiple of 8, and no dense mask, and raise on anything else.
+* `FlashAttentionFunction` is the differentiable op on the card: the
+  forward kernel (with the LSE when autograd records the call) and the
+  backward kernels.  The bare forward wrapper refuses a recorded call.
 * `attention_plain` is the same function in plain PyTorch (fp32 logits
   and softmax, masked logits at the lowest finite fp32 value), with a dense
-  ``mask`` besides.  The CPU path, the masked calls and the tests use it; on
-  the card it is the reference the kernel is held against.
+  ``mask`` besides.  The CPU path, the masked calls and the tests use it,
+  and autograd differentiates it (`attention_plain_backward`); on the card
+  both are the reference the kernels are held against.
 
 Both take ``q [B, Tq, H, D]``, ``k, v [B, Tk, H, D]`` and return
 ``[B, Tq, H, D]`` in q's dtype.  ``causal`` aligns the mask to the end of
@@ -61,12 +70,18 @@ def attention_plain(
     return torch.einsum("bhqk,bkhd->bqhd", probs.to(dtype), v)
 
 
-def _launch(q, k, v, *, causal=False, scale=None, q_segment_ids=None,
-            kv_segment_ids=None):
-    """Launch the CUDA kernel; raises on input it does not take."""
-    name = "flash_attention"
+def attention_plain_backward(q, k, v, grad_out, **kw):
+    """``(dq, dk, dv)`` of `attention_plain` by autograd."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        out = attention_plain(*ins, **kw)
+        return torch.autograd.grad(out, ins, grad_out)
+
+
+def _check(name, q, k, v, q_segment_ids, kv_segment_ids):
+    """The inputs every kernel of the op takes; returns ``(B, Tq, Tk, H,
+    D)`` and the segment ids as contiguous int32 (or Nones)."""
     check_cuda(name, (q, k, v))
-    forbid_grad(name, q, k, v)
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"{name}: q, k, v dtypes {q.dtype}, {k.dtype}, "
                         f"{v.dtype}")
@@ -90,20 +105,90 @@ def _launch(q, k, v, *, causal=False, scale=None, q_segment_ids=None,
             raise ValueError(f"{name}: segment ids {tuple(segs[0].shape)}, "
                              f"{tuple(segs[1].shape)}")
         check_cuda(name, (q,) + segs, dtypes=(q.dtype,))
-    scale = D ** -0.5 if scale is None else float(scale)
+    return (B, Tq, Tk, H, D), segs
 
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _launch(q, k, v, *, causal=False, scale=None, q_segment_ids=None,
+            kv_segment_ids=None, return_lse=False):
+    """Launch the forward kernel; raises on input it does not take.
+    Returns ``out``, or ``(out, lse)`` with ``return_lse``."""
+    name = "flash_attention"
+    (B, Tq, Tk, H, D), segs = _check(name, q, k, v, q_segment_ids,
+                                     kv_segment_ids)
+    forbid_grad(name, q, k, v)
+    scale = D ** -0.5 if scale is None else float(scale)
     fn = load_library("flash_attention").mmi_flash_attention_fwd
-    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6 \
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 7 \
         + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     out = torch.empty_like(q)
+    lse = (torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     err = fn(q.device.index, _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(),
-             v.data_ptr(), out.data_ptr(),
-             None if segs[0] is None else segs[0].data_ptr(),
-             None if segs[1] is None else segs[1].data_ptr(),
-             B, Tq, Tk, H, D, scale, int(causal), stream_of(q))
+             v.data_ptr(), out.data_ptr(), _ptr(segs[0]), _ptr(segs[1]),
+             _ptr(lse), B, Tq, Tk, H, D, scale, int(causal), stream_of(q))
     raise_on_error(name, err)
-    return out
+    return (out, lse) if return_lse else out
+
+
+def _launch_bwd(q, k, v, grad_out, lse, *, causal=False, scale=None,
+                q_segment_ids=None, kv_segment_ids=None):
+    """Launch the backward kernels on the forward's LSE; returns ``(dq, dk,
+    dv)`` in q's dtype."""
+    name = "flash_attention_bwd"
+    (B, Tq, Tk, H, D), segs = _check(name, q, k, v, q_segment_ids,
+                                     kv_segment_ids)
+    check_cuda(name, (q, grad_out), dtypes=(q.dtype,))
+    if grad_out.shape != q.shape:
+        raise ValueError(f"{name}: grad {tuple(grad_out.shape)} != q "
+                         f"{tuple(q.shape)}")
+    check_cuda(name, (lse, q), dtypes=(torch.float32,))
+    if lse.shape != (B, H, Tq):
+        raise ValueError(f"{name}: lse {tuple(lse.shape)} != {(B, H, Tq)}")
+    scale = D ** -0.5 if scale is None else float(scale)
+    fn = load_library("flash_attention_bwd").mmi_flash_attention_bwd
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 11 \
+        + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
+    err = fn(q.device.index, _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(),
+             v.data_ptr(), grad_out.data_ptr(), lse.data_ptr(),
+             delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+             _ptr(segs[0]), _ptr(segs[1]), B, Tq, Tk, H, D, scale, int(causal),
+             stream_of(q))
+    raise_on_error(name, err)
+    return dq, dk, dv
 
 
 flash_attention = CountedKernel(_launch)
+flash_attention_bwd = CountedKernel(_launch_bwd)
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """The attention op on the card: the forward kernel, keeping the LSE
+    when ``keep_lse`` (autograd records the call), and the backward
+    kernels."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, q_segment_ids, kv_segment_ids,
+                keep_lse):
+        kw = dict(causal=causal, scale=scale, q_segment_ids=q_segment_ids,
+                  kv_segment_ids=kv_segment_ids)
+        if not keep_lse:
+            return flash_attention(q, k, v, **kw)
+        out, lse = flash_attention(q, k, v, return_lse=True, **kw)
+        ctx.kw = kw
+        ctx.save_for_backward(q, k, v, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        q, k, v, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, grad_out.contiguous(), lse,
+                                         **ctx.kw)
+        return dq, dk, dv, None, None, None, None, None

@@ -12,9 +12,11 @@ rounded to x's dtype before the second product.
 * `geglu_plain` is the same function in plain PyTorch; the CPU path uses
   it, and on the card it is the reference the kernel is held against.
 
-`geglu_mlp` dispatches by device.  `geglu_fused_eligible` is the width rule
-of the UNet block: the C = 1280 blocks stay two matmuls and a plain GEGLU,
-as XLA computes them in the JAX package.
+`geglu_mlp` dispatches by device.  `geglu_fused_eligible` is the UNet
+block's rule: the fused kernel serves calls of width C <= 640 that autograd
+does not record (the JAX gate serves inference traces alone); the C = 1280
+blocks and every training call stay two matmuls and a plain GEGLU, as XLA
+computes them in the JAX package.
 """
 
 from __future__ import annotations
@@ -25,14 +27,16 @@ import torch
 import torch.nn.functional as F
 
 from .cuda_build import (CountedKernel, check_cuda, forbid_grad,
-                         load_library, raise_on_error, stream_of)
+                         load_library, needs_grad, raise_on_error, stream_of)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_WIDTH = 640
 
 
-def geglu_fused_eligible(C: int) -> bool:
-    return C <= MAX_WIDTH
+def geglu_fused_eligible(C: int, *tensors: torch.Tensor) -> bool:
+    """Width ``C`` fits the kernel and autograd records no call on
+    ``tensors`` (the input and the weights)."""
+    return C <= MAX_WIDTH and not needs_grad(*tensors)
 
 
 def geglu_plain(x, w1, b1, w2, b2) -> torch.Tensor:

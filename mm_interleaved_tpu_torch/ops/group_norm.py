@@ -15,8 +15,13 @@ kernel:
 * `group_norm_silu_apply_plain` is the same pass in plain PyTorch: silu in
   fp32, then the cast, as the TPU kernel does.  The CPU path uses it; on the
   card it is the reference the kernel is held against.
+* `GroupNormSiLUFunction` is the differentiable apply pass on either
+  device: its forward is the kernel (the plain pass on a CPU tensor), its
+  backward the JAX package's recompute in plain PyTorch
+  (``_pallas_apply_silu_bwd``); the statistics stay plain PyTorch under
+  autograd, as they stay XLA.
 
-Both take ``x [B, ..., C]`` and ``w, b [B, C]`` fp32 and return x's shape
+All take ``x [B, ..., C]`` and ``w, b [B, C]`` fp32 and return x's shape
 and dtype.
 """
 
@@ -106,14 +111,37 @@ def _launch(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
 group_norm_silu_apply_cuda = CountedKernel(_launch)
 
 
+class GroupNormSiLUFunction(torch.autograd.Function):
+    """``silu(x * w + b)``: the kernel (or, on a CPU tensor, the plain pass)
+    forward; backward by recompute, ``dt = dy * s * (1 + t * (1 - s))``,
+    ``dx = dt * w``, ``dw = sum dt * x``, ``db = sum dt`` over the spatial
+    axes."""
+
+    @staticmethod
+    def forward(ctx, x, w, b):
+        ctx.save_for_backward(x, w, b)
+        if x.device.type == "cuda":
+            return group_norm_silu_apply_cuda(x, w, b)
+        return group_norm_silu_apply_plain(x, w, b)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, b = ctx.saved_tensors
+        xf = x.float()
+        t = xf * _bshape(x, w) + _bshape(x, b)
+        s = torch.sigmoid(t)
+        dt = dy.float() * (s * (1.0 + t * (1.0 - s)))
+        axes = tuple(range(1, x.dim() - 1))
+        dx = (dt * _bshape(x, w)).to(x.dtype)
+        return dx, (dt * xf).sum(dim=axes), dt.sum(dim=axes)
+
+
 def group_norm_silu(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
                     num_groups: int, eps: float = 1e-5) -> torch.Tensor:
     """``silu(group_norm(x))`` with the silu taken in fp32 before the cast;
     the apply pass is the CUDA kernel on a CUDA tensor."""
     w, b = group_affine(x, scale, bias, num_groups, eps)
-    if x.device.type == "cuda":
-        return group_norm_silu_apply_cuda(x.contiguous(), w, b)
-    return group_norm_silu_apply_plain(x, w, b)
+    return GroupNormSiLUFunction.apply(x.contiguous(), w, b)
 
 
 class GroupNorm(nn.Module):

@@ -6,10 +6,12 @@ grid with the ``align_corners=False`` convention (texel ``(i, j)`` has its
 centre at ``((j + 0.5)/W, (i + 0.5)/H)``), out-of-bounds corners contribute
 zero, and accumulation is fp32 whatever the input dtype.
 
-Dispatch is by device alone: a CUDA tensor always launches the hand-written
-kernel of `ms_deform_attn_cuda` (decode's one-query calls included: a gather
-has no small-Q problem, so the JAX package's one-hot path has no
-counterpart here); a CPU tensor runs that module's plain version.
+Dispatch is by device alone: a CUDA tensor always goes through
+`ms_deform_attn_cuda.MSDeformAttnFunction`, whose forward launches the
+hand-written kernel (decode's one-query calls included: a gather has no
+small-Q problem, so the JAX package's one-hot path has no counterpart
+here) and whose backward launches the two backward kernels; a CPU tensor
+runs that module's plain version, which autograd differentiates.
 """
 
 from __future__ import annotations
@@ -48,7 +50,7 @@ def ms_deform_attn(
     if sum(h * w for h, w in shapes) != value.shape[1]:
         raise ValueError(f"spatial shapes {shapes} != S={value.shape[1]}")
     if value.device.type == "cuda":
-        return _k.ms_deform_attn_cuda(
+        return _k.MSDeformAttnFunction.apply(
             value, shapes, sampling_locations, attention_weights
         )
     if value.device.type == "cpu":

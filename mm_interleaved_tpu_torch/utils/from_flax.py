@@ -20,6 +20,11 @@ tensors keyed as the port's modules name them, for
   * the image decoder needs no renames: the port's UNet, VAE and MMFSNet
     keep the JAX module names, and the fused GEGLU's ``ff_in``/``ff_out``
     params are ``kernel``/``bias`` like any Dense.
+
+`port_name` is that path map (JAX path -> port name); `param_jax_paths`
+is its inverse over a port module tree (port name -> the unrolled JAX
+path), which the optimizer's labels read.  `convert_params` also carries a
+JAX gradient tree over, which has the params' structure.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ from typing import Dict, Mapping
 
 import numpy as np
 import torch
+from torch import nn
 
 _RENAMES = (
     (re.compile(r"(^|/)layers_(\d+)(?=/)"), r"\1layers/\2"),
@@ -70,34 +76,80 @@ def _unstack_blocks(flat: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
     return out
 
 
-def _convert_leaf(path: str, arr: np.ndarray):
+def port_name(path: str) -> str:
+    """The port's parameter name of the unrolled JAX path ``path``."""
+    for pat, repl in _RENAMES:
+        path = pat.sub(repl, path)
+    parts = path.split("/")
+    if parts[-1] in ("kernel", "scale", "embedding"):
+        parts[-1] = "weight"
+    return ".".join(parts)
+
+
+def _convert_array(path: str, arr: np.ndarray) -> np.ndarray:
     parts = path.split("/")
     leaf, parent = parts[-1], parts[-2] if len(parts) > 1 else ""
-    if leaf == "kernel":
-        if arr.ndim == 2:
-            arr = arr.T
-        elif arr.ndim == 4 and parent == "adapter_up":
-            arr = np.transpose(arr[::-1, ::-1], (2, 3, 0, 1))
-        elif arr.ndim == 4:
-            arr = np.transpose(arr, (3, 2, 0, 1))
-        else:
-            raise ValueError(f"unexpected kernel rank at {path}: {arr.shape}")
-        leaf = "weight"
-    elif leaf in ("scale", "embedding"):
-        leaf = "weight"
-    parts[-1] = leaf
-    return ".".join(parts), arr
+    if leaf != "kernel":
+        return arr
+    if arr.ndim == 2:
+        return arr.T
+    if arr.ndim == 4 and parent == "adapter_up":
+        return np.transpose(arr[::-1, ::-1], (2, 3, 0, 1))
+    if arr.ndim == 4:
+        return np.transpose(arr, (3, 2, 0, 1))
+    raise ValueError(f"unexpected kernel rank at {path}: {arr.shape}")
 
 
 def convert_params(params: Mapping) -> Dict[str, torch.Tensor]:
     """JAX params tree (nested dicts of arrays) -> the port's state dict."""
     flat = _unstack_blocks(_flatten(params))
+    return {port_name(path): torch.from_numpy(np.array(
+                _convert_array(path, arr), np.float32, order="C"))
+            for path, arr in flat.items()}
+
+
+_INVERSE = (
+    (re.compile(r"(^|\.)layers\.(\d+)(?=\.|$)"), r"\1layers_\2"),
+    (re.compile(r"(^|\.)injectors\.(\d+)(?=\.|$)"),
+     r"\1interactions_\2_injector"),
+    (re.compile(r"(^|\.)extractors\.(\d+)(?=\.|$)"),
+     r"\1interactions_\2_extractor"),
+    (re.compile(r"(^|\.)convs\.(\d+)\.conv$"), r"\1_ConvLNRelu_\2.Conv_0"),
+    (re.compile(r"(^|\.)convs\.(\d+)\.norm$"), r"\1_ConvLNRelu_\2.LayerNorm_0"),
+)
+
+
+def _jax_leaf(module: nn.Module, leaf: str) -> str:
+    if leaf != "weight":
+        return leaf
+    if isinstance(module, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)):
+        return "kernel"
+    if isinstance(module, nn.Embedding):
+        return "embedding"
+    if isinstance(module, nn.LayerNorm) or hasattr(module, "num_groups"):
+        return "scale"
+    return leaf  # RMSNorm keeps "weight"
+
+
+def param_jax_paths(model: nn.Module) -> Dict[str, str]:
+    """Every parameter name of ``model`` -> the unrolled JAX path of the
+    same leaf (``port_name`` inverted, from a walk of the module tree)."""
+    extra = re.compile(r"(^|\.)extra_extractors\.(\d+)(?=\.|$)")
     out = {}
-    for path, arr in flat.items():
-        for pat, repl in _RENAMES:
+    for mod_name, mod in model.named_modules():
+        path = mod_name
+        if extra.search(path):
+            # the extra extractors hang off the last interaction
+            owner = model.get_submodule(path[:extra.search(path).start()])
+            last = owner.cfg.num_interactions - 1
+            path = extra.sub(rf"\1interactions_{last}_extra_extractor_\2",
+                             path)
+        for pat, repl in _INVERSE:
             path = pat.sub(repl, path)
-        name, arr = _convert_leaf(path, arr)
-        out[name] = torch.from_numpy(np.ascontiguousarray(arr, np.float32))
+        for leaf, _ in mod.named_parameters(recurse=False):
+            name = f"{mod_name}.{leaf}" if mod_name else leaf
+            jpath = f"{path}.{_jax_leaf(mod, leaf)}" if path else leaf
+            out[name] = jpath.replace(".", "/")
     return out
 
 

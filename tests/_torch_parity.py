@@ -56,6 +56,35 @@ def tiny_batch(cfg, n_img_row=(1, 1), L: int = 16, seed: int = 0):
                 attention_mask=att)
 
 
+def interleaved_batch(cfg, L=40, max_img=3, seed=0):
+    """Two rows of interleaved documents with images (row 1 holds two images
+    in one document, so one target image has a previous image), the image
+    targets of the image decoder, padding at the end."""
+    S = cfg.special
+    n_tok = cfg.num_img_token
+
+    def row(docs):
+        r = []
+        for doc in docs:
+            r.append(S.bos_token_id)
+            for x in doc:
+                r += ([S.soi_token_id] + [S.image_token_id] * n_tok
+                      if x == "I" else [x])
+            r.append(S.eos_token_id)
+        return r + [S.pad_token_id] * (L - len(r))
+
+    rng = np.random.RandomState(seed)
+    ids = np.array([row([[5, 6, "I", 7], [8, "I", 9, 10]]),
+                    row([[11, "I", 12, "I", 13, 14]])], np.int32)
+    return dict(
+        text_ids=ids,
+        image_tensors=rng.rand(2, max_img, 56, 56, 3).astype(np.float32),
+        num_image_per_seq=np.array([2, 2], np.int32),
+        attention_mask=(ids != S.pad_token_id).astype(np.int32),
+        image_tensors_dec=rng.rand(2, max_img, 16, 16, 3).astype(np.float32),
+    )
+
+
 def init_tiny(scan_layers: bool, seed: int = 1):
     """(config, JAX model, noised params as numpy, batch)."""
     cfg = tiny_config(with_image_decoder=False, scan_layers=scan_layers)

@@ -42,7 +42,7 @@ from mm_interleaved_tpu_torch.utils.from_flax import (
     convert_params, load_flax_params,
 )
 
-from _torch_parity import close, noised, t
+from _torch_parity import close, interleaved_batch as _batch, noised, t
 
 RTOL = 1e-4
 
@@ -54,32 +54,6 @@ def _configs(scan_layers=False):
         out.append(dataclasses.replace(c, image_decoder=dataclasses.replace(
             c.image_decoder, vae_decode_dtype="float32")))
     return out
-
-
-def _batch(cfg, L=40, max_img=3, seed=0):
-    S = cfg.special
-    n_tok = cfg.num_img_token
-
-    def row(docs):
-        r = []
-        for doc in docs:
-            r.append(S.bos_token_id)
-            for x in doc:
-                r += ([S.soi_token_id] + [S.image_token_id] * n_tok
-                      if x == "I" else [x])
-            r.append(S.eos_token_id)
-        return r + [S.pad_token_id] * (L - len(r))
-
-    rng = np.random.RandomState(seed)
-    ids = np.array([row([[5, 6, "I", 7], [8, "I", 9, 10]]),
-                    row([[11, "I", 12, "I", 13, 14]])], np.int32)
-    return dict(
-        text_ids=ids,
-        image_tensors=rng.rand(2, max_img, 56, 56, 3).astype(np.float32),
-        num_image_per_seq=np.array([2, 2], np.int32),
-        attention_mask=(ids != S.pad_token_id).astype(np.int32),
-        image_tensors_dec=rng.rand(2, max_img, 16, 16, 3).astype(np.float32),
-    )
 
 
 @pytest.fixture(scope="module")

@@ -367,7 +367,14 @@ def test_new_cuda_wrappers_refuse_cpu_tensors_and_count_nothing():
          (torch.zeros(1, 1, 16, 1, 8), torch.zeros(1, 1, 1, 3),
           ((4, 4),), torch.zeros(1, 2, 2), torch.zeros(1, 2, 1, 1, 2),
           torch.zeros(1, 2, 1, 1, 1), 0.25)),
+        (fa.flash_attention_bwd, (x, x, x, x, torch.zeros(1, 4, 4))),
     ]
+    value, loc, w = (torch.zeros(1, 16, 1, 8), torch.zeros(1, 3, 1, 1, 2, 2),
+                     torch.zeros(1, 3, 1, 1, 2))
+    for kernel in (kmod.ms_deform_attn_bwd_value_cuda,
+                   kmod.ms_deform_attn_bwd_loc_weight_cuda):
+        calls.append((kernel, (value, ((4, 4),), loc, w,
+                               torch.zeros(1, 3, 8))))
     for kernel, args in calls:
         before = kernel.launches
         with pytest.raises(ValueError, match="CUDA"):
