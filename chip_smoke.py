@@ -54,7 +54,16 @@ Phases, each of which raises (and exits nonzero) on failure:
    autograd at every distinct training call shape and at ``tiny``, in
    bf16 and fp32, timed beside its bound and, for flash attention,
    autograd through `scaled_dot_product_attention`; flash attention's
-   training forward (output and LSE) against attention in fp64 there.
+   training forward (output and LSE) against attention in fp64 there;
+9. the deformable-kernel benchmark (`mm_interleaved_tpu_torch.
+   bench_deform_kernel.run`): the v1 and v4 kernels and kernel 1 at its
+   unet and prefill cases, bf16, each timed (median of 25), the v1 and v4
+   launch counts equal to the calls made; then v1 and v4 each against its
+   plain version (bf16 within 2 ulps at the output's scale, fp32 within
+   1e-5 of it) and against kernel 1 (bf16 2e-2, fp32 1e-4 of kernel 1's
+   scale) at both cases, in bf16 and fp32, beside the bound of the
+   function (`work_deform`, as kernel 1's) and the design's own operation
+   count.
 
 Prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power line,
 and last ``{"ok": true, "device": {...}}``.  Needs one CUDA card and the
@@ -125,6 +134,15 @@ KERNELS = {
         plain="attention_plain", source="flash_attention_bwd.cu",
         replaces="mm_interleaved_tpu/ops/flash_attention.py:19 "
                  "flash_attention (its backward: dkv, dq)"),
+    "ms_deform_attn_v1_fwd": dict(
+        module="ms_deform_attn_v1", kernel="ms_deform_attn_v1_cuda",
+        plain="ms_deform_attn_v1_plain", source="ms_deform_attn_v1.cu",
+        replaces="mm_interleaved_tpu/ops/ms_deform_attn_pallas.py:36 _kernel"),
+    "ms_deform_attn_v4_fwd": dict(
+        module="ms_deform_attn_v4", kernel="ms_deform_attn_v4_cuda",
+        plain="ms_deform_attn_v4_plain", source="ms_deform_attn_v4.cu",
+        replaces="mm_interleaved_tpu/ops/ms_deform_attn_pallas_v4.py:157 "
+                 "_kernel_v4"),
 }
 # the forward kernels of the inference phases and the backward kernels of
 # the training phase
@@ -132,6 +150,10 @@ FORWARD = ("ms_deform_attn_fwd", "ms_deform_attn_mi_fwd",
            "flash_attention_fwd", "group_norm_silu_apply", "geglu_fwd")
 BACKWARD = ("ms_deform_attn_bwd_value", "ms_deform_attn_bwd_loc_weight",
             "flash_attention_bwd")
+# the benchmark's kernels (phase 9), by their formulation's name there
+BENCH = {"ms_deform_attn_v1_fwd": "v1", "ms_deform_attn_v4_fwd": "v4"}
+# the plain versions at the benchmark's unet case take tens of ms a call
+PLAIN_RUNS = 5
 TRAIN_STEPS = 3
 
 
@@ -768,8 +790,9 @@ def expected_image_launches(cfg, steps: int, rows: int) -> dict:
         "group_norm_silu_apply": ((2 * resnets + 1) * steps
                                   + (2 * vae_resnets + 1) * chunks),
         "geglu_fwd": geglu_blocks * steps,
-        # inference records no graph: no backward kernel runs
-        **{name: 0 for name in BACKWARD},
+        # inference records no graph: no backward kernel runs; the
+        # benchmark's kernels serve the benchmark alone
+        **{name: 0 for name in (*BACKWARD, *BENCH)},
     }
 
 
@@ -815,6 +838,7 @@ def expected_train_launches(cfg, images: int) -> dict:
         "ms_deform_attn_bwd_value": deform,
         "ms_deform_attn_bwd_loc_weight": deform,
         "flash_attention_bwd": flash,
+        **{name: 0 for name in BENCH},
     }
 
 
@@ -1524,7 +1548,8 @@ def compare_backward(name, sites_cases) -> list:
     return sites
 
 
-def kernel_line(name, sites, launches) -> dict:
+def kernel_line(name, sites, launches,
+                timing="sum over the captured flagship call sites") -> dict:
     """The kernel's entry of the ``{"kernels": [...]}`` line: times summed
     over its captured flagship call sites (bf16), errors over every site."""
     main = [s for s in sites if s["site"] != TINY]
@@ -1545,10 +1570,130 @@ def kernel_line(name, sites, launches) -> dict:
         "bound_ms": sum(s["bound_ms"] for s in main),
         "bound_by": "operations" if ops_ms > bytes_ms else "bytes",
         "library_ms": None if None in lib else sum(lib),
-        "timing": "sum over the captured flagship call sites, bf16, median "
-                  f"of {TIMING_RUNS} CUDA-event runs each",
+        "timing": f"{timing}, bf16, median of {TIMING_RUNS} CUDA-event "
+                  "runs each",
         "sites": sites,
     }
+
+
+def design_ops(name, args) -> dict:
+    """The operations the kernel's own design performs (beside the bound,
+    which counts the function's work and does not change with the
+    formulation): v4 builds Q * sum(h*w) * P hat products per (n, h) and
+    multiplies A (Q x h*w) by V (h*w x D) on the tensor cores; v1 reads 2
+    rows by 2 columns per sample and channel, with 6 FMAs (4 row blends, 2
+    column weights)."""
+    value, shapes, loc, w = args
+    N, Q, H, L, P, _ = loc.shape
+    D = value.shape[3]
+    texels = sum(h * w_ for h, w_ in shapes)
+    if name == "ms_deform_attn_v4_fwd":
+        return dict(hat_products=N * H * Q * texels * P,
+                    tensor_flops=2 * N * H * Q * texels * D)
+    samples = N * Q * H * L * P
+    return dict(texel_reads=4 * samples * D, flops=12 * samples * D)
+
+
+def compare_bench(name, res) -> list:
+    """Phase 9's checks of one benchmark kernel at each of the benchmark's
+    cases, on its inputs (bf16 values) and with the values in fp32: the
+    kernel against its plain version (bf16 within 2 ulps at the output's
+    scale: only the order of the sums differs; fp32 within 1e-5 of the
+    scale) and against kernel 1, the same function in another formulation
+    (bf16 within 2e-2 of kernel 1's scale, as tests/test_pallas_kernel.py
+    allows v4 against the gather; fp32 1e-4).  The bf16 time is the
+    benchmark's own; the fp32 time and the plain versions' (median of
+    PLAIN_RUNS) are taken here.  Every failure is gathered; the phase fails
+    after the last case."""
+    import torch
+
+    mod = kmod(name)
+    kernel = getattr(mod, KERNELS[name]["kernel"])
+    plain = getattr(mod, KERNELS[name]["plain"])
+    kernel1 = kernel_of("ms_deform_attn_fwd")
+    form = BENCH[name]
+    sites, fails = [], []
+    for case, args in res["inputs"].items():
+        row = next(r for r in res["rows"]
+                   if r["case"] == case and r["formulation"] == form)
+        rec = dict(site=case, shapes=[list(x.shape) for x in args
+                                      if isinstance(x, torch.Tensor)],
+                   ms_bf16=row["ms"])
+        for dt, tag in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+            a = (args[0].to(dt),) + tuple(args[1:])
+            with torch.inference_mode():
+                got = (res["outputs"][case][form] if tag == "bf16"
+                       else kernel(*a))
+                want = plain(*a)
+                ref = kernel1(*a)
+                torch.cuda.synchronize()
+                got, want, ref = got.float(), want.float(), ref.float()
+                scale = float(want.abs().max())
+                scale1 = float(ref.abs().max())
+                err = float((got - want).abs().max())
+                err1 = float((got - ref).abs().max())
+            if tag == "bf16":
+                tol = float(2 * 2.0 ** (np.floor(np.log2(max(scale, 1e-30)))
+                                        - 7))
+                tol1 = 2e-2 * scale1
+            else:
+                tol, tol1 = 1e-5 * scale, 1e-4 * scale1
+            if not err <= tol:
+                fails.append(f"{name} {case} {tag}: kernel vs plain {err} > "
+                             f"{tol}")
+            if not err1 <= tol1:
+                fails.append(f"{name} {case} {tag}: kernel vs kernel 1 "
+                             f"{err1} > {tol1}")
+            rec.update({f"max_abs_err_{tag}": err, f"tol_{tag}": tol,
+                        f"scale_{tag}": scale,
+                        f"err_vs_kernel1_{tag}": err1,
+                        f"tol_vs_kernel1_{tag}": tol1})
+            with torch.inference_mode():
+                if tag == "fp32":
+                    rec["ms_fp32"] = time_ms(lambda: kernel(*a))
+                rec[f"plain_ms_{tag}"] = time_ms(lambda: plain(*a),
+                                                 PLAIN_RUNS)
+            if tag == "bf16":
+                flops, nbytes, rate = work_deform(a, {}, got.to(dt))
+                rec["ops_ms"], rec["bytes_ms"] = _bound(flops, nbytes, rate)
+                rec["bound_ms"] = max(rec["ops_ms"], rec["bytes_ms"])
+                rec["bound_by"] = ("operations" if rec["ops_ms"]
+                                   > rec["bytes_ms"] else "bytes")
+                rec["flops"], rec["bytes"] = flops, nbytes
+                rec["library_ms"] = None
+                rec["design_ops"] = design_ops(name, a)
+            del got, want, ref
+        sites.append(rec)
+        log(f"kernel vs plain and kernel 1, {name} {case}: {json.dumps(rec)}")
+        torch.cuda.empty_cache()
+    if fails:
+        raise AssertionError(f"{len(fails)} failed checks: {fails}")
+    return sites
+
+
+def run_bench_phase() -> list:
+    """Phase 9: the benchmark entry point on the card with every count at
+    0 just before it, its v1, v4 and kernel-1 launches equal to the calls
+    it made, then `compare_bench` for v1 and v4; returns their entries of
+    the kernels line."""
+    from mm_interleaved_tpu_torch import bench_deform_kernel as bench
+
+    reset_counts()
+    res = bench.run("cuda")
+    got = read_counts()
+    for row in res["rows"]:
+        log(f"bench_deform_kernel: {json.dumps(row)}")
+    want = {name: res["calls"][form] for name, form in BENCH.items()}
+    want["ms_deform_attn_fwd"] = res["calls"]["kernel1"]
+    for name, n in want.items():
+        if n == 0 or got[name] != n:
+            raise AssertionError(f"{name}: {got[name]} launches in the "
+                                 f"benchmark, {n} calls made")
+    log(f"benchmark launches {json.dumps(got)}")
+    return [kernel_line(name, compare_bench(name, res), got[name],
+                        timing="sum over the benchmark's unet and prefill "
+                               "cases")
+            for name in BENCH]
 
 
 def main() -> int:
@@ -1566,6 +1711,7 @@ def main() -> int:
         print(f"chip_smoke: run from the repository checkout ({e})",
               file=sys.stderr)
         return 2
+
     from mm_interleaved_tpu_torch.configs import flagship_config
     from mm_interleaved_tpu_torch.models.mm_interleaved import build_model
 
@@ -1658,6 +1804,9 @@ def main() -> int:
         f"kernel {json.dumps(tr['top'])}")
     lines += [kernel_line(name, compare_backward(name, cases[name]),
                           tr["launches"][name]) for name in BACKWARD]
+
+    # 9. the deformable-kernel benchmark
+    lines += run_bench_phase()
     log(json.dumps({"kernels": lines}))
     log(smi)
     print(json.dumps({"ok": True, "device": {

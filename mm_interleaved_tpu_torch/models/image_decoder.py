@@ -83,9 +83,10 @@ class ImageDecoder(nn.Module):
                 generator: Optional[torch.Generator] = None,
                 vae_noise=None, noise=None, timesteps=None, uncond_drop=None):
         """Diffusion training loss (a scalar): ``image_tensors [B, H, W, 3]``
-        in [0, 1] are the targets; the context is resampled (and replaced
-        by ``neg_prompt_embeds`` where ``uncond_drop [B]``, drawn with
-        probability ``uncond_prob``); the fp32 VAE latents, without
+        in [0, 1] are the targets; the context is resampled (with the
+        resampler's dropout from ``generator`` in training mode) and
+        replaced by ``neg_prompt_embeds`` where ``uncond_drop [B]``, drawn
+        with probability ``uncond_prob``; the fp32 VAE latents, without
         gradient, are noised at ``timesteps [B]`` and the UNet's prediction
         is held against the training target, per image, masked by
         ``image_loss_mask [B]`` and averaged over the batch."""
@@ -94,7 +95,7 @@ class ImageDecoder(nn.Module):
         dev = image_tensors.device
 
         ctx = self.perceiver_resampler(context_features,
-                                       context_attention_mask)
+                                       context_attention_mask, generator)
         if c.uncond_prob > 0:
             if uncond_drop is None:
                 uncond_drop = torch.rand((B,), generator=generator,

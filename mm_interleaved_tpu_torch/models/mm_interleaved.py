@@ -74,12 +74,12 @@ class MMInterleaved(nn.Module):
     def init_weights(self, g: torch.Generator) -> None:
         self.soi_token.data.zero_()
 
-    def _encode_images(self, image_tensors: torch.Tensor):
+    def _encode_images(self, image_tensors: torch.Tensor, generator=None):
         """[B, max_img, H, W, 3] -> vis_embed [B, max_img, n_tok, C_llm],
         pyramid levels each [B, max_img, h, w, C_vis]."""
         B = image_tensors.shape[0]
         flat = rearrange(image_tensors, "b n h w c -> (b n) h w c")
-        out = self.visual_tokenizer(flat)
+        out = self.visual_tokenizer(flat, generator)
         vis_embed = rearrange(out["vis_embed"], "(b n) t c -> b n t c", b=B)
         pyramid = tuple(
             rearrange(f, "(b n) h w c -> b n h w c", b=B)
@@ -100,11 +100,12 @@ class MMInterleaved(nn.Module):
             )
         return torch.cat(chosen, dim=2)
 
-    def prepare_mm_embeds(self, text_ids, image_tensors, num_image_per_seq):
+    def prepare_mm_embeds(self, text_ids, image_tensors, num_image_per_seq,
+                          generator=None):
         c = self.cfg
         max_img = image_tensors.shape[1]
         text_embeds = self.mm_decoder.embed(text_ids)
-        vis_embed, pyramid = self._encode_images(image_tensors)
+        vis_embed, pyramid = self._encode_images(image_tensors, generator)
         mm_embeds = so.scatter_image_embeds(
             text_embeds, text_ids, vis_embed, c.special.image_token_id
         )
@@ -199,14 +200,14 @@ class MMInterleaved(nn.Module):
         labels (or ``gt_text_ids[:, 1:]``), and, with the image decoder, its
         loss on ``image_tensors_dec`` (default ``image_tensors``) for the
         real images with more than 2 context tokens, times
-        ``image_loss_mask``.  ``generator`` and ``draws`` (``vae_noise``,
-        ``noise``, ``timesteps``, ``uncond_drop``) go to
-        `ImageDecoder.forward`."""
+        ``image_loss_mask``.  ``generator`` draws the resamplers' dropout
+        in training mode; it and ``draws`` (``vae_noise``, ``noise``,
+        ``timesteps``, ``uncond_drop``) go to `ImageDecoder.forward`."""
         c = self.cfg
         if attention_mask is None:
             attention_mask = (text_ids != c.special.pad_token_id).int()
         prep = self.prepare_mm_embeds(text_ids, image_tensors,
-                                      num_image_per_seq)
+                                      num_image_per_seq, generator)
         hidden, _, _ = self.mm_decoder(
             prep["mm_embeds"],
             attention_mask=attention_mask,

@@ -5,7 +5,9 @@ queries with self-attention, cross-attention every
 optional q/k LayerNorm over ``head_dim``.  An ``encoder_attention_mask
 [B, S]`` masks the cross-attention keys (a dense mask: that call stays on
 the plain attention path; the mask-free self-attention takes the flash
-kernel on the card)."""
+kernel on the card).  In training mode, ``dropout`` applies where the JAX
+module's ``nn.Dropout`` does (the input, each attention output, the FFN
+output), its keep masks drawn from the ``generator`` of the call."""
 
 from __future__ import annotations
 
@@ -17,6 +19,17 @@ from torch import nn
 import torch.nn.functional as F
 
 from ..ops.attention import dot_product_attention
+
+
+def dropout(x: torch.Tensor, rate: float, training: bool,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax's ``nn.Dropout``: in training, keep each element with
+    probability ``1 - rate`` (the mask drawn from ``generator``) and scale
+    the kept ones by ``1 / (1 - rate)``; otherwise ``x``."""
+    if not training or rate == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,7 +70,7 @@ class _MHA(nn.Module):
             self.k_norm = nn.LayerNorm(hd, eps=cfg.layer_norm_eps)
         self.output = nn.Linear(c, c)
 
-    def forward(self, x, kv, kv_mask=None):
+    def forward(self, x, kv, kv_mask=None, generator=None):
         c = self.cfg
         B, T, _ = x.shape
         S = kv.shape[1]
@@ -71,7 +84,8 @@ class _MHA(nn.Module):
             k = self.k_norm(k)
         mask = None if kv_mask is None else kv_mask[:, None, None, :].bool()
         out = dot_product_attention(q, k, v, mask=mask)
-        return self.output(out.reshape(B, T, c.hidden_size))
+        out = self.output(out.reshape(B, T, c.hidden_size))
+        return dropout(out, c.dropout, self.training, generator)
 
 
 class PerceiverLayer(nn.Module):
@@ -82,6 +96,7 @@ class PerceiverLayer(nn.Module):
         self.attention = _MHA(cfg, c)
         self.attention_norm = nn.LayerNorm(c, eps=eps)
         self.has_cross = has_cross
+        self.rate = cfg.dropout
         if has_cross:
             self.crossattention = _MHA(cfg, cfg.encoder_hidden_size)
             self.crossattention_norm = nn.LayerNorm(c, eps=eps)
@@ -89,12 +104,13 @@ class PerceiverLayer(nn.Module):
         self.ffn_output = nn.Linear(cfg.ffn_size, c)
         self.output_norm = nn.LayerNorm(c, eps=eps)
 
-    def forward(self, x, enc, enc_mask=None):
-        x = self.attention_norm(x + self.attention(x, x))
+    def forward(self, x, enc, enc_mask=None, generator=None):
+        x = self.attention_norm(x + self.attention(x, x, generator=generator))
         if self.has_cross:
             x = self.crossattention_norm(
-                x + self.crossattention(x, enc, enc_mask))
+                x + self.crossattention(x, enc, enc_mask, generator))
         h = self.ffn_output(F.gelu(self.intermediate(x)))
+        h = dropout(h, self.rate, self.training, generator)
         return self.output_norm(x + h)
 
 
@@ -117,10 +133,13 @@ class PerceiverResampler(nn.Module):
         self.queries.data.normal_(0.0, self.cfg.initializer_range, generator=g)
 
     def forward(self, encoder_hidden_states: torch.Tensor,
-                encoder_attention_mask: Optional[torch.Tensor] = None
+                encoder_attention_mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None
                 ) -> torch.Tensor:
         B = encoder_hidden_states.shape[0]
         x = self.input_norm(self.queries.expand(B, -1, -1))
+        x = dropout(x, self.cfg.dropout, self.training, generator)
         for layer in self.layers:
-            x = layer(x, encoder_hidden_states, encoder_attention_mask)
+            x = layer(x, encoder_hidden_states, encoder_attention_mask,
+                      generator)
         return x

@@ -11,6 +11,7 @@ the LLM width.  Returns ``vis_embed [B, num_queries, llm_hidden]``,
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 from torch import nn
@@ -52,8 +53,10 @@ class VisualTokenizer(nn.Module):
         self.proj.weight.data.normal_(0.0, 1e-3, generator=g)
         self.proj.bias.data.zero_()
 
-    def forward(self, image: torch.Tensor) -> dict:
-        """image: [B, H, W, 3] in [0, 1]."""
+    def forward(self, image: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> dict:
+        """image: [B, H, W, 3] in [0, 1]; ``generator`` draws the
+        resampler's dropout in training mode."""
         c = self.cfg
         d = c.encoder.dim
         dev = image.device
@@ -81,7 +84,8 @@ class VisualTokenizer(nn.Module):
         q_in = self.pos_ln(self.pos_proj(last_hidden)) + pe.to(last_hidden.dtype)
         image_embeds = last_hidden + pe.to(last_hidden.dtype)
         q_in = self.post_ln(q_in)
-        vis = self.perceiver_resampler(encoder_hidden_states=q_in)
+        vis = self.perceiver_resampler(encoder_hidden_states=q_in,
+                                       generator=generator)
         return dict(
             vis_embed=self.proj(vis),
             image_embeds=image_embeds[:, 1:],

@@ -6,7 +6,9 @@ versions (counterpart of `mm_interleaved_tpu/ops/ms_deform_attn_pallas_v5.py`).
   launch the two backward kernels of ``csrc/ms_deform_attn_bwd.cu``.  Each
   runs on PyTorch's current stream, takes CUDA tensors only, raises on
   anything its kernel does not take, and counts its launches in
-  ``.launches`` (a launch that raises is not counted).
+  ``.launches`` (a launch that raises is not counted).  `launch_forward`
+  serves every forward of the same C signature: kernel 1 and the
+  benchmark's v1 and v4 kernels (`ms_deform_attn_v1`, `ms_deform_attn_v4`).
 * `MSDeformAttnFunction` is the differentiable op on the card: its forward
   launches the forward kernel, its backward the two backward kernels.  The
   bare forward wrapper refuses a call that autograd records.
@@ -141,13 +143,18 @@ def _level_array(level_shapes):
         *[s for hw_ in level_shapes for s in hw_])
 
 
-def _launch(value, level_shapes, sampling_locations, attention_weights):
-    """Launch the forward kernel; raises on input it does not take."""
-    name = "ms_deform_attn_cuda"
+def launch_forward(name, library, value, level_shapes, sampling_locations,
+                   attention_weights, check_dims=None):
+    """Launch the forward kernel ``mmi_<library>_fwd`` of
+    ``csrc/<library>.cu`` (the C signature every deformable forward shares);
+    ``check_dims(D, P, dtype)`` raises on head and point counts the kernel
+    does not take.  Returns ``[N, Q, H*D]`` in the value's dtype."""
     N, S, Q, H, D, L, P = _check(name, value, level_shapes,
                                  sampling_locations, attention_weights)
     forbid_grad(name, value, sampling_locations, attention_weights)
-    fn = load_library("ms_deform_attn").mmi_ms_deform_attn_fwd
+    if check_dims is not None:
+        check_dims(D, P, value.dtype)
+    fn = getattr(load_library(library), f"mmi_{library}_fwd")
     fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4 \
         + [ctypes.c_int] * 7 + [ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -159,8 +166,14 @@ def _launch(value, level_shapes, sampling_locations, attention_weights):
         attention_weights.data_ptr(), out.data_ptr(),
         N, S, Q, H, D, L, P, _level_array(level_shapes), stream_of(value),
     )
-    raise_on_error("ms_deform_attn", err)
+    raise_on_error(name, err)
     return out
+
+
+def _launch(value, level_shapes, sampling_locations, attention_weights):
+    """Launch the forward kernel; raises on input it does not take."""
+    return launch_forward("ms_deform_attn_cuda", "ms_deform_attn", value,
+                          level_shapes, sampling_locations, attention_weights)
 
 
 def _launch_bwd_value(value, level_shapes, sampling_locations,

@@ -159,6 +159,44 @@ def test_perceiver(tiny):
     close(got, want, 1e-4, 1e-5)
 
 
+def _gen(seed):
+    g = torch.Generator()
+    g.manual_seed(seed)
+    return g
+
+
+def test_perceiver_dropout_in_training_mode(tiny):
+    """Dropout 0.3 where the JAX module applies it: in training mode one
+    seed gives one output and another seed another; in eval mode, and at
+    rate 0 in either mode, the output is the dropout-free module's, which
+    `test_perceiver` holds against JAX.  The visual tokenizer hands its
+    generator to its resampler."""
+    import dataclasses
+
+    _, p, _ = tiny
+    sub = p["visual_tokenizer"]["perceiver_resampler"]
+    visual = tcfg.tiny_config().visual
+    pc = dataclasses.replace(visual.perceiver, dropout=0.3)
+    enc = t(np.random.RandomState(3).randn(2, 17, 32).astype(np.float32))
+    base = _port(PerceiverResampler(visual.perceiver), sub)
+    drop = _port(PerceiverResampler(pc), sub)
+    want = base(enc)
+    close(drop(enc, generator=_gen(1)), want, 0, 0)
+    drop.train()
+    a = drop(enc, generator=_gen(1))
+    assert torch.equal(a, drop(enc, generator=_gen(1)))
+    assert not torch.allclose(a, drop(enc, generator=_gen(2)))
+    assert not torch.allclose(a, want)
+    close(base.train()(enc, generator=_gen(1)), want, 0, 0)
+
+    vt = _port(VisualTokenizer(dataclasses.replace(visual, perceiver=pc)),
+               p["visual_tokenizer"]).train()
+    x = t(_pixels(tcfg.tiny_config()))
+    a = vt(x, _gen(1))["vis_embed"]
+    assert torch.equal(a, vt(x, _gen(1))["vis_embed"])
+    assert not torch.allclose(a, vt(x, _gen(2))["vis_embed"])
+
+
 def test_visual_tokenizer(tiny):
     cfg, p, _ = tiny
     sub = p["visual_tokenizer"]
