@@ -63,10 +63,24 @@ Phases, each of which raises (and exits nonzero) on failure:
    1e-5 of it) and against kernel 1 (bf16 2e-2, fp32 1e-4 of kernel 1's
    scale) at both cases, in bf16 and fp32, beside the bound of the
    function (`work_deform`, as kernel 1's) and the design's own operation
-   count.
+   count;
+10. the v4-against-v5 benchmark (`mm_interleaved_tpu_torch.
+   bench_v5_kernel.run`): v4 (kernels 8a, 8b, 8c through
+   `MSDeformAttnV4Function`) and v5 (kernels 1, 2, 3), forward and forward
+   + backward, at its unet and prefill cases under clustered and uniform
+   locations, bf16, each timed (median of 25); every kernel's launches
+   equal to the calls that reach it; each row finite, v4 within 2e-2 of v5;
+   then the v4 value and location/weight gradient kernels against their
+   plain versions (dV 2 bf16 ulps, d_loc and d_w 1e-4 of their scales in
+   bf16; 1e-5 in fp32) and against kernels 2 and 3 (dV 2e-2, d_loc and d_w
+   1e-3 in bf16; 1e-4 in fp32; d_loc away from the hat's kinks) at all four
+   cases, in bf16 and fp32, the benchmark's own gradients equal to the
+   kernels', beside the bounds of kernels 2 and 3 (the same function) and
+   the design's own operation count.
 
-Prints a ``{"kernels": [...]}`` line, the ``nvidia-smi`` name/power line,
-and last ``{"ok": true, "device": {...}}``.  Needs one CUDA card and the
+Prints a ``{"kernels": [...]}`` line (all twelve kernels), the
+``nvidia-smi`` name/power line, and last ``{"ok": true, "device":
+{...}}``.  Needs one CUDA card and the
 repository checkout around it; imports no JAX.
 """
 
@@ -143,6 +157,19 @@ KERNELS = {
         plain="ms_deform_attn_v4_plain", source="ms_deform_attn_v4.cu",
         replaces="mm_interleaved_tpu/ops/ms_deform_attn_pallas_v4.py:157 "
                  "_kernel_v4"),
+    "ms_deform_attn_v4_bwd_value": dict(
+        module="ms_deform_attn_v4", kernel="ms_deform_attn_v4_bwd_value_cuda",
+        plain="ms_deform_attn_v4_plain_bwd_value",
+        source="ms_deform_attn_v4_bwd.cu",
+        replaces="mm_interleaved_tpu/ops/ms_deform_attn_pallas_v4.py:179 "
+                 "_kernel_v4_bwd_dv"),
+    "ms_deform_attn_v4_bwd_loc_weight": dict(
+        module="ms_deform_attn_v4",
+        kernel="ms_deform_attn_v4_bwd_loc_weight_cuda",
+        plain="ms_deform_attn_v4_plain_bwd_loc_weight",
+        source="ms_deform_attn_v4_bwd.cu",
+        replaces="mm_interleaved_tpu/ops/ms_deform_attn_pallas_v4.py:215 "
+                 "_kernel_v4_bwd_dslab"),
 }
 # the forward kernels of the inference phases and the backward kernels of
 # the training phase
@@ -152,6 +179,17 @@ BACKWARD = ("ms_deform_attn_bwd_value", "ms_deform_attn_bwd_loc_weight",
             "flash_attention_bwd")
 # the benchmark's kernels (phase 9), by their formulation's name there
 BENCH = {"ms_deform_attn_v1_fwd": "v1", "ms_deform_attn_v4_fwd": "v4"}
+# the v4 backward kernels (phase 10), and the calls of the v4-against-v5
+# benchmark that launch each kernel of its path
+V4_BWD = ("ms_deform_attn_v4_bwd_value", "ms_deform_attn_v4_bwd_loc_weight")
+V5_BENCH_LAUNCHES = {
+    "ms_deform_attn_v4_fwd": ("v4_fwd", "v4_fwd_bwd"),
+    "ms_deform_attn_v4_bwd_value": ("v4_fwd_bwd",),
+    "ms_deform_attn_v4_bwd_loc_weight": ("v4_fwd_bwd",),
+    "ms_deform_attn_fwd": ("v5_fwd", "v5_fwd_bwd"),
+    "ms_deform_attn_bwd_value": ("v5_fwd_bwd",),
+    "ms_deform_attn_bwd_loc_weight": ("v5_fwd_bwd",),
+}
 # the plain versions at the benchmark's unet case take tens of ms a call
 PLAIN_RUNS = 5
 TRAIN_STEPS = 3
@@ -373,6 +411,11 @@ def capture(names, cases, site=None):
     finally:
         for mod, attr, orig in saved:
             setattr(mod, attr, orig)
+
+
+def _ulps(scale, n=1):
+    """``n`` bf16 ulps at ``scale``."""
+    return float(n * 2.0 ** (np.floor(np.log2(max(scale, 1e-30))) - 7))
 
 
 def time_ms(fn, runs: int = TIMING_RUNS) -> float:
@@ -792,7 +835,7 @@ def expected_image_launches(cfg, steps: int, rows: int) -> dict:
         "geglu_fwd": geglu_blocks * steps,
         # inference records no graph: no backward kernel runs; the
         # benchmark's kernels serve the benchmark alone
-        **{name: 0 for name in (*BACKWARD, *BENCH)},
+        **{name: 0 for name in (*BACKWARD, *BENCH, *V4_BWD)},
     }
 
 
@@ -838,7 +881,7 @@ def expected_train_launches(cfg, images: int) -> dict:
         "ms_deform_attn_bwd_value": deform,
         "ms_deform_attn_bwd_loc_weight": deform,
         "flash_attention_bwd": flash,
-        **{name: 0 for name in BENCH},
+        **{name: 0 for name in (*BENCH, *V4_BWD)},
     }
 
 
@@ -1240,8 +1283,7 @@ def compare_kernel(name, sites_cases) -> dict:
                     rel = 1e-4 if name == "geglu_fwd" else 1e-5
                     tol = rel * max(scale, 1.0)
                 else:  # one bf16 ulp at the output's scale
-                    tol = float(2.0 ** (np.floor(np.log2(max(scale, 1e-30)))
-                                        - 7))
+                    tol = _ulps(scale)
                 if not err <= tol:
                     raise AssertionError(f"{name} {site} {tag}: kernel vs "
                                          f"plain {err} > {tol}")
@@ -1305,6 +1347,9 @@ WORK.update({
     "ms_deform_attn_bwd_value": work_deform_bwd_value,
     "ms_deform_attn_bwd_loc_weight": work_deform_bwd_loc_weight,
     "flash_attention_bwd": work_flash_bwd,
+    # the same functions in the v4 formulation: the same work
+    "ms_deform_attn_v4_bwd_value": work_deform_bwd_value,
+    "ms_deform_attn_v4_bwd_loc_weight": work_deform_bwd_loc_weight,
 })
 
 
@@ -1405,8 +1450,8 @@ def check_training_forward(a, kw, fwd, tag, fails) -> dict:
     q, k, v = (x.double() for x in a[:3])
     out_ref, lse_ref = attention_f64(q, k, v, with_lse=True, **kw)
     scale = float(out_ref.abs().max())
-    tol = (float(2.0 ** (np.floor(np.log2(max(scale, 1e-30))) - 7))
-           if tag == "bf16" else 1e-5 * max(float(v.abs().max()), 1.0))
+    tol = (_ulps(scale) if tag == "bf16"
+           else 1e-5 * max(float(v.abs().max()), 1.0))
     dead = lse_ref < -1e30
     lse = fwd["lse"].double()
     if not torch.equal(dead, lse < -1e30):
@@ -1507,9 +1552,7 @@ def compare_backward(name, sites_cases) -> list:
             for i, (g, r) in enumerate(zip(got, ref)):
                 err = float((g.double() - r).abs().max())
                 scale = float(r.abs().max())
-                tol = (1e-5 * scale if tag == "fp32"
-                       else float(ulps * 2.0 ** (
-                           np.floor(np.log2(max(scale, 1e-30))) - 7)))
+                tol = 1e-5 * scale if tag == "fp32" else _ulps(scale, ulps)
                 if plain is not None:
                     plain_errs.append(float(
                         (plain[i].double() - r).abs().max()))
@@ -1580,14 +1623,17 @@ def design_ops(name, args) -> dict:
     """The operations the kernel's own design performs (beside the bound,
     which counts the function's work and does not change with the
     formulation): v4 builds Q * sum(h*w) * P hat products per (n, h) and
-    multiplies A (Q x h*w) by V (h*w x D) on the tensor cores; v1 reads 2
-    rows by 2 columns per sample and channel, with 6 FMAs (4 row blends, 2
-    column weights)."""
-    value, shapes, loc, w = args
+    multiplies A (Q x h*w) by V (h*w x D) on the tensor cores; its value
+    gradient builds A again and multiplies A^T by dOut, its location/weight
+    gradient multiplies dOut by V^T and evaluates the hats, their slopes and
+    three products at every (query, point, texel); v1 reads 2 rows by 2
+    columns per sample and channel, with 6 FMAs (4 row blends, 2 column
+    weights)."""
+    value, shapes, loc, w = args[:4]
     N, Q, H, L, P, _ = loc.shape
     D = value.shape[3]
     texels = sum(h * w_ for h, w_ in shapes)
-    if name == "ms_deform_attn_v4_fwd":
+    if name in ("ms_deform_attn_v4_fwd", *V4_BWD):
         return dict(hat_products=N * H * Q * texels * P,
                     tensor_flops=2 * N * H * Q * texels * D)
     samples = N * Q * H * L * P
@@ -1633,8 +1679,7 @@ def compare_bench(name, res) -> list:
                 err = float((got - want).abs().max())
                 err1 = float((got - ref).abs().max())
             if tag == "bf16":
-                tol = float(2 * 2.0 ** (np.floor(np.log2(max(scale, 1e-30)))
-                                        - 7))
+                tol = _ulps(scale, 2)
                 tol1 = 2e-2 * scale1
             else:
                 tol, tol1 = 1e-5 * scale, 1e-4 * scale1
@@ -1694,6 +1739,158 @@ def run_bench_phase() -> list:
                         timing="sum over the benchmark's unet and prefill "
                                "cases")
             for name in BENCH]
+
+
+def compare_v4_backward(res) -> dict:
+    """Phase 10's checks of kernels 8b and 8c at each case of the
+    v4-against-v5 benchmark, on its inputs (bf16 values) and with the
+    values in fp32, with the benchmark's dOut (twice v4's output, in the
+    value's dtype).  Against their plain versions: dV within 2 bf16 ulps at
+    its scale (the same roundings, the sums in another order), fp32 within
+    1e-5 of the scale; d_loc and d_w within 1e-4 (bf16) and 1e-5 (fp32) of
+    their scales (fp32 sums of the same terms).  Against kernels 2 and 3,
+    the same function in another formulation: dV within 2e-2 of kernel 2's
+    scale in bf16 (v4 rounds A) and 1e-4 in fp32; d_loc and d_w within 1e-3
+    (bf16) and 1e-4 (fp32) of kernel 3's, d_loc away from the hat's kinks
+    (`bench_v5_kernel.kinks`), where the two formulations take different
+    slopes and neither is the gradient.  The benchmark's own v4 gradients
+    must equal the kernels' (both kernels are deterministic).  Each kernel
+    and its plain version timed in both dtypes (plain: median of
+    PLAIN_RUNS).  Every failure is gathered; the phase fails after the last
+    case.  Returns ``{kernel: [site records]}``."""
+    import torch
+
+    from mm_interleaved_tpu_torch.bench_v5_kernel import kinks
+    from mm_interleaved_tpu_torch.ops import ms_deform_attn_v4 as v4mod
+
+    k_dv, k_lw = (kernel_of(name) for name in V4_BWD)
+    p_dv, p_lw = (getattr(kmod(name), KERNELS[name]["plain"])
+                  for name in V4_BWD)
+    ref_dv = kernel_of("ms_deform_attn_bwd_value")
+    ref_lw = kernel_of("ms_deform_attn_bwd_loc_weight")
+    grads = ("d_value", "d_loc", "d_w")
+    sites = {name: [] for name in V4_BWD}
+    fails = []
+    for case, (value, shapes, loc, w) in res["inputs"].items():
+        smooth = ~kinks(loc, shapes)
+        recs = {name: dict(site=case, shapes=[list(value.shape),
+                                              list(loc.shape)],
+                           kinks=int((~smooth).sum()))
+                for name in V4_BWD}
+        for dt, tag in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+            v = value.to(dt)
+            with torch.inference_mode():
+                out = v4mod.ms_deform_attn_v4_cuda(v, shapes, loc, w)
+                a = (v, shapes, loc, w, (2 * out.float()).to(dt))
+                got = (k_dv(*a), *k_lw(*a))
+                want = (p_dv(*a), *p_lw(*a))
+                ref = (ref_dv(*a), *ref_lw(*a))
+                torch.cuda.synchronize()
+            if tag == "bf16":
+                bench_grads = res["outputs"][case]["v4_grads"]
+                for gname, x, y in zip(grads, bench_grads, got):
+                    if not torch.equal(x, y):
+                        fails.append(f"{case}: the benchmark's {gname} != "
+                                     "the kernel's")
+            for i, gname in enumerate(grads):
+                name = V4_BWD[min(i, 1)]
+                g, p_, r = (x.float() for x in (got[i], want[i], ref[i]))
+                scale = float(p_.abs().max())
+                err = float((g - p_).abs().max())
+                if i == 1:  # reported at the kinks, checked away from them
+                    recs[name][f"d_loc_err_at_kinks_{tag}"] = float(
+                        ((g - r) * ~smooth).abs().max())
+                    g, r = g * smooth, r * smooth
+                scale1 = float(r.abs().max())
+                err1 = float((g - r).abs().max())
+                if tag == "bf16":
+                    tol = _ulps(scale, 2) if i == 0 else 1e-4 * scale
+                    tol1 = (2e-2 if i == 0 else 1e-3) * scale1
+                else:
+                    tol, tol1 = 1e-5 * scale, 1e-4 * scale1
+                if not err <= tol:
+                    fails.append(f"{name} {case} {tag} {gname}: kernel vs "
+                                 f"plain {err} > {tol}")
+                if not err1 <= tol1:
+                    fails.append(f"{name} {case} {tag} {gname}: kernel vs "
+                                 f"kernels 2/3 {err1} > {tol1}")
+                rec = recs[name]
+                rec[f"max_abs_err_{tag}"] = max(
+                    err, rec.get(f"max_abs_err_{tag}", 0.0))
+                rec.update({f"{gname}_err_{tag}": err,
+                            f"{gname}_tol_{tag}": tol,
+                            f"{gname}_scale_{tag}": scale,
+                            f"{gname}_err_vs_kernels23_{tag}": err1,
+                            f"{gname}_tol_vs_kernels23_{tag}": tol1})
+            for name, kernel, plain, outs in ((V4_BWD[0], k_dv, p_dv,
+                                               got[:1]),
+                                              (V4_BWD[1], k_lw, p_lw,
+                                               got[1:])):
+                rec = recs[name]
+                with torch.inference_mode():
+                    rec[f"ms_{tag}"] = time_ms(lambda: kernel(*a))
+                    rec[f"plain_ms_{tag}"] = time_ms(lambda: plain(*a),
+                                                     PLAIN_RUNS)
+                if tag == "bf16":
+                    flops, nbytes, rate = WORK[name](a, {}, outs)
+                    rec["ops_ms"], rec["bytes_ms"] = _bound(flops, nbytes,
+                                                            rate)
+                    rec["bound_ms"] = max(rec["ops_ms"], rec["bytes_ms"])
+                    rec["bound_by"] = ("operations" if rec["ops_ms"]
+                                       > rec["bytes_ms"] else "bytes")
+                    rec["flops"], rec["bytes"] = flops, nbytes
+                    rec["library_ms"] = None
+                    rec["design_ops"] = design_ops(name, a)
+            del out, a, got, want, ref
+        for name in V4_BWD:
+            sites[name].append(recs[name])
+            log(f"kernel vs plain and kernels 2/3, {name} {case}: "
+                f"{json.dumps(recs[name])}")
+        torch.cuda.empty_cache()
+    if fails:
+        raise AssertionError(f"{len(fails)} failed checks: {fails}")
+    return sites
+
+
+def run_v5_bench_phase() -> list:
+    """Phase 10: the v4-against-v5 benchmark entry point on the card with
+    every count at 0 just before it: each kernel of its path launched
+    exactly as often as the calls that reach it, every other kernel not at
+    all; each row finite, with v4 within 2e-2 of v5 in the forward and in
+    every gradient (the bf16 tolerance of tests/test_torch_v4_backward.py);
+    then `compare_v4_backward`.  Returns the kernels line's entries of 8b
+    and 8c."""
+    from mm_interleaved_tpu_torch import bench_v5_kernel as bench
+
+    reset_counts()
+    t0 = time.perf_counter()
+    res = bench.run("cuda")
+    got = read_counts()
+    log(f"bench_v5_kernel.run: {time.perf_counter() - t0:.1f} s")
+    fails = []
+    for row in res["rows"]:
+        log(f"bench_v5_kernel: {json.dumps(row)}")
+        if not row["finite"]:
+            fails.append(f"{row['case']}: non-finite output or gradient")
+        for key in ("fwd", "d_value", "d_loc", "d_w"):
+            if not row[f"rel_diff_{key}"] <= 2e-2:
+                fails.append(f"{row['case']}: v4 vs v5 {key} "
+                             f"{row[f'rel_diff_{key}']} > 2e-2")
+    want = dict.fromkeys(KERNELS, 0)
+    for name, calls in V5_BENCH_LAUNCHES.items():
+        want[name] = sum(res["calls"][c] for c in calls)
+    if got != want or 0 in (want[n] for n in V5_BENCH_LAUNCHES):
+        fails.append(f"launches in the benchmark {got}, calls made {want}")
+    if fails:
+        raise AssertionError(f"{len(fails)} failed checks: {fails}")
+    log(f"v5 benchmark launches {json.dumps(got)}")
+    t0 = time.perf_counter()
+    sites = compare_v4_backward(res)
+    log(f"compare_v4_backward: {time.perf_counter() - t0:.1f} s")
+    return [kernel_line(name, sites[name], got[name],
+                        timing="sum over the v4-against-v5 benchmark's four "
+                               "cases")
+            for name in V4_BWD]
 
 
 def main() -> int:
@@ -1807,6 +2004,8 @@ def main() -> int:
 
     # 9. the deformable-kernel benchmark
     lines += run_bench_phase()
+    # 10. the v4-against-v5 benchmark, forward and backward
+    lines += run_v5_bench_phase()
     log(json.dumps({"kernels": lines}))
     log(smi)
     print(json.dumps({"ok": True, "device": {

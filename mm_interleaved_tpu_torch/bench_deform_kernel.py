@@ -117,19 +117,25 @@ def run(device="cuda", cases: Optional[Dict[str, dict]] = None) -> dict:
     return dict(rows=rows, calls=calls, inputs=inputs, outputs=outputs)
 
 
+def print_card() -> None:
+    """One JSON line: the card's name and its ``nvidia-smi`` name and power
+    limit, which every time printed after it belongs to."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    print(json.dumps({"device": torch.cuda.get_device_name(),
+                      "nvidia_smi": smi}), flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     cuda = torch.device(args.device).type == "cuda"
     if cuda:
-        smi = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"],
-            capture_output=True, text=True, check=True, timeout=60,
-        ).stdout.strip().splitlines()[0]
-        print(json.dumps({"device": torch.cuda.get_device_name(),
-                          "nvidia_smi": smi}), flush=True)
+        print_card()
     res = run(args.device, CASES if cuda else TINY)
     for row in res["rows"]:
         print(json.dumps(row), flush=True)
