@@ -32,7 +32,14 @@ Phases, each of which raises (and exits nonzero) on failure:
    preset's image path (whose widths take the kernels' CUDA-core variants
    in bf16), in bf16 and fp32, each timed with CUDA events (median of 25),
    beside its bound and, for flash attention,
-   `scaled_dot_product_attention`;
+   `scaled_dot_product_attention`, with both also read as device time
+   under `torch.profiler` and as the mean of 25 calls enqueued back to
+   back (the exp ceiling logged on its own line); then
+   the bf16 flash forward at the `FLASH_EDGES` shapes no site has
+   (lengths that straddle its tiles, causal with Tq < Tk and with a query
+   tile before the first key, segment ids that leave rows without a key,
+   and the mma.sync bodies at D = 32 and 96): within one bf16 ulp of its
+   plain version, output and LSE against attention in fp64;
 8. training: (a) right after phase 3, one `Trainer` step of the tiny preset
    with its image decoder, fp32, on the card against the CPU with the same
    injected draws: loss within 1e-5 relative, every trainable gradient
@@ -53,8 +60,13 @@ Phases, each of which raises (and exits nonzero) on failure:
    `torch.profiler`; (c) each backward kernel against the plain version's
    autograd at every distinct training call shape and at ``tiny``, in
    bf16 and fp32, timed beside its bound and, for flash attention,
-   autograd through `scaled_dot_product_attention`; flash attention's
-   training forward (output and LSE) against attention in fp64 there;
+   autograd through `scaled_dot_product_attention` (both also as device
+   time under `torch.profiler` and enqueued back to back); flash
+   attention's training forward (output and LSE) against attention in
+   fp64 there;
+   the bf16 flash backward bit-identical over two runs at UNet attn1
+   64 px, and at the `FLASH_EDGES` shapes against fp64 autograd with the
+   sites' tolerances, bit-identical over two runs;
 9. the deformable-kernel benchmark (`mm_interleaved_tpu_torch.
    bench_deform_kernel.run`): the v1 and v4 kernels and kernel 1 at its
    unet and prefill cases, bf16, each timed (median of 25), the v1 and v4
@@ -107,6 +119,9 @@ TIMING_RUNS = 25
 PEAK_BF16_FLOPS = 989e12  # dense tensor-core bf16, H100 SXM
 PEAK_FP32_FLOPS = 67e12  # fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12  # HBM3
+# exp2 on the special-function units: 16 per clock per SM, 132 SMs, at the
+# 1.83 GHz that the bf16 peak assumes (989e12 / (132 * 4096 flops a clock))
+PEAK_EXPS = 132 * 16 * 1.83e9
 KERNELS = {
     "ms_deform_attn_fwd": dict(
         module="ms_deform_attn_cuda", kernel="ms_deform_attn_cuda",
@@ -967,6 +982,70 @@ def run_image_slice(model, device: str, cases) -> dict:
                 image_mean=float(images1.mean()))
 
 
+def device_kernels(prof) -> dict:
+    """Device time (ms) and launches by kernel name from a finished
+    `torch.profiler` run."""
+    import torch
+
+    out = {}
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        t = getattr(ev, "device_time_total", None)
+        if t is None:
+            t = ev.cuda_time_total
+        ms_n = out.setdefault(ev.key, [0.0, 0])
+        ms_n[0] += t / 1e3
+        ms_n[1] += ev.count
+    return out
+
+
+def device_ms(fn, runs: int = 10, tries: int = 3):
+    """Device time of one call of ``fn``: the time of every kernel it
+    launches under `torch.profiler`, summed over ``runs`` calls, divided by
+    ``runs``.  Unlike a CUDA-event time it leaves out the host's gaps
+    between launches.  The profiler drops kernel records now and then in a
+    long process, so a reading counts only where every kernel was recorded
+    a whole multiple of ``runs`` times; after ``tries`` incomplete readings
+    it returns None."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(tries):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        by_kernel = device_kernels(prof)
+        counts = {k[:60]: n for k, (_, n) in by_kernel.items()}
+        if by_kernel and all(n > 0 and n % runs == 0
+                             for n in counts.values()):
+            return sum(ms for ms, _ in by_kernel.values()) / runs
+        log(f"device_ms: incomplete profiler reading {json.dumps(counts)}")
+    return None
+
+
+def queued_ms(fn, runs: int = TIMING_RUNS) -> float:
+    """The mean time of ``runs`` calls of ``fn`` enqueued back to back
+    between two CUDA events: the device time where the card is slower than
+    the host's calls, else the host's time a call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(runs):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / runs
+
+
 def profile_step(model, device: str) -> dict:
     """Device time by kernel over one denoise step (torch.profiler): the
     difference of a 2-step and a 1-step `generate_images` run."""
@@ -991,14 +1070,9 @@ def profile_step(model, device: str) -> dict:
             generate_images(model, *inp, num_inference_steps=steps,
                             guidance_scale=GUIDANCE, generator=g)
             torch.cuda.synchronize()
-        for ev in prof.key_averages():
-            if ev.device_type != torch.autograd.DeviceType.CUDA:
-                continue
-            t = getattr(ev, "device_time_total", None)
-            if t is None:
-                t = ev.cuda_time_total
-            per_kernel.setdefault(ev.key, [0.0, 0.0])[steps - 1] += t / 1e3
-            launches[steps - 1] += ev.count
+        for key, (ms, n) in device_kernels(prof).items():
+            per_kernel.setdefault(key, [0.0, 0.0])[steps - 1] += ms
+            launches[steps - 1] += n
     step = sorted(((k, v[1] - v[0]) for k, v in per_kernel.items()),
                   key=lambda kv: -kv[1])
     return dict(device_ms=sum(ms for _, ms in step),
@@ -1120,15 +1194,9 @@ def run_training(device: str, cases) -> dict:
         moved[lab] = max(moved.get(lab, 0.0), d)
     if not all(d > 0 for d in moved.values()):
         raise AssertionError(f"a trainable group did not move: {moved}")
-    per_kernel, n_launch = {}, 0
-    for ev in prof.key_averages():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        t = getattr(ev, "device_time_total", None)
-        if t is None:
-            t = ev.cuda_time_total
-        per_kernel[ev.key] = per_kernel.get(ev.key, 0.0) + t / 1e3
-        n_launch += ev.count
+    by_kernel = device_kernels(prof)
+    per_kernel = {k: ms for k, (ms, _) in by_kernel.items()}
+    n_launch = sum(n for _, n in by_kernel.values())
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])
     device_ms = sum(per_kernel.values())
     del model, trainer, opt, params
@@ -1303,6 +1371,18 @@ def compare_kernel(name, sites_cases) -> dict:
                     rec["library_ms"] = (time_ms(sdpa_call(a, kw))
                                          if name == "flash_attention_fwd"
                                          else None)
+                    if name == "flash_attention_fwd":
+                        lib = sdpa_call(a, kw)
+                        rec["device_ms"] = device_ms(lambda: kernel(*a, **kw))
+                        rec["library_device_ms"] = device_ms(lib)
+                        rec["queued_ms"] = queued_ms(lambda: kernel(*a, **kw))
+                        rec["library_queued_ms"] = queued_ms(lib)
+                        # one exp per unmasked (query, key) pair and head at
+                        # the assumed SFU rate: computed, not measured, so
+                        # logged on its own line and kept out of the record
+                        log(f"exp ceiling, {name} {site}: "
+                            + json.dumps(dict(exp_ceiling_ms=flops / (
+                                4 * a[0].shape[-1]) / PEAK_EXPS * 1e3)))
             del got, want
         sites.append(rec)
         log(f"kernel vs plain, {name} {site}: {json.dumps(rec)}")
@@ -1499,6 +1579,106 @@ def delta_reading(a, kw, out, dq_ref) -> dict:
     return res
 
 
+# Shapes no captured site has, which the Hopper kernels' tiling (128-query
+# CTAs, 128-key and 64-row tiles, TMA boxes that read zeros past the end)
+# makes risky, and the bf16 mma.sync bodies at the widths they serve (D % 16
+# == 0 other than 64 and 128; D = 32 is the small preset's): name: (B, Tq,
+# Tk, H, D, causal, segments); "dead" gives the first 7 queries of each row
+# a segment no key has, "sorted" draws sorted segments for both sides
+FLASH_EDGES = {
+    "straddle_cross": (2, 200, 77, 3, 64, False, None),
+    "straddle_self_d128": (2, 257, 257, 3, 128, False, None),
+    "causal_tq_lt_tk": (2, 100, 300, 2, 64, True, None),
+    "dead_segment_rows": (2, 130, 150, 2, 64, False, "dead"),
+    "causal_tile_before_keys": (2, 300, 100, 2, 128, True, None),
+    "causal_segments_d128": (1, 333, 333, 2, 128, True, "sorted"),
+    "mma_straddle_d32": (2, 200, 77, 4, 32, False, None),
+    "mma_dead_rows_d32": (2, 130, 150, 2, 32, False, "dead"),
+    "mma_causal_segments_d96": (2, 150, 190, 2, 96, True, "sorted"),
+}
+
+
+def flash_edge_case(name, seed):
+    """The bf16 q, k, v, dOut on the card and the mask keywords of a
+    `FLASH_EDGES` case."""
+    import torch
+
+    B_, Tq, Tk, H, D, causal, seg = FLASH_EDGES[name]
+    rng = np.random.RandomState(seed)
+
+    def dev(x, dt=torch.bfloat16):
+        return torch.tensor(x, dtype=dt, device="cuda")
+
+    q, g = (dev(rng.randn(B_, Tq, H, D)) for _ in range(2))
+    k = dev(rng.randn(B_, Tk, H, D) + 0.5)  # a common component, as the ViT's
+    v = dev(rng.randn(B_, Tk, H, D))
+    kw = dict(causal=causal) if causal else {}
+    if seg:
+        qs = np.sort(rng.randint(0, 3, (B_, Tq)), 1)
+        ks = np.sort(rng.randint(0, 3, (B_, Tk)), 1)
+        if seg == "dead":
+            qs[:, :7] = 9
+        kw.update(q_segment_ids=dev(qs, torch.int32),
+                  kv_segment_ids=dev(ks, torch.int32))
+    return (q, k, v, g), kw
+
+
+def check_flash_edges(backward: bool) -> list:
+    """Each `FLASH_EDGES` case in bf16 with the tolerances of the captured
+    sites: the forward within one bf16 ulp of its plain version and, with
+    its LSE, `check_training_forward` against fp64 attention; the backward
+    (``backward``) within the larger of 4 bf16 ulps and 4x the plain
+    version's own error of fp64 autograd, and bit-identical over two runs.
+    Every failure is gathered; the phase fails after the last case."""
+    import torch
+
+    from mm_interleaved_tpu_torch.ops import flash_attention as fa
+
+    recs, fails = [], []
+    for i, name in enumerate(FLASH_EDGES):
+        (q, k, v, g), kw = flash_edge_case(name, SEED + 100 + i)
+        rec = dict(case=name, shape=list(FLASH_EDGES[name]))
+        with torch.no_grad():
+            out, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+            want = fa.attention_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        scale = float(want.float().abs().max())
+        rec["fwd_err"] = float((out.float() - want.float()).abs().max())
+        rec["fwd_tol"] = _ulps(scale)
+        if not rec["fwd_err"] <= rec["fwd_tol"]:
+            fails.append(f"flash edge {name} forward: {rec['fwd_err']} > "
+                         f"{rec['fwd_tol']}")
+        rec["training_forward"] = check_training_forward(
+            (q, k, v), kw, dict(out=out, lse=lse), "bf16", fails)
+        if backward:
+            got = fa.flash_attention_bwd(q, k, v, g, lse, **kw)
+            again = fa.flash_attention_bwd(q, k, v, g, lse, **kw)
+            rec["bit_identical"] = all(torch.equal(a, b)
+                                       for a, b in zip(got, again))
+            if not rec["bit_identical"]:
+                fails.append(f"flash edge {name} backward: two runs differ")
+            with torch.enable_grad():
+                ins = [x.detach().double().requires_grad_() for x in
+                       (q, k, v)]
+                ref = torch.autograd.grad(attention_f64(*ins, **kw), ins,
+                                          g.double())
+            plain = fa.attention_plain_backward(q, k, v, g, **kw)
+            rec["bwd_errs"], rec["bwd_tols"] = [], []
+            for key, x, r, p in zip(("dq", "dk", "dv"), got, ref, plain):
+                err = float((x.double() - r).abs().max())
+                tol = max(_ulps(float(r.abs().max()), 4),
+                          4 * float((p.double() - r).abs().max()))
+                rec["bwd_errs"].append(err), rec["bwd_tols"].append(tol)
+                if not err <= tol:
+                    fails.append(f"flash edge {name} {key}: {err} > {tol}")
+        recs.append(rec)
+        log(f"flash edge case ({'backward' if backward else 'forward'}): "
+            f"{json.dumps(rec)}")
+    if fails:
+        raise AssertionError(f"{len(fails)} failed checks: {fails}")
+    return recs
+
+
 def compare_backward(name, sites_cases) -> list:
     """Each backward kernel at each captured site, its inputs rounded to
     bf16 or kept fp32, against autograd through a reference on the same
@@ -1535,6 +1715,14 @@ def compare_backward(name, sites_cases) -> list:
                                                               fails)
             got = kernel(*a, **kw)
             got = got if isinstance(got, tuple) else (got,)
+            if flash and tag == "bf16" and site == "unet_attn1_64px":
+                # no atomics: the same gradients bit for bit
+                again = kernel(*a, **kw)
+                rec["bit_identical"] = all(torch.equal(x, y)
+                                           for x, y in zip(got, again))
+                if not rec["bit_identical"]:
+                    fails.append(f"{name} {site}: two runs differ")
+                del again
             grad_out = a[3] if flash else a[4]
             ref_dt = torch.float64 if flash else torch.float32
             ref_fn = ((lambda *x: attention_f64(*x, **kw)) if flash else fn)
@@ -1582,6 +1770,12 @@ def compare_backward(name, sites_cases) -> list:
                 rec["library_ms"] = (time_ms(sdpa_grad_timer(a, kw))
                                      if name == "flash_attention_bwd"
                                      else None)
+                if flash:
+                    lib = sdpa_grad_timer(a, kw)
+                    rec["device_ms"] = device_ms(lambda: kernel(*a, **kw))
+                    rec["library_device_ms"] = device_ms(lib)
+                    rec["queued_ms"] = queued_ms(lambda: kernel(*a, **kw))
+                    rec["library_queued_ms"] = queued_ms(lib)
             del got, ref, plain, a, fwd
         sites.append(rec)
         log(f"kernel vs plain, {name} {site}: {json.dumps(rec)}")
@@ -1589,6 +1783,22 @@ def compare_backward(name, sites_cases) -> list:
     if fails:
         raise AssertionError(f"{len(fails)} failed checks: {fails}")
     return sites
+
+
+def device_sums(sites) -> dict:
+    """The kernel's and the library's device times summed over the sites
+    where the profiler read both (flash attention), with those sites'
+    count, and their back-to-back times over every site; empty for the
+    other kernels."""
+    both = [s for s in sites if s.get("device_ms") is not None
+            and s.get("library_device_ms") is not None]
+    if not any("device_ms" in s for s in sites):
+        return {}
+    return {"device_ms": sum(s["device_ms"] for s in both),
+            "library_device_ms": sum(s["library_device_ms"] for s in both),
+            "device_sites": len(both),
+            "queued_ms": sum(s["queued_ms"] for s in sites),
+            "library_queued_ms": sum(s["library_queued_ms"] for s in sites)}
 
 
 def kernel_line(name, sites, launches,
@@ -1615,6 +1825,7 @@ def kernel_line(name, sites, launches,
         "library_ms": None if None in lib else sum(lib),
         "timing": f"{timing}, bf16, median of {TIMING_RUNS} CUDA-event "
                   "runs each",
+        **device_sums(main),
         "sites": sites,
     }
 
@@ -1979,6 +2190,8 @@ def main() -> int:
     launches["ms_deform_attn_fwd"] = res["launches"]["ms_deform_attn_fwd"]
     lines = [kernel_line(name, compare_kernel(name, cases[name]),
                          launches[name]) for name in FORWARD]
+    line_of = {line["name"]: line for line in lines}
+    line_of["flash_attention_fwd"]["edge_cases"] = check_flash_edges(False)
 
     # 8. the flagship training step, then the backward kernels against
     # their plain versions at the captured shapes
@@ -2001,6 +2214,8 @@ def main() -> int:
         f"kernel {json.dumps(tr['top'])}")
     lines += [kernel_line(name, compare_backward(name, cases[name]),
                           tr["launches"][name]) for name in BACKWARD]
+    line_of.update((line["name"], line) for line in lines)
+    line_of["flash_attention_bwd"]["edge_cases"] = check_flash_edges(True)
 
     # 9. the deformable-kernel benchmark
     lines += run_bench_phase()

@@ -9,7 +9,11 @@ version (counterpart of `mm_interleaved_tpu/ops/flash_attention.py`).
   q, k, v, the output's gradient and the LSE, and returns ``(dq, dk,
   dv)``.  ``.launches`` counts each
   wrapper's launches.  They take CUDA tensors only, ``D <= 128`` and a
-  multiple of 8, and no dense mask, and raise on anything else.
+  multiple of 8, and no dense mask, and raise on anything else.  In bf16
+  at ``D`` 64 and 128 (every call of the flagship) they launch the Hopper
+  kernels (wgmma products, TMA loads through an mbarrier ring), which need
+  16-byte aligned, contiguous ``[B, T, H, D]`` inputs: `_check_tma`
+  refuses anything else before a launch, with no fallback.
 * `FlashAttentionFunction` is the differentiable op on the card: the
   forward kernel (with the LSE when autograd records the call) and the
   backward kernels.  The bare forward wrapper refuses a recorded call.
@@ -37,6 +41,7 @@ from .cuda_build import (CountedKernel, check_cuda, forbid_grad,
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128
+TMA_HEAD_DIMS = (64, 128)  # bf16 head dims of the wgmma + TMA kernels
 
 
 def attention_plain(
@@ -108,6 +113,27 @@ def _check(name, q, k, v, q_segment_ids, kv_segment_ids):
     return (B, Tq, Tk, H, D), segs
 
 
+def _check_tma(name, *tensors):
+    """What the Hopper kernels' TMA loads need of bf16 inputs at head dim 64
+    or 128 (other inputs take kernels without TMA): a 16-byte aligned base,
+    contiguous ``[B, T, H, D]`` rows with strides of whole 16-byte units.
+    Raises before any launch; there is no fallback."""
+    q = tensors[0]
+    if q.dtype != torch.bfloat16 or q.shape[-1] not in TMA_HEAD_DIMS:
+        return
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: the TMA kernels need 16-byte aligned "
+                             f"inputs (base at {t.data_ptr()} % 16 = "
+                             f"{t.data_ptr() % 16})")
+        if any(s * t.element_size() % 16 for s in t.stride()[:-1]):
+            raise ValueError(f"{name}: the TMA kernels need row strides in "
+                             f"16-byte units (strides {t.stride()})")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: the TMA kernels need contiguous "
+                             f"[B, T, H, D] inputs (strides {t.stride()})")
+
+
 def _ptr(t):
     return None if t is None else t.data_ptr()
 
@@ -117,6 +143,7 @@ def _launch(q, k, v, *, causal=False, scale=None, q_segment_ids=None,
     """Launch the forward kernel; raises on input it does not take.
     Returns ``out``, or ``(out, lse)`` with ``return_lse``."""
     name = "flash_attention"
+    _check_tma(name, q, k, v)
     (B, Tq, Tk, H, D), segs = _check(name, q, k, v, q_segment_ids,
                                      kv_segment_ids)
     forbid_grad(name, q, k, v)
@@ -140,6 +167,7 @@ def _launch_bwd(q, k, v, grad_out, lse, *, causal=False, scale=None,
     """Launch the backward kernels on the forward's LSE; returns ``(dq, dk,
     dv)`` in q's dtype."""
     name = "flash_attention_bwd"
+    _check_tma(name, q, k, v, grad_out)
     (B, Tq, Tk, H, D), segs = _check(name, q, k, v, q_segment_ids,
                                      kv_segment_ids)
     check_cuda(name, (q, grad_out), dtypes=(q.dtype,))

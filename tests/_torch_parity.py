@@ -109,3 +109,31 @@ def _np(x):
 
 def close(got, want, rtol, atol):
     np.testing.assert_allclose(_np(got), _np(want), rtol=rtol, atol=atol)
+
+
+# Lengths that straddle the Hopper kernels' 64- and 128-row tiles, and the
+# masks that leave a row or a whole query tile without a key:
+# name: (Tq, Tk, causal, segments)
+FLASH_EDGES = {
+    "straddle_cross": (200, 77, False, None),
+    "straddle_self": (257, 257, False, None),
+    "causal_tq_lt_tk": (100, 300, True, None),
+    "dead_segment_rows": (130, 150, False, "dead"),
+    "causal_rows_before_keys": (300, 100, True, None),
+}
+
+
+def flash_edge_case(case, D, rs):
+    """q, k, v, dout and the mask keywords of a `FLASH_EDGES` case (H = 2):
+    "dead" gives the first 7 queries of every row a segment no key has."""
+    Tq, Tk, causal, seg = FLASH_EDGES[case]
+    B, H = 2, 2
+    q, k, v, dout = (rs.randn(B, T, H, D).astype(np.float32)
+                     for T in (Tq, Tk, Tk, Tq))
+    kw = dict(causal=causal) if causal else {}
+    if seg == "dead":
+        qs = np.sort(rs.randint(0, 3, (B, Tq)), 1).astype(np.int32)
+        ks = np.sort(rs.randint(0, 3, (B, Tk)), 1).astype(np.int32)
+        qs[:, :7] = 9
+        kw.update(q_segment_ids=qs, kv_segment_ids=ks)
+    return q, k, v, dout, kw

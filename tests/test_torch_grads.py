@@ -33,7 +33,7 @@ from mm_interleaved_tpu_torch.ops.ms_deform_attn import (
     ms_deform_attn, ms_deform_attn_multi_image,
 )
 
-from _torch_parity import t
+from _torch_parity import FLASH_EDGES, flash_edge_case, t
 
 REL = 1e-5
 
@@ -116,6 +116,8 @@ def test_multi_image_grads_match_jax():
 
 def _attn_case(case, D=16, seed=0):
     rs = np.random.RandomState(seed)
+    if case in FLASH_EDGES:
+        return flash_edge_case(case, D, rs)
     B, H = 2, 3
     Tq, Tk = (5, 9) if case == "cross" else (11, 11)
     q, k, v = (rs.randn(B, T, H, D).astype(np.float32)
@@ -135,7 +137,7 @@ def _attn_case(case, D=16, seed=0):
 
 
 @pytest.mark.parametrize("case", ["plain", "causal", "causal_padded",
-                                  "padded", "cross"])
+                                  "padded", "cross"] + list(FLASH_EDGES))
 def test_plain_attention_grads_match_jax_xla_attention(case):
     q, k, v, dout, kw = _attn_case(case)
     jkw = {a: jnp.asarray(b) if isinstance(b, np.ndarray) else b

@@ -43,7 +43,7 @@ from mm_interleaved_tpu_torch.ops.rotary import (
     apply_rotary_embedding, rotary_cos_sin,
 )
 
-from _torch_parity import close, t
+from _torch_parity import FLASH_EDGES, close, flash_edge_case, t
 
 
 @pytest.mark.parametrize("preset,kwargs", [
@@ -286,17 +286,20 @@ def test_mi_plain_cfg_shared_image_side():
 @pytest.mark.parametrize("case,D", [
     ("plain", 8), ("plain", 64), ("causal_segments", 8),
     ("causal_segments", 64), ("cross", 8), ("cross", 64), ("scale", 16),
-])
+] + [(case, 16) for case in FLASH_EDGES])
 def test_flash_plain_matches_jax_attention(case, D):
     """The kernel's plain version against JAX `dot_product_attention` on
     the CPU (its XLA path): non-causal; causal with left-padding segment
-    ids; Tq != Tk; an explicit scale.  atol 1e-5."""
+    ids; Tq != Tk; an explicit scale; and the `FLASH_EDGES` lengths and
+    masks.  atol 1e-5."""
     rs = np.random.RandomState(D)
     B, H = 2, 3
     Tq, Tk = (5, 9) if case == "cross" else (11, 11)
     q, k, v = (rs.randn(B, T, H, D).astype(np.float32)
                for T in (Tq, Tk, Tk))
     kw = {}
+    if case in FLASH_EDGES:
+        q, k, v, _, kw = flash_edge_case(case, D, rs)
     if case == "causal_segments":
         seg = np.ones((B, Tq), np.int32)
         seg[1, :4] = 0  # row 1 is left-padded by 4
@@ -351,6 +354,45 @@ def test_geglu_plain_matches_pallas_interpret(B, T, C):
     got = tgeglu.geglu_mlp(t(x[:, :T]), t(w1.T.copy()), t(b1),
                            t(w2.T.copy()), t(b2))
     close(got, want, 1e-5, 1e-6)
+
+
+def _misaligned(shape):
+    """A contiguous bf16 tensor whose base is 2 bytes off 16-byte alignment."""
+    n = int(np.prod(shape))
+    buf = torch.zeros(n + 16, dtype=torch.bfloat16)
+    off = (16 - buf.data_ptr() % 16) % 16 // 2 + 1
+    return buf[off:off + n].view(shape)
+
+
+@pytest.mark.parametrize("fault", ["misaligned", "row_stride", "strided"])
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_wrappers_refuse_what_tma_cannot_load(fault, D):
+    """The bf16 kernels at head dim 64 / 128 load through TMA: a base off
+    16-byte alignment, a row stride that is no whole number of 16-byte
+    units, or a non-contiguous layout raises in the wrapper before any
+    launch (here on CPU tensors, before the device check), and nothing is
+    counted; there is no fallback."""
+    shape = (1, 5, 2, D)
+    good = torch.zeros(shape, dtype=torch.bfloat16)
+    if fault == "misaligned":
+        bad, match = _misaligned(shape), "aligned"
+    elif fault == "row_stride":  # rows of H * D + 4 elements
+        bad = torch.zeros(1, 5, 2 * D + 4, dtype=torch.bfloat16)[
+            ..., :2 * D].unflatten(-1, (2, D))
+        match = "16-byte units"
+    else:  # [B, H, T, D] seen as [B, T, H, D]
+        bad = torch.zeros(1, 2, 5, D, dtype=torch.bfloat16).transpose(1, 2)
+        match = "contiguous"
+    lse = torch.zeros(1, 2, 5)
+    calls = [(fa.flash_attention, (bad, good, good)),
+             (fa.flash_attention, (good, good, bad)),
+             (fa.flash_attention_bwd, (good, good, good, bad, lse)),
+             (fa.flash_attention_bwd, (good, bad, good, good, lse))]
+    for kernel, args in calls:
+        before = kernel.launches
+        with pytest.raises(ValueError, match=match):
+            kernel(*args)
+        assert kernel.launches == before
 
 
 def test_new_cuda_wrappers_refuse_cpu_tensors_and_count_nothing():
