@@ -32,14 +32,24 @@ Phases, each of which raises (and exits nonzero) on failure:
    preset's image path (whose widths take the kernels' CUDA-core variants
    in bf16), in bf16 and fp32, each timed with CUDA events (median of 25),
    beside its bound and, for flash attention,
-   `scaled_dot_product_attention`, with both also read as device time
-   under `torch.profiler` and as the mean of 25 calls enqueued back to
-   back (the exp ceiling logged on its own line); then
+   `scaled_dot_product_attention`; flash attention, the mi MMFS readout
+   and GEGLU also read as device time under `torch.profiler` and as the
+   mean of 25 calls enqueued back to back (the exp ceiling logged on its
+   own line), GEGLU beside the unfused path of the C = 1280 blocks
+   (``unfused_ms``), the mi sites with the spread of their sampling
+   offsets in texels per level; then
    the bf16 flash forward at the `FLASH_EDGES` shapes no site has
    (lengths that straddle its tiles, causal with Tq < Tk and with a query
    tile before the first key, segment ids that leave rows without a key,
    and the mma.sync bodies at D = 32 and 96): within one bf16 ulp of its
-   plain version, output and LSE against attention in fp64;
+   plain version, output and LSE against attention in fp64; GEGLU at the
+   `GEGLU_EDGES` and the mi readout at the `MI_EDGES` (ragged token and
+   query counts, other widths and the variants they take, three images
+   masked for some heads only, no CFG sharing, uniform locations), each
+   within one bf16 ulp of its plain version and bit-identical over two
+   runs, and a misaligned view refused before any launch at the widths
+   of the Hopper variants; the captured inputs of both saved under
+   ``build/sites/`` for `bench_unet_kernels --sites`;
 8. training: (a) right after phase 3, one `Trainer` step of the tiny preset
    with its image decoder, fp32, on the card against the CPU with the same
    injected draws: loss within 1e-5 relative, every trainable gradient
@@ -108,6 +118,14 @@ import time
 
 import numpy as np
 
+# the port's timing helpers and the card's peak rates (this import fails,
+# and the run with it, outside the repository checkout or without torch)
+from mm_interleaved_tpu_torch.utils.timing import (
+    PEAK_BF16_FLOPS, PEAK_BYTES, PEAK_FP32_FLOPS, device_kernels, device_ms,
+    queued_ms, time_ms)
+from mm_interleaved_tpu_torch.utils.timing import RUNS as TIMING_RUNS
+from mm_interleaved_tpu_torch.utils.timing import nbytes as _nbytes
+
 SEED = 0
 B = 2
 PROMPT_LEN = 256
@@ -115,10 +133,6 @@ N_IMG = 2
 NEW_TOKENS = 32
 IMG_STEPS = 25
 GUIDANCE = 3.5
-TIMING_RUNS = 25
-PEAK_BF16_FLOPS = 989e12  # dense tensor-core bf16, H100 SXM
-PEAK_FP32_FLOPS = 67e12  # fp32 outside the tensor cores
-PEAK_BYTES = 3.35e12  # HBM3
 # exp2 on the special-function units: 16 per clock per SM, 132 SMs, at the
 # 1.83 GHz that the bf16 peak assumes (989e12 / (132 * 4096 flops a clock))
 PEAK_EXPS = 132 * 16 * 1.83e9
@@ -431,23 +445,6 @@ def capture(names, cases, site=None):
 def _ulps(scale, n=1):
     """``n`` bf16 ulps at ``scale``."""
     return float(n * 2.0 ** (np.floor(np.log2(max(scale, 1e-30))) - 7))
-
-
-def time_ms(fn, runs: int = TIMING_RUNS) -> float:
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
 
 
 # --------------------------------------------------------------------------
@@ -982,70 +979,6 @@ def run_image_slice(model, device: str, cases) -> dict:
                 image_mean=float(images1.mean()))
 
 
-def device_kernels(prof) -> dict:
-    """Device time (ms) and launches by kernel name from a finished
-    `torch.profiler` run."""
-    import torch
-
-    out = {}
-    for ev in prof.key_averages():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        t = getattr(ev, "device_time_total", None)
-        if t is None:
-            t = ev.cuda_time_total
-        ms_n = out.setdefault(ev.key, [0.0, 0])
-        ms_n[0] += t / 1e3
-        ms_n[1] += ev.count
-    return out
-
-
-def device_ms(fn, runs: int = 10, tries: int = 3):
-    """Device time of one call of ``fn``: the time of every kernel it
-    launches under `torch.profiler`, summed over ``runs`` calls, divided by
-    ``runs``.  Unlike a CUDA-event time it leaves out the host's gaps
-    between launches.  The profiler drops kernel records now and then in a
-    long process, so a reading counts only where every kernel was recorded
-    a whole multiple of ``runs`` times; after ``tries`` incomplete readings
-    it returns None."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    for _ in range(tries):
-        with torch.profiler.profile(activities=acts) as prof:
-            for _ in range(runs):
-                fn()
-            torch.cuda.synchronize()
-        by_kernel = device_kernels(prof)
-        counts = {k[:60]: n for k, (_, n) in by_kernel.items()}
-        if by_kernel and all(n > 0 and n % runs == 0
-                             for n in counts.values()):
-            return sum(ms for ms, _ in by_kernel.values()) / runs
-        log(f"device_ms: incomplete profiler reading {json.dumps(counts)}")
-    return None
-
-
-def queued_ms(fn, runs: int = TIMING_RUNS) -> float:
-    """The mean time of ``runs`` calls of ``fn`` enqueued back to back
-    between two CUDA events: the device time where the card is slower than
-    the host's calls, else the host's time a call."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(runs):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / runs
-
-
 def profile_step(model, device: str) -> dict:
     """Device time by kernel over one denoise step (torch.profiler): the
     difference of a 2-step and a 1-step `generate_images` run."""
@@ -1220,10 +1153,6 @@ def _bound(flops, nbytes, rate):
     return flops / rate * 1e3, nbytes / PEAK_BYTES * 1e3
 
 
-def _nbytes(*ts):
-    return sum(t.numel() * t.element_size() for t in ts)
-
-
 def work_deform(args, kw, out):
     """Bytes: the value texels the samples can touch (at most 4 corners of
     D channels per sample, at most the whole value), the locations, the
@@ -1235,21 +1164,6 @@ def work_deform(args, kw, out):
     samples = N * Q * H * L * P
     touched = min(value.numel(), 4 * samples * D) * value.element_size()
     return 8 * samples * D, touched + _nbytes(loc, w, out), PEAK_FP32_FLOPS
-
-
-def work_mi(args, kw, out):
-    """As `work_deform`, over the live images only: a masked image is
-    skipped and reads nothing."""
-    value, delta, shapes, ref, off_q, wq, inv_base = args
-    Bv, n_img, S, H, D = value.shape
-    B, Lq, _, P, _ = off_q.shape
-    L = len(shapes)
-    live = (delta.reshape(Bv, H, n_img, L * P, 3)[..., 2] != 0).any(-1)
-    live_bhn = int(live.sum())  # live (bv, h, n)
-    samples = live_bhn * (B // Bv) * Lq * L * P  # per (b, q, h, n, l, p)
-    touched = min(live_bhn * S * D, 4 * samples * D) * value.element_size()
-    return 8 * samples * D, touched + _nbytes(delta, ref, off_q, wq, out), \
-        PEAK_FP32_FLOPS
 
 
 def work_flash(args, kw, out):
@@ -1278,12 +1192,16 @@ def work_gn(args, kw, out):
     return 6 * x.numel(), _nbytes(x, w, b, out), PEAK_FP32_FLOPS
 
 
+def work_mi(args, kw, out):
+    from mm_interleaved_tpu_torch.bench_unet_kernels import mi_work
+
+    return mi_work(args, out)
+
+
 def work_geglu(args, kw, out):
-    x, w1, b1, w2, b2 = args
-    C = x.shape[-1]
-    T = x.numel() // C
-    Fh = w2.shape[1]
-    return 6 * T * C * Fh, _nbytes(x, w1, b1, w2, b2, out), PEAK_BF16_FLOPS
+    from mm_interleaved_tpu_torch.bench_unet_kernels import geglu_work
+
+    return geglu_work(args, out)
 
 
 WORK = {
@@ -1293,6 +1211,27 @@ WORK = {
     "group_norm_silu_apply": work_gn,
     "geglu_fwd": work_geglu,
 }
+# kernels whose sites are also timed as device time under torch.profiler
+# and back to back (phase 7)
+DEVICE_TIMED = ("flash_attention_fwd", "ms_deform_attn_mi_fwd", "geglu_fwd")
+
+
+def _geglu_variant(args):
+    from mm_interleaved_tpu_torch.ops.geglu import geglu_variant
+
+    x, w1, b1, w2, b2 = args
+    return geglu_variant(x.shape[-1], w2.shape[1], x.dtype)
+
+
+def _mi_variant(args):
+    from mm_interleaved_tpu_torch.ops.ms_deform_attn_mi import mi_variant
+
+    return mi_variant(args[0].shape[-1], args[0].dtype)
+
+
+# the variant each site's bf16 call takes, logged beside it
+VARIANT_OF = {"geglu_fwd": _geglu_variant,
+              "ms_deform_attn_mi_fwd": _mi_variant}
 # positional arguments that take the compared dtype (the rest stay as
 # captured: fp32 tables, shapes, segment ids, scalars)
 CAST = {
@@ -1325,8 +1264,14 @@ def sdpa_call(args, kw, transposed=False):
 
 def compare_kernel(name, sites_cases) -> dict:
     """The kernel against its plain version on each captured call, in bf16
-    and fp32, both timed; the bound of each call from its inputs."""
+    and fp32, both timed; the bound of each call from its inputs.  The
+    kernels of `DEVICE_TIMED` are also read as device time and back to
+    back; GEGLU beside the unfused path of the C = 1280 blocks
+    (``unfused_ms``), the MMFS readout with the spread of its sampling
+    offsets logged."""
     import torch
+
+    from mm_interleaved_tpu_torch import bench_unet_kernels as bench
 
     mod = kmod(name)
     kernel = getattr(mod, KERNELS[name]["kernel"])
@@ -1336,6 +1281,8 @@ def compare_kernel(name, sites_cases) -> dict:
         args, kw = sites_cases[site]
         rec = dict(site=site, shapes=[list(a.shape) for a in args
                                       if isinstance(a, torch.Tensor)])
+        if name in VARIANT_OF:
+            rec["variant"] = VARIANT_OF[name](args)
         for dt, tag in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
             a = tuple(x.to(dt) if i in CAST[name] else x
                       for i, x in enumerate(args))
@@ -1371,12 +1318,21 @@ def compare_kernel(name, sites_cases) -> dict:
                     rec["library_ms"] = (time_ms(sdpa_call(a, kw))
                                          if name == "flash_attention_fwd"
                                          else None)
+                    if name in DEVICE_TIMED:
+                        rec["device_ms"] = device_ms(lambda: kernel(*a, **kw))
+                        rec["queued_ms"] = queued_ms(lambda: kernel(*a, **kw))
                     if name == "flash_attention_fwd":
                         lib = sdpa_call(a, kw)
-                        rec["device_ms"] = device_ms(lambda: kernel(*a, **kw))
                         rec["library_device_ms"] = device_ms(lib)
-                        rec["queued_ms"] = queued_ms(lambda: kernel(*a, **kw))
                         rec["library_queued_ms"] = queued_ms(lib)
+                    if name == "geglu_fwd" and site != TINY:
+                        # the C = 1280 blocks' unfused path, a yardstick
+                        # the port never calls at these widths
+                        rec["unfused_ms"] = time_ms(
+                            lambda: bench.unfused_geglu(*a))
+                    if name == "ms_deform_attn_mi_fwd" and site != TINY:
+                        log(f"offset spread in texels, {name} {site}: "
+                            + json.dumps(bench.offset_spread(a)))
                         # one exp per unmasked (query, key) pair and head at
                         # the assumed SFU rate: computed, not measured, so
                         # logged on its own line and kept out of the record
@@ -1679,6 +1635,178 @@ def check_flash_edges(backward: bool) -> list:
     return recs
 
 
+# Shapes no captured site has, which the Hopper GEGLU kernel's tiling (128-
+# or 64-token CTAs, 64-column output tiles per consumer, the output columns
+# split at C > 320) makes risky, and widths that take the CUDA-core body:
+# name: (tokens, C, the variant `geglu_variant` must pick)
+GEGLU_EDGES = {
+    "ragged_tokens_c320": (8 * 4096 - 37, 320, "wgmma_rows"),
+    "ragged_tokens_c640": (8 * 1024 - 37, 640, "wgmma_cols"),
+    "rows_c192": (1000, 192, "wgmma_rows"),
+    "cols_c512": (1000, 512, "wgmma_cols"),
+    "cuda_core_c448": (500, 448, "cuda_core"),
+    "cuda_core_c32": (300, 32, "cuda_core"),
+}
+# The same for the tiled MMFS kernel (CTAs of one image row, head and query
+# tile over every CFG half): name: (Lq, keywords of
+# `bench_unet_kernels.mi_inputs`, the variant `mi_variant` must pick).
+# "masked" zeroes image 1 of row 0 for heads 0-7 only; Lq = 1000 is neither
+# square nor a whole number of tiles.
+MI_EDGES = {
+    "three_images_partial_mask": (1024, dict(n_img=3, Bv=2, B=4, live=(0, 1),
+                                             masked=True), "tiled"),
+    "no_cfg_sharing": (1024, dict(Bv=4, B=4), "tiled"),
+    "uniform_out_of_range": (1024, dict(uniform=True), "tiled"),
+    "ragged_queries": (1000, {}, "tiled"),
+    "d32": (1024, dict(D=32), "tiled"),
+    "d20": (256, dict(D=20), "flat"),
+}
+
+
+def _edge_check(tag, got, again, want, rec, fails) -> None:
+    """One bf16 ulp at the output's scale, and two runs bit-identical."""
+    import torch
+
+    rec["err"] = float((got.float() - want.float()).abs().max())
+    rec["tol"] = _ulps(float(want.float().abs().max()))
+    rec["bit_identical"] = torch.equal(got, again)
+    if not rec["err"] <= rec["tol"]:
+        fails.append(f"{tag}: {rec['err']} > {rec['tol']}")
+    if not rec["bit_identical"]:
+        fails.append(f"{tag}: two runs differ")
+
+
+def _misaligned(t):
+    """A contiguous copy of ``t`` that starts one element past a 16-byte
+    boundary."""
+    import torch
+
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    return buf[1:].view(t.shape).copy_(t)
+
+
+def _refuses_misaligned(tag, kernel, args, i, rec, fails) -> None:
+    """The call with argument ``i`` misaligned raises before any launch."""
+    args = list(args)
+    args[i] = _misaligned(args[i])
+    before = kernel.launches
+    try:
+        kernel(*args)
+        rec["misaligned_refused"] = False
+    except ValueError:
+        rec["misaligned_refused"] = kernel.launches == before
+    if not rec["misaligned_refused"]:
+        fails.append(f"{tag}: a misaligned view was not refused before "
+                     "launch")
+
+
+def check_geglu_edges() -> list:
+    """Each `GEGLU_EDGES` case in bf16, at the UNet block's scales (seeded),
+    through the wrapper's own choice of variant: that choice as listed, the
+    output within one bf16 ulp of the plain version, two runs
+    bit-identical, and on the Hopper variants a misaligned x refused before
+    any launch.  Every failure is gathered; the phase fails after the last
+    case."""
+    import torch
+
+    from mm_interleaved_tpu_torch import bench_unet_kernels as bench
+    from mm_interleaved_tpu_torch.ops import geglu as gmod
+
+    recs, fails = [], []
+    for i, (name, (T, C, want_variant)) in enumerate(GEGLU_EDGES.items()):
+        args = bench.geglu_inputs(T, C, np.random.RandomState(SEED + 200 + i),
+                                  "cuda")
+        rec = dict(case=name, tokens=T, C=C,
+                   variant=gmod.geglu_variant(C, 4 * C, torch.bfloat16))
+        if rec["variant"] != want_variant:
+            fails.append(f"geglu edge {name}: variant {rec['variant']} != "
+                         f"{want_variant}")
+        with torch.inference_mode():
+            got = gmod.geglu_cuda(*args)
+            again = gmod.geglu_cuda(*args)
+            want = gmod.geglu_plain(*args)
+        torch.cuda.synchronize()
+        _edge_check(f"geglu edge {name}", got, again, want, rec, fails)
+        if rec["variant"] != "cuda_core":
+            with torch.inference_mode():
+                _refuses_misaligned(f"geglu edge {name}", gmod.geglu_cuda,
+                                    args, 0, rec, fails)
+        recs.append(rec)
+        log(f"geglu edge case: {json.dumps(rec)}")
+    if fails:
+        raise AssertionError(f"{len(fails)} failed checks: {fails}")
+    return recs
+
+
+def check_mi_edges() -> list:
+    """Each `MI_EDGES` case in bf16 (value [Bv, n_img, 5440, 16, D] over
+    the UNet's four levels unless listed): the wrapper's choice of variant
+    as listed, the output within one bf16 ulp of the plain version, two
+    runs bit-identical, on the tiled variant a misaligned value refused
+    before any launch, and, where an image is masked for some heads only,
+    those heads' output unchanged when the masked image's values change
+    (the skip is exact).  Every failure is gathered; the phase fails after
+    the last case."""
+    import torch
+
+    from mm_interleaved_tpu_torch import bench_unet_kernels as bench
+    from mm_interleaved_tpu_torch.ops import ms_deform_attn_mi as mmod
+
+    recs, fails = [], []
+    for i, (name, (Lq, make, want_variant)) in enumerate(MI_EDGES.items()):
+        args = bench.mi_inputs(Lq, np.random.RandomState(SEED + 300 + i),
+                               "cuda", **make)
+        D = args[0].shape[-1]
+        rec = dict(case=name, value=list(args[0].shape), lq=Lq,
+                   variant=mmod.mi_variant(D, torch.bfloat16))
+        if rec["variant"] != want_variant:
+            fails.append(f"mi edge {name}: variant {rec['variant']} != "
+                         f"{want_variant}")
+        with torch.inference_mode():
+            got = mmod.ms_deform_attn_mi_cuda(*args)
+            again = mmod.ms_deform_attn_mi_cuda(*args)
+            want = mmod.ms_deform_attn_mi_plain(*args)
+            torch.cuda.synchronize()
+            _edge_check(f"mi edge {name}", got, again, want, rec, fails)
+            if rec["variant"] == "tiled":
+                _refuses_misaligned(f"mi edge {name}",
+                                    mmod.ms_deform_attn_mi_cuda, args, 0, rec,
+                                    fails)
+            if make.get("masked"):
+                value = args[0].clone()
+                value[0, 1] = 1e4  # image 1 of row 0, masked for heads 0-7
+                moved = mmod.ms_deform_attn_mi_cuda(value, *args[1:])
+                rows = torch.arange(args[4].shape[0], device="cuda") % \
+                    args[0].shape[0] == 0
+                heads = got.unflatten(-1, (-1, D))[rows][:, :, :8]
+                rec["masked_skip_exact"] = bool(torch.equal(
+                    heads, moved.unflatten(-1, (-1, D))[rows][:, :, :8]))
+                if not rec["masked_skip_exact"]:
+                    fails.append(f"mi edge {name}: a masked image moved the "
+                                 "output")
+        recs.append(rec)
+        log(f"mi edge case: {json.dumps(rec)}")
+    if fails:
+        raise AssertionError(f"{len(fails)} failed checks: {fails}")
+    return recs
+
+
+def save_sites(cases) -> str:
+    """The captured flagship inputs of kernels 4 and 7, for
+    `bench_unet_kernels --sites` in a process of its own; returns the
+    path (under the git-ignored build directory)."""
+    import torch
+
+    from mm_interleaved_tpu_torch.ops.cuda_build import BUILD_DIR
+
+    path = BUILD_DIR.parent / "sites" / "unet_sites.pt"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    torch.save({name: {site: args for site, (args, _) in cases[name].items()
+                       if site != TINY}
+                for name in ("geglu_fwd", "ms_deform_attn_mi_fwd")}, path)
+    return str(path)
+
+
 def compare_backward(name, sites_cases) -> list:
     """Each backward kernel at each captured site, its inputs rounded to
     bf16 or kept fp32, against autograd through a reference on the same
@@ -1786,19 +1914,20 @@ def compare_backward(name, sites_cases) -> list:
 
 
 def device_sums(sites) -> dict:
-    """The kernel's and the library's device times summed over the sites
-    where the profiler read both (flash attention), with those sites'
-    count, and their back-to-back times over every site; empty for the
-    other kernels."""
-    both = [s for s in sites if s.get("device_ms") is not None
-            and s.get("library_device_ms") is not None]
+    """The kernel's (and, for flash attention, the library's) device times
+    summed over the sites where the profiler read every one of them, with
+    those sites' count, and their back-to-back times over every site; empty
+    for the kernels of no `DEVICE_TIMED` site."""
     if not any("device_ms" in s for s in sites):
         return {}
-    return {"device_ms": sum(s["device_ms"] for s in both),
-            "library_device_ms": sum(s["library_device_ms"] for s in both),
-            "device_sites": len(both),
-            "queued_ms": sum(s["queued_ms"] for s in sites),
-            "library_queued_ms": sum(s["library_queued_ms"] for s in sites)}
+    lib = any("library_device_ms" in s for s in sites)
+    keys = ("device_ms", "library_device_ms") if lib else ("device_ms",)
+    read = [s for s in sites if all(s.get(k) is not None for k in keys)]
+    out = {k: sum(s[k] for s in read) for k in keys}
+    out["device_sites"] = len(read)
+    for k in ("queued_ms", "library_queued_ms") if lib else ("queued_ms",):
+        out[k] = sum(s[k] for s in sites)
+    return out
 
 
 def kernel_line(name, sites, launches,
@@ -2105,19 +2234,10 @@ def run_v5_bench_phase() -> list:
 
 
 def main() -> int:
-    try:
-        import torch
-    except ImportError:
-        print("chip_smoke: torch is not installed", file=sys.stderr)
-        return 2
+    import torch
+
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 2
-    try:
-        from mm_interleaved_tpu_torch.ops import cuda_build
-    except ImportError as e:
-        print(f"chip_smoke: run from the repository checkout ({e})",
-              file=sys.stderr)
         return 2
 
     from mm_interleaved_tpu_torch.configs import flagship_config
@@ -2132,6 +2252,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     # 2. build
+    from mm_interleaved_tpu_torch.ops import cuda_build
+
     t0 = time.perf_counter()
     names = cuda_build.build_all()
     log(f"built {names} in {time.perf_counter() - t0:.1f} s")
@@ -2192,6 +2314,9 @@ def main() -> int:
                          launches[name]) for name in FORWARD]
     line_of = {line["name"]: line for line in lines}
     line_of["flash_attention_fwd"]["edge_cases"] = check_flash_edges(False)
+    line_of["geglu_fwd"]["edge_cases"] = check_geglu_edges()
+    line_of["ms_deform_attn_mi_fwd"]["edge_cases"] = check_mi_edges()
+    log(f"captured sites of kernels 4 and 7 saved to {save_sites(cases)}")
 
     # 8. the flagship training step, then the backward kernels against
     # their plain versions at the captured shapes

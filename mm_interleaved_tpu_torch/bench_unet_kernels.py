@@ -1,0 +1,335 @@
+"""Kernels 4 and 7 at the flagship's UNet call sites, in a process of their
+own: the multi-image MMFS readout (`ops/ms_deform_attn_mi.py`) and the
+fused GEGLU feed-forward (`ops/geglu.py`).
+
+    python -m mm_interleaved_tpu_torch.bench_unet_kernels            # card
+    python -m mm_interleaved_tpu_torch.bench_unet_kernels --sites FILE
+    python -m mm_interleaved_tpu_torch.bench_unet_kernels --kernels mi
+    python -m mm_interleaved_tpu_torch.bench_unet_kernels --device cpu
+
+The sites are the ones `chip_smoke.py` captures on the flagship's image
+path: GEGLU at C = 320 (x [32768, 320]) and C = 640 ([8192, 640]); the MMFS
+readout at 64, 32, 16 and 8 px (value [4, 1, 5440, 16, 64] in bf16, the
+queries of both CFG halves, 4 levels x 8 points, two of the four image rows
+masked), plus ``mi_uniform_64px``, the 64 px site with its locations drawn
+uniformly over [-0.1, 1.1] (every corner a random read).  By default their
+inputs are drawn from a numpy ``RandomState(0)`` at those shapes;
+``--sites`` reads the inputs `chip_smoke.py` captured instead (its phase 7
+saves them under ``build/sites/``).
+
+Each kernel, as its wrapper calls it (the variant the wrapper picks by
+shape, logged as ``variant``), is held against the plain version (bf16:
+one ulp at the output's scale) and timed three ways: ``ms``, the median of
+25 synchronised CUDA-event runs; ``device_ms``, the mean device time of 10
+calls under `torch.profiler` (None where the profiler dropped records);
+``queued_ms``, the mean of 25 calls enqueued back to back.  GEGLU also
+gets ``unfused_ms``: two `F.linear` calls around a plain GEGLU, the path of
+the C = 1280 blocks, as a yardstick (the port never calls it at these
+widths).  The MMFS sites also log the spread of their sampling offsets in
+texels per level.  The card's ``nvidia-smi`` name and power line, then one
+JSON row per (kernel, site).
+
+The module needs only the two wrappers, their plain versions and
+`utils/timing.py`, so copied with that into an older checkout of the
+package it measures that checkout's kernels on the same inputs: before
+and after in one call.  ``--device cpu`` runs the plain versions at a tiny
+size and times nothing.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from .ops import geglu as geglu_ops
+from .ops import ms_deform_attn_mi as mi_ops
+from .utils.timing import (PEAK_BF16_FLOPS, PEAK_BYTES, PEAK_FP32_FLOPS,
+                           device_ms, queued_ms, time_ms)
+from .utils.timing import nbytes as _nbytes
+
+SEED = 0
+LEVELS = ((64, 64), (32, 32), (16, 16), (8, 8))
+GEGLU = {"C320": (8 * 4096, 320), "C640": (8 * 1024, 640)}
+MI_SITES = {"unet_64px": 4096, "unet_32px": 1024, "unet_16px": 256,
+            "unet_8px": 64}
+TINY_GEGLU = {"C64": (40, 64)}
+TINY_MI = {"tiny_16px": 256}
+
+
+# --------------------------------------------------------------------------
+# inputs
+
+
+def geglu_inputs(T: int, C: int, rng, device, dtype=torch.bfloat16):
+    """x [T, C], w1 [8C, C], b1, w2 [C, 4C], b2 at the UNet block's
+    scales."""
+    Fh = 4 * C
+
+    def dev(a, scale=1.0):
+        return torch.from_numpy((a * scale).astype(np.float32)).to(
+            device=device, dtype=dtype)
+
+    return (dev(rng.randn(T, C)), dev(rng.randn(2 * Fh, C), C ** -0.5),
+            dev(rng.randn(2 * Fh), 0.1), dev(rng.randn(C, Fh), Fh ** -0.5),
+            dev(rng.randn(C), 0.1))
+
+
+def grid_ref(Lq: int) -> np.ndarray:
+    """Row-major pixel centres, [Lq, 2] (x, y), of a grid ceil(sqrt(Lq))
+    wide (square where Lq is)."""
+    W = int(np.ceil(Lq ** 0.5))
+    i = np.arange(Lq)
+    return np.stack([(i % W + 0.5) / W, (i // W + 0.5) / -(-Lq // W)],
+                    -1).astype(np.float32)
+
+
+def mi_inputs(Lq: int, rng, device, uniform=False, shapes=LEVELS, Bv=4,
+              B=8, n_img=1, H=16, D=64, P=8, live=(1, 3), inv_base=1 / 64,
+              masked=False, dtype=torch.bfloat16):
+    """The positional arguments of `mmfs_deform_factorized` at a UNet
+    site: image rows outside ``live`` masked through their weight factor
+    (with ``masked``, also image 1 of row 0 for heads 0-7 alone); offsets
+    of about 2 texels of level 0 (query side) and 1 (image side); with
+    ``uniform``, locations uniform over [-0.1, 1.1] instead."""
+    L = len(shapes)
+    S = sum(h * w for h, w in shapes)
+    value = rng.randn(Bv, n_img, S, H, D).astype(np.float32)
+    off_img = rng.randn(Bv, n_img, H, P, 2).astype(np.float32)
+    wi = rng.rand(Bv, n_img, H, L, P).astype(np.float32)
+    wi[[b for b in range(Bv) if b not in live]] = 0.0
+    if masked:
+        wi[0, 1, :8] = 0.0
+    ref = np.broadcast_to(grid_ref(Lq), (B, Lq, 2)).copy()
+    off_q = (rng.randn(B, Lq, H, P, 2) * 2).astype(np.float32)
+    wq = (rng.rand(B, Lq, H, L, P) / (L * P)).astype(np.float32)
+    if uniform:
+        off_img[:] = 0.0
+        u = rng.rand(B, Lq, H, P, 2).astype(np.float32) * 1.2 - 0.1
+        off_q = (u - ref[:, :, None, None, :]) / inv_base
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    delta = mi_ops.build_delta(t(off_img), t(wi), shapes, inv_base)
+    return (t(value).to(dtype), delta, shapes, t(ref), t(off_q),
+            t(wq).to(dtype), inv_base)
+
+
+def offset_spread(args) -> dict:
+    """How far the samples of an MMFS call land from their reference
+    point, in texels of each level: per level, the median, 90th
+    percentile and largest of max(|dx|, |dy|) over the live samples
+    (image weight factor not zero)."""
+    value, delta, shapes, ref, off_q, wq, inv_base = args
+    Bv, n_img, _, H, _ = value.shape
+    B, Lq, _, P, _ = off_q.shape
+    L = len(shapes)
+    dl = delta.float().reshape(Bv, H, n_img, L, P, 3)
+    dl = dl[torch.arange(B, device=dl.device) % Bv]  # [B, H, n, L, P, 3]
+    out = {}
+    for lid, (hl, wl) in enumerate(shapes):
+        dq = off_q.float() * inv_base  # [B, Lq, H, P, 2]
+        dx = dq[..., 0][:, :, :, None] * wl + dl[:, None, :, :, lid, :, 0]
+        dy = dq[..., 1][:, :, :, None] * hl + dl[:, None, :, :, lid, :, 1]
+        live = (dl[:, None, :, :, lid, :, 2] != 0).expand_as(dx)
+        d = torch.maximum(dx.abs(), dy.abs())[live]
+        if d.numel() == 0:
+            out[f"level{lid}_{hl}x{wl}"] = None
+            continue
+        if d.numel() > 2 ** 24:  # quantile's limit
+            d = d[torch.randperm(d.numel(), device=d.device)[:2 ** 24]]
+        q = torch.quantile(d, torch.tensor([0.5, 0.9], device=d.device))
+        out[f"level{lid}_{hl}x{wl}"] = dict(p50=float(q[0]), p90=float(q[1]),
+                                            max=float(d.max()))
+    return out
+
+
+# --------------------------------------------------------------------------
+# work and timing
+
+
+def geglu_work(args, out):
+    """(flops, bytes, peak): 6 T C F tensor-core flops; x, the weights and
+    the output moved once."""
+    x, w1, b1, w2, b2 = args
+    C = x.shape[-1]
+    return (6 * (x.numel() // C) * C * w2.shape[1],
+            _nbytes(x, w1, b1, w2, b2, out), PEAK_BF16_FLOPS)
+
+
+def mi_work(args, out):
+    """(flops, bytes, peak): 4 FMAs per live sample and channel in fp32;
+    the value texels the samples can touch (at most the live images), the
+    query-side tables and the output moved once."""
+    value, delta, shapes, ref, off_q, wq, inv_base = args
+    Bv, n_img, S, H, D = value.shape
+    B, Lq, _, P, _ = off_q.shape
+    L = len(shapes)
+    live = (delta.reshape(Bv, H, n_img, L * P, 3)[..., 2] != 0).any(-1)
+    live_bhn = int(live.sum())
+    samples = live_bhn * (B // Bv) * Lq * L * P
+    touched = min(live_bhn * S * D, 4 * samples * D) * value.element_size()
+    return (8 * samples * D,
+            touched + _nbytes(delta, ref, off_q, wq, out), PEAK_FP32_FLOPS)
+
+
+def bound_ms(flops, nbytes, peak):
+    ops_ms, bytes_ms = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
+    return max(ops_ms, bytes_ms), ("operations" if ops_ms > bytes_ms
+                                   else "bytes")
+
+
+def _err(got, want):
+    return float((got.float() - want.float()).abs().max())
+
+
+def _tol(want) -> float:
+    """One bf16 ulp at the output's scale (fp32: 1e-5 of it)."""
+    scale = float(want.float().abs().max())
+    if want.dtype == torch.float32:
+        return 1e-5 * max(scale, 1.0)
+    return float(2.0 ** (np.floor(np.log2(max(scale, 1e-30))) - 7))
+
+
+def _time(rec, fn, timed):
+    if timed:
+        rec["ms"] = time_ms(fn)
+        rec["device_ms"] = device_ms(fn)
+        rec["queued_ms"] = queued_ms(fn)
+
+
+def unfused_geglu(x, w1, b1, w2, b2):
+    """The C = 1280 blocks' path: two `F.linear` calls around a plain
+    GEGLU (the yardstick; the port never calls it on a fused site)."""
+    Fh = w2.shape[1]
+    h = F.linear(x, w1, b1)
+    return F.linear(h[..., :Fh] * F.gelu(h[..., Fh:]), w2, b2)
+
+
+def _variant(pick, *shape):
+    """The wrapper's variant for a call (None in a checkout whose wrapper
+    has no variants)."""
+    return pick(*shape) if pick is not None else None
+
+
+def run_geglu(sites: Dict[str, tuple], timed: bool) -> list:
+    kernel = geglu_ops.geglu_cuda
+    rows = []
+    for site, args in sites.items():
+        x, w1, b1, w2, b2 = args
+        want = geglu_ops.geglu_plain(*args)
+        rec = dict(kernel="geglu_fwd", site=site, shape=list(x.shape),
+                   variant=_variant(getattr(geglu_ops, "geglu_variant", None),
+                                    x.shape[-1], w2.shape[1], x.dtype))
+        if timed:
+            with torch.inference_mode():
+                got = kernel(*args)
+                torch.cuda.synchronize()
+            rec["max_abs_err"], rec["tol"] = _err(got, want), _tol(want)
+            rec["ok"] = rec["max_abs_err"] <= rec["tol"]
+            rec["bound_ms"], rec["bound_by"] = bound_ms(
+                *geglu_work(args, got))
+            with torch.inference_mode():
+                _time(rec, lambda: kernel(*args), timed)
+        rows.append(rec)
+        if timed:
+            with torch.inference_mode():
+                fn = lambda: unfused_geglu(*args)
+                rows.append(dict(kernel="geglu_unfused", site=site,
+                                 ms=time_ms(fn), device_ms=device_ms(fn),
+                                 queued_ms=queued_ms(fn)))
+    return rows
+
+
+def run_mi(sites: Dict[str, tuple], timed: bool) -> list:
+    kernel = mi_ops.ms_deform_attn_mi_cuda
+    rows = []
+    for site, args in sites.items():
+        want = mi_ops.ms_deform_attn_mi_plain(*args)
+        rec = dict(kernel="ms_deform_attn_mi_fwd", site=site,
+                   shape=list(args[0].shape), lq=args[4].shape[1],
+                   variant=_variant(getattr(mi_ops, "mi_variant", None),
+                                    args[0].shape[-1], args[0].dtype),
+                   spread=offset_spread(args))
+        if timed:
+            with torch.inference_mode():
+                got = kernel(*args)
+                torch.cuda.synchronize()
+            rec["max_abs_err"], rec["tol"] = _err(got, want), _tol(want)
+            rec["ok"] = rec["max_abs_err"] <= rec["tol"]
+            rec["bound_ms"], rec["bound_by"] = bound_ms(*mi_work(args, got))
+            with torch.inference_mode():
+                _time(rec, lambda: kernel(*args), timed)
+        rows.append(rec)
+    return rows
+
+
+def synthetic_sites(device, tiny=False):
+    """``(geglu sites, mi sites)`` from one ``RandomState(SEED)``."""
+    rng = np.random.RandomState(SEED)
+    geglu = {k: geglu_inputs(T, C, rng, device)
+             for k, (T, C) in (TINY_GEGLU if tiny else GEGLU).items()}
+    if tiny:
+        mi = {k: mi_inputs(lq, rng, device, shapes=((16, 16), (8, 8)), Bv=2,
+                           B=4, H=2, D=8, P=2, live=(1,), inv_base=1 / 16)
+              for k, lq in TINY_MI.items()}
+    else:
+        mi = {k: mi_inputs(lq, rng, device) for k, lq in MI_SITES.items()}
+        mi["mi_uniform_64px"] = mi_inputs(4096, rng, device, uniform=True)
+    return geglu, mi
+
+
+def load_sites(path: str, device):
+    """The captured sites `chip_smoke.py` saved: ``{"geglu_fwd": {site:
+    args}, "ms_deform_attn_mi_fwd": {site: args}}``."""
+    saved = torch.load(path, map_location=device, weights_only=False)
+    return saved["geglu_fwd"], saved["ms_deform_attn_mi_fwd"]
+
+
+def run(device="cuda", sites: Optional[str] = None,
+        kernels=("geglu", "mi")) -> list:
+    """Every row of ``kernels``; on the card each call is checked and
+    timed."""
+    timed = device == "cuda"
+    if timed and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device")
+    geglu, mi = (load_sites(sites, device) if sites
+                 else synthetic_sites(device, tiny=not timed))
+    if not timed:
+        return [dict(kernel=k, site=s, finite=bool(torch.isfinite(
+            plain(*a).float()).all())) for k, plain, cases in (
+                ("geglu_fwd", geglu_ops.geglu_plain, geglu),
+                ("ms_deform_attn_mi_fwd", mi_ops.ms_deform_attn_mi_plain, mi))
+            for s, a in cases.items()]
+    return ((run_geglu(geglu, timed) if "geglu" in kernels else [])
+            + (run_mi(mi, timed) if "mi" in kernels else []))
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--sites", default=None,
+                    help="captured inputs saved by chip_smoke.py")
+    ap.add_argument("--kernels", nargs="+", default=["geglu", "mi"],
+                    choices=("geglu", "mi"))
+    a = ap.parse_args(argv)
+    if a.device == "cuda":
+        if not torch.cuda.is_available():
+            print("bench_unet_kernels: no CUDA device")
+            return 2
+        print(subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True, timeout=60).stdout.strip(), flush=True)
+    rows = run(a.device, a.sites, a.kernels)
+    for row in rows:
+        print(json.dumps(row), flush=True)
+    bad = [r for r in rows if r.get("ok") is False or r.get("finite") is False]
+    return 1 if bad else 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

@@ -9,23 +9,40 @@
 //
 // Bound: operations (6 T C F flops against (2 T C + 3 C F) elements).
 // What the fusion saves is the [T, 2F] intermediate, the largest stream of
-// the unfused block: each CTA owns 32 tokens and walks the hidden width in
-// chunks.  Per chunk it (1) forms the a and g chunk from the token tile and
-// K slices of w1 staged in shared memory, (2) applies GEGLU in registers
-// and parks the rounded chunk in shared memory, (3) stages the w2 columns
-// of the chunk and adds the chunk's product into a [32, C] fp32
-// accumulator held in registers (so C <= 640).  The intermediate never
-// reaches device memory.  Two kernels:
-//  * bf16 with C and F multiples of 64 and 16-byte aligned rows (every
-//    call of the flagship): tensor cores via mma.sync m16n8k16 (bf16 in,
-//    fp32 accumulate), 64-column chunks and 64-wide K slices, the token
-//    tile staged whole in shared memory.  Eight warps: in the first
-//    product each owns 16 rows and 16 hidden columns of a and of g, in the
-//    second 16 rows and a quarter of C.  No cp.async pipelining or wgmma
-//    yet: the work of a later change.
-//  * otherwise (fp32, or widths the tiny preset has): fp32 on the CUDA
-//    cores, 32-column chunks and 32-wide K slices, 8 rows x C/64 output
-//    columns per thread.
+// the unfused block: a CTA owns a tile of tokens and walks the hidden width
+// in 64-column chunks, forming each chunk of a and g, applying GEGLU and
+// adding the rounded chunk's product with w2 into an fp32 output
+// accumulator held in registers.  The intermediate never reaches device
+// memory.  The wrapper picks the variant by shape and dtype
+// (ops/geglu.py::geglu_variant) and passes it in; a variant that cannot
+// take the call returns an error, there is no fallback.  Three variants:
+//  * "wgmma_rows" / "wgmma_cols", bf16 with F % 64 == 0 and 16-byte
+//    aligned rows (every call of the flagship): the Hopper kernel.  One
+//    producer warp keeps weight tiles (64 rows x 64 bf16, 8 KB) in flight
+//    by TMA into a 12-stage mbarrier ring: for each chunk, the w1 rows of
+//    a and of g for 32 hidden columns as one 64-row pair tile (rows f0..
+//    and F + f0..), so a and g come out of one wgmma m64n64k16 in the same
+//    fragment layout and GEGLU runs in registers; then the chunk's w2
+//    columns, one tile per 64 output columns.  The token tile is loaded
+//    once by TMA and stays resident.  Two consumer warpgroups, registers
+//    raised by setmaxnreg, each keep a 64 x (up to 320) fp32 output
+//    accumulator: at C <= 320 ("rows") the CTA owns 128 tokens and each
+//    consumer 64 of them; at C = 384..640 ("cols") the accumulator of 128
+//    tokens would not fit the register file, so the CTA owns 64 tokens,
+//    each consumer forms half of every chunk and owns half of the output
+//    columns.  The rounded GEGLU chunk goes to shared memory (128-byte
+//    swizzled, double-buffered) and the second product reads it from
+//    there.  Each CTA streams the weights once per 128 (or 64) tokens
+//    through L2.  The output accumulator (160
+//    registers a thread) leaves room for m64n64 products only, both
+//    operands from shared memory; on the H100 the kernel reaches about 37%
+//    of the tensor-core bound at both sites, and neither consumers taking
+//    turns to issue nor CTA pairs sharing the weight stream by TMA
+//    multicast made it faster (PERF.md, the GEGLU and mi redesign).
+//  * "cuda_core" (fp32, and bf16 at the widths the Hopper kernel does not
+//    take: the tiny preset's, C = 448, 576): fp32 on the CUDA cores,
+//    32-column chunks and 32-wide K slices, 8 rows x C/64 output columns
+//    per thread.
 //
 // C interface (ctypes): mmi_geglu_fwd, see the end of the file.
 
@@ -33,6 +50,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -46,6 +65,11 @@ constexpr int kColGroups = kMaxC / 64;  // output columns per thread
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+
+// exact (erf) GELU
+__device__ __forceinline__ float gelu_erf(float g) {
+  return 0.5f * g * (1.f + erff(g * 0.70710678118654752f));
 }
 
 template <typename T>
@@ -130,8 +154,7 @@ geglu_kernel(const T* __restrict__ x, const T* __restrict__ w1,
     for (int i = 0; i < 4; ++i) {
       const float a = av[i] + ba;
       const float g = gv[i] + bg;
-      const float gelu = 0.5f * g * (1.f + erff(g * 0.70710678118654752f));
-      const float prod = f < F ? a * gelu : 0.f;
+      const float prod = f < F ? a * gelu_erf(g) : 0.f;
       Gs[(ra * 4 + i) * (kFC + 1) + ja] = to_f32(from_f32<T>(prod));
     }
     for (int i = tid; i < C * kFC; i += kThreads) {
@@ -173,180 +196,291 @@ geglu_kernel(const T* __restrict__ x, const T* __restrict__ w1,
 
 
 // ---------------------------------------------------------------------------
-// bf16 tensor-core kernel
+// bf16 Hopper kernel: wgmma, TMA, an mbarrier ring
 
-constexpr int kMmaFC = 64;   // hidden columns per chunk
-constexpr int kMmaKC = 64;   // K slice of the first product
-constexpr int kPad = 8;      // bf16 elements of row padding
-constexpr int kMaxNB = kMaxC / 32;  // output n-blocks per warp
+constexpr int kWgStages = 12;          // weight tiles in flight
+constexpr int kWgTile = 64 * 64 * 2;   // one tile: 64 rows x 64 bf16
+constexpr int kWgThreads = 384;        // a producer and two consumers
+constexpr int kWgConsumerRegs = 240;
 
-size_t mma_smem_bytes(int C) {
-  return sizeof(__nv_bfloat16) *
-         ((size_t)kTM * (C + kPad) + 2 * (size_t)kMmaFC * (kMmaKC + kPad) +
-          (size_t)kTM * (kMmaFC + kPad) + (size_t)C * (kMmaFC + kPad));
+// tokens per CTA: 128 with the output columns whole, 64 with them split
+// between the consumers
+__host__ __device__ constexpr int wg_rows(bool col_split) {
+  return col_split ? 64 : 128;
 }
 
-__device__ __forceinline__ void mma_bf16(float* c, uint32_t a0, uint32_t a1,
-                                         uint32_t a2, uint32_t a3,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+size_t wg_smem_bytes(int C, bool col_split) {
+  const size_t RM = wg_rows(col_split);
+  return (size_t)(C / 64) * RM * 128   // the token tile, K-tiles of 64
+         + 2 * RM * 128                // the GEGLU chunk, two buffers
+         + (size_t)kWgStages * kWgTile // the ring
+         + 8 * (2 * kWgStages + 1)     // mbarriers
+         + 1024;                       // alignment
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
+// x [Tn, C], w1 [2F, C], w2 [C, F] through their tensor maps (boxes of 64
+// columns by RM, 32 and 64 rows); b1, b2, out as geglu_kernel.  NT is the
+// number of 64-column output tiles a consumer owns: C / 64 ("rows"), C /
+// 128 ("cols").  The producer streams, per 64-column chunk f0 of the
+// hidden width: for each half s (32 columns) and each K tile kt, the pair
+// tile [w1 rows f0 + 32 s.. | rows F + f0 + 32 s..] x [64 kt, +64); then
+// for each output tile j the w2 tile [rows 64 j.., cols f0..].  Every
+// consumer waits on every tile in that order and releases it (8 arrivals:
+// one per consumer warp), reading only its own.
+template <int NT, bool kColSplit>
+__global__ void __launch_bounds__(kWgThreads, 1)
+geglu_wgmma_kernel(const __grid_constant__ CUtensorMap tx,
+                   const __grid_constant__ CUtensorMap tw1,
+                   const __grid_constant__ CUtensorMap tw2,
+                   const __nv_bfloat16* __restrict__ b1,
+                   const __nv_bfloat16* __restrict__ b2,
+                   __nv_bfloat16* __restrict__ out, int Tn, int C, int F) {
+  using namespace hopper;
+  constexpr int RM = wg_rows(kColSplit);
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  const int KT = C / 64;
+  unsigned char* Xs = smem;                     // [KT][RM][64]
+  unsigned char* Ps = Xs + KT * RM * 128;       // [2][RM][64]
+  unsigned char* ring = Ps + 2 * RM * 128;      // [kWgStages][64][64]
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kWgStages * kWgTile);
+  uint64_t* empty = full + kWgStages;
+  uint64_t* xbar = empty + kWgStages;
+  const int t0 = blockIdx.x * RM;
+  const int chunks = F / 64;
+  const int wg = threadIdx.x / 128;
 
-// x/out [Tn, C], w1 [2F, C], w2 [C, F] bf16; C % 64 == 0, F % 64 == 0,
-// 16-byte aligned rows.
-__global__ void __launch_bounds__(kThreads)
-geglu_mma_kernel(const __nv_bfloat16* __restrict__ x,
-                 const __nv_bfloat16* __restrict__ w1,
-                 const __nv_bfloat16* __restrict__ b1,
-                 const __nv_bfloat16* __restrict__ w2,
-                 const __nv_bfloat16* __restrict__ b2,
-                 __nv_bfloat16* __restrict__ out, int Tn, int C, int F) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int XS = C + kPad, WS = kMmaKC + kPad, GS = kMmaFC + kPad;
-  __nv_bfloat16* Xs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* W1s = Xs + kTM * XS;          // [2 * kMmaFC][WS]
-  __nv_bfloat16* Gs = W1s + 2 * kMmaFC * WS;   // [kTM][GS]
-  __nv_bfloat16* W2s = Gs + kTM * GS;          // [C][GS]
-  constexpr int VEC = 8;
-  const uint4 zero4 = make_uint4(0, 0, 0, 0);
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, tig = lane & 3;
-  const int rb = warp & 1;   // row half of the tile
-  const int wq = warp >> 1;  // hidden n-block pair (phase A), column
-                             // quarter (phase B)
-  const int t0 = blockIdx.x * kTM;
-  const int r0 = rb * 16 + g;  // this thread's rows r0 and r0 + 8
-  const int nbc = C / 32;      // output n-blocks per warp
-  const int c_base = wq * (C / 4);
-
-  for (int i = tid; i < kTM * C / VEC; i += kThreads) {
-    const int r = i / (C / VEC), c = (i - r * (C / VEC)) * VEC;
-    const int t = t0 + r;
-    *reinterpret_cast<uint4*>(Xs + r * XS + c) =
-        t < Tn ? *reinterpret_cast<const uint4*>(x + (int64_t)t * C + c)
-               : zero4;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kWgStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);
+    }
+    mbar_init(xbar, 1);
+    fence_barrier_init();
   }
+  __syncthreads();
 
-  float acc[kMaxNB][4];
-#pragma unroll
-  for (int j = 0; j < kMaxNB; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-
-  for (int f0 = 0; f0 < F; f0 += kMmaFC) {
-    float a[2][4], gt[2][4];
-#pragma unroll
-    for (int t = 0; t < 2; ++t)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) a[t][e] = gt[t][e] = 0.f;
-    for (int k0 = 0; k0 < C; k0 += kMmaKC) {
-      __syncthreads();  // Xs is staged; the previous W1s (and Gs/W2s)
-                        // reads are done
-      for (int i = tid; i < 2 * kMmaFC * kMmaKC / VEC; i += kThreads) {
-        const int j = i / (kMmaKC / VEC), kk = (i - j * (kMmaKC / VEC)) * VEC;
-        const int f = j < kMmaFC ? f0 + j : F + f0 + (j - kMmaFC);
-        *reinterpret_cast<uint4*>(W1s + j * WS + kk) =
-            *reinterpret_cast<const uint4*>(w1 + (int64_t)f * C + k0 + kk);
-      }
-      __syncthreads();
-#pragma unroll
-      for (int ks = 0; ks < kMmaKC / 16; ++ks) {
-        const __nv_bfloat16* xr = Xs + r0 * XS + k0 + ks * 16 + tig * 2;
-        const uint32_t a0 = ld32(xr), a1 = ld32(xr + 8 * XS);
-        const uint32_t a2 = ld32(xr + 8), a3 = ld32(xr + 8 * XS + 8);
-#pragma unroll
-        for (int t = 0; t < 2; ++t) {
-          const int nrow = (2 * wq + t) * 8 + g;
-          const __nv_bfloat16* wa = W1s + nrow * WS + ks * 16 + tig * 2;
-          const __nv_bfloat16* wg = wa + kMmaFC * WS;
-          mma_bf16(a[t], a0, a1, a2, a3, ld32(wa), ld32(wa + 8));
-          mma_bf16(gt[t], a0, a1, a2, a3, ld32(wg), ld32(wg + 8));
+  if (wg == 0) {
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(xbar, KT * RM * 128);
+      for (int kt = 0; kt < KT; ++kt)
+        tma_load_2d(Xs + kt * RM * 128, &tx, xbar, kt * 64, t0);
+      int g = 0;  // tiles loaded so far
+      auto slot = [&](int gi) {
+        const int st = gi % kWgStages;
+        mbar_wait(&empty[st], ((gi / kWgStages) & 1) ^ 1);
+        mbar_expect_tx(&full[st], kWgTile);
+        return st;
+      };
+      for (int ci = 0; ci < chunks; ++ci) {
+        const int f0 = ci * 64;
+        for (int s = 0; s < 2; ++s)
+          for (int kt = 0; kt < KT; ++kt, ++g) {
+            const int st = slot(g);
+            unsigned char* dst = ring + st * kWgTile;
+            tma_load_2d(dst, &tw1, &full[st], kt * 64, f0 + 32 * s);
+            tma_load_2d(dst + 32 * 128, &tw1, &full[st], kt * 64,
+                        F + f0 + 32 * s);
+          }
+        for (int j = 0; j < KT; ++j, ++g) {
+          const int st = slot(g);
+          tma_load_2d(ring + st * kWgTile, &tw2, &full[st], f0, 64 * j);
         }
       }
     }
+  } else {
+    setmaxnreg_inc<kWgConsumerRegs>();
+    const int w = wg - 1;
+    const int t = threadIdx.x - 128;
+    const int warp = (t >> 5) & 3, lane = t & 31;
+    const int row_off = kColSplit ? 0 : 64 * w;  // its rows in the tile
+    const int tile0 = kColSplit ? NT * w : 0;    // its first output tile
+    float o[NT][32];
 #pragma unroll
-    for (int t = 0; t < 2; ++t) {
+    for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int hh = 0; hh < 2; ++hh) {  // rows r0, r0 + 8
-        const int col = (2 * wq + t) * 8 + tig * 2;
-        float v2[2];
+      for (int e = 0; e < 32; ++e) o[j][e] = 0.f;
+    int g = 0;  // tiles consumed so far
+    auto wait_full = [&](int gi) {
+      mbar_wait(&full[gi % kWgStages], (gi / kWgStages) & 1);
+    };
+    auto release = [&](int gi) {
+      if (lane == 0) mbar_arrive(&empty[gi % kWgStages]);
+    };
+    auto pass = [&](int n) {  // tiles another consumer reads
+      for (int i = 0; i < n; ++i, ++g) {
+        wait_full(g);
+        release(g);
+      }
+    };
+    const unsigned char* xw = Xs + row_off * 128;
+
+    // [a | g] of half s of the chunk at f0 for the consumer's 64 rows, then
+    // GEGLU and the rounded product into columns 32 s.. of P
+    auto first = [&](int s, int f0, unsigned char* P) {
+      float acc[32];
 #pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int f = f0 + col + e;
-          const float av = a[t][2 * hh + e] + to_f32(b1[f]);
-          const float gv = gt[t][2 * hh + e] + to_f32(b1[F + f]);
-          v2[e] = av * (0.5f * gv * (1.f + erff(gv * 0.70710678118654752f)));
+      for (int e = 0; e < 32; ++e) acc[e] = 0.f;
+      auto issue = [&](int kt) {
+        const unsigned char* wb = ring + (g % kWgStages) * kWgTile;
+        wgmma_fence();
+#pragma unroll
+        for (int k16 = 0; k16 < 4; ++k16)
+          wgmma_ss(acc, desc_b128(xw + kt * RM * 128 + k16 * 32, 0, 1024),
+                   desc_b128(wb + k16 * 32, 0, 1024), 1);
+        wgmma_commit();
+      };
+      wait_full(g);
+      issue(0);
+      ++g;
+      for (int kt = 1; kt < KT; ++kt, ++g) {
+        wait_full(g);
+        issue(kt);
+        wgmma_wait<1>();
+        release(g - 1);
+      }
+      wgmma_wait<0>();
+      fence_regs<32>(acc);
+      release(g - 1);
+      const __nv_bfloat16* ba = b1 + f0 + 32 * s;
+      const __nv_bfloat16* bg = b1 + F + f0 + 32 * s;
+#pragma unroll
+      for (int nb = 0; nb < 4; ++nb) {
+        const int j = nb * 8 + 2 * (lane & 3);
+        const float ba0 = __bfloat162float(ba[j]);
+        const float ba1 = __bfloat162float(ba[j + 1]);
+        const float bg0 = __bfloat162float(bg[j]);
+        const float bg1 = __bfloat162float(bg[j + 1]);
+        const int c = 32 * s + j;  // column of P
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int r = row_off + warp * 16 + (lane >> 2) + 8 * i;
+          const float g0 = acc[(nb + 4) * 4 + 2 * i] + bg0;
+          const float g1 = acc[(nb + 4) * 4 + 2 * i + 1] + bg1;
+          const float p0 = (acc[nb * 4 + 2 * i] + ba0) * gelu_erf(g0);
+          const float p1 = (acc[nb * 4 + 2 * i + 1] + ba1) * gelu_erf(g1);
+          *reinterpret_cast<__nv_bfloat162*>(
+              P + r * 128 + (((c >> 3) ^ (r & 7)) << 4) + (c & 7) * 2) =
+              __floats2bfloat162_rn(p0, p1);
         }
-        *reinterpret_cast<__nv_bfloat162*>(Gs + (r0 + 8 * hh) * GS + col) =
-            __floats2bfloat162_rn(v2[0], v2[1]);
+      }
+    };
+
+    // out[rows, tile j] += P[rows, 0..63] w2[tile j, f0..f0+63]^T
+    auto second = [&](const unsigned char* P) {
+      const unsigned char* pa = P + row_off * 128;
+#pragma unroll
+      for (int jj = 0; jj < NT; ++jj, ++g) {
+        wait_full(g);
+        const unsigned char* wb = ring + (g % kWgStages) * kWgTile;
+        wgmma_fence();
+#pragma unroll
+        for (int k16 = 0; k16 < 4; ++k16)
+          wgmma_ss(o[jj], desc_b128(pa + k16 * 32, 0, 1024),
+                   desc_b128(wb + k16 * 32, 0, 1024), 1);
+        wgmma_commit();
+        if (jj > 0) {
+          wgmma_wait<1>();
+          release(g - 1);
+        }
+      }
+      wgmma_wait<0>();
+#pragma unroll
+      for (int jj = 0; jj < NT; ++jj) fence_regs<32>(o[jj]);
+      release(g - 1);
+    };
+
+    mbar_wait(xbar, 0);
+    for (int ci = 0; ci < chunks; ++ci) {
+      const int f0 = ci * 64;
+      unsigned char* P = Ps + (ci & 1) * RM * 128;
+      if constexpr (kColSplit) {
+        // consumer w forms half w of the chunk for all 64 rows
+        if (w == 1) pass(KT);
+        first(w, f0, P);
+        if (w == 0) pass(KT);
+        fence_proxy_async();
+        bar_sync(1, 256);
+        if (w == 1) pass(NT);
+        second(P);
+        if (w == 0) pass(NT);
+      } else {
+        first(0, f0, P);
+        first(1, f0, P);
+        fence_proxy_async();
+        bar_sync(1 + w, 128);
+        second(P);
       }
     }
-    for (int i = tid; i < C * kMmaFC / VEC; i += kThreads) {
-      const int c = i / (kMmaFC / VEC), j = (i - c * (kMmaFC / VEC)) * VEC;
-      *reinterpret_cast<uint4*>(W2s + c * GS + j) =
-          *reinterpret_cast<const uint4*>(w2 + (int64_t)c * F + f0 + j);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kMmaFC / 16; ++kk) {
-      const __nv_bfloat16* gr = Gs + r0 * GS + kk * 16 + tig * 2;
-      const uint32_t a0 = ld32(gr), a1 = ld32(gr + 8 * GS);
-      const uint32_t a2 = ld32(gr + 8), a3 = ld32(gr + 8 * GS + 8);
-#pragma unroll
-      for (int j = 0; j < kMaxNB; ++j) {
-        if (j < nbc) {
-          const __nv_bfloat16* wr =
-              W2s + (c_base + j * 8 + g) * GS + kk * 16 + tig * 2;
-          mma_bf16(acc[j], a0, a1, a2, a3, ld32(wr), ld32(wr + 8));
-        }
-      }
-    }
-  }
 
 #pragma unroll
-  for (int j = 0; j < kMaxNB; ++j) {
-    if (j >= nbc) continue;
-    const int c = c_base + j * 8 + tig * 2;
-    const float bb0 = to_f32(b2[c]), bb1 = to_f32(b2[c + 1]);
+    for (int jj = 0; jj < NT; ++jj)
 #pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      const int t = t0 + r0 + 8 * hh;
-      if (t < Tn) {
-        *reinterpret_cast<__nv_bfloat162*>(out + (int64_t)t * C + c) =
-            __floats2bfloat162_rn(acc[j][2 * hh] + bb0,
-                                  acc[j][2 * hh + 1] + bb1);
+      for (int nb = 0; nb < 8; ++nb) {
+        const int col = (tile0 + jj) * 64 + nb * 8 + 2 * (lane & 3);
+        const float bb0 = __bfloat162float(b2[col]);
+        const float bb1 = __bfloat162float(b2[col + 1]);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int row = t0 + row_off + warp * 16 + (lane >> 2) + 8 * i;
+          if (row < Tn)
+            *reinterpret_cast<__nv_bfloat162*>(out + (int64_t)row * C + col) =
+                __floats2bfloat162_rn(o[jj][nb * 4 + 2 * i] + bb0,
+                                      o[jj][nb * 4 + 2 * i + 1] + bb1);
+        }
       }
-    }
   }
 }
 
-int launch_mma(const void* x, const void* w1, const void* b1, const void* w2,
-               const void* b2, void* out, int Tn, int C, int F,
-               cudaStream_t stream) {
-  const size_t bytes = mma_smem_bytes(C);
-  cudaError_t err = cudaFuncSetAttribute(
-      geglu_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  const int blocks = (Tn + kTM - 1) / kTM;
-  geglu_mma_kernel<<<blocks, kThreads, bytes, stream>>>(
-      static_cast<const __nv_bfloat16*>(x),
-      static_cast<const __nv_bfloat16*>(w1),
-      static_cast<const __nv_bfloat16*>(b1),
-      static_cast<const __nv_bfloat16*>(w2),
-      static_cast<const __nv_bfloat16*>(b2),
-      static_cast<__nv_bfloat16*>(out), Tn, C, F);
+template <int NT, bool kColSplit>
+int launch_wgmma_nt(const void* x, const void* w1, const void* b1,
+                    const void* w2, const void* b2, void* out, int Tn, int C,
+                    int F, cudaStream_t stream) {
+  constexpr int RM = wg_rows(kColSplit);
+  CUtensorMap mx, mw1, mw2;
+  int err = hopper::make_map_2d(&mx, x, Tn, C, RM);
+  if (err == 0) err = hopper::make_map_2d(&mw1, w1, 2 * F, C, 32);
+  if (err == 0) err = hopper::make_map_2d(&mw2, w2, C, F, 64);
+  if (err != 0) return err;
+  const size_t bytes = wg_smem_bytes(C, kColSplit);
+  cudaError_t e = cudaFuncSetAttribute(
+      geglu_wgmma_kernel<NT, kColSplit>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e != cudaSuccess) return (int)e;
+  geglu_wgmma_kernel<NT, kColSplit>
+      <<<(Tn + RM - 1) / RM, kWgThreads, bytes, stream>>>(
+          mx, mw1, mw2, static_cast<const __nv_bfloat16*>(b1),
+          static_cast<const __nv_bfloat16*>(b2),
+          static_cast<__nv_bfloat16*>(out), Tn, C, F);
   return (int)cudaGetLastError();
+}
+
+// "rows": C = 64 NT, NT = 1..5; "cols": C = 128 NT, NT = 3..5
+int launch_wgmma(bool col_split, const void* x, const void* w1,
+                 const void* b1, const void* w2, const void* b2, void* out,
+                 int Tn, int C, int F, cudaStream_t stream) {
+  const int tile = col_split ? 128 : 64;
+  if (C % tile != 0 || F % 64 != 0) return (int)cudaErrorInvalidValue;
+#define MMI_WG(nt, cs)                                                     \
+  return launch_wgmma_nt<nt, cs>(x, w1, b1, w2, b2, out, Tn, C, F, stream)
+  if (!col_split) {
+    switch (C / 64) {
+      case 1: MMI_WG(1, false);
+      case 2: MMI_WG(2, false);
+      case 3: MMI_WG(3, false);
+      case 4: MMI_WG(4, false);
+      case 5: MMI_WG(5, false);
+    }
+  } else {
+    switch (C / 128) {
+      case 3: MMI_WG(3, true);
+      case 4: MMI_WG(4, true);
+      case 5: MMI_WG(5, true);
+    }
+  }
+#undef MMI_WG
+  return (int)cudaErrorInvalidValue;
 }
 
 template <typename T>
@@ -368,26 +502,33 @@ int launch(const void* x, const void* w1, const void* b1, const void* w2,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  x/out [Tn, C], w1 [2F, C], b1 [2F],
-// w2 [C, F], b2 [C].  Returns a cudaError_t code (0 = launched).
-extern "C" int mmi_geglu_fwd(int device, int dtype, const void* x,
-                             const void* w1, const void* b1, const void* w2,
-                             const void* b2, void* out, int Tn, int C, int F,
-                             void* stream) {
+// dtype: 0 = float32, 1 = bfloat16.  variant: 0 = cuda_core, 1 =
+// wgmma_rows, 2 = wgmma_cols (ops/geglu.py::geglu_variant).  x/out
+// [Tn, C], w1 [2F, C], b1 [2F], w2 [C, F], b2 [C].  Returns a cudaError_t
+// code (0 = launched), or 1000 + a CUresult / 999 when a tensor map cannot
+// be encoded; a variant that cannot take the call is cudaErrorInvalidValue.
+extern "C" int mmi_geglu_fwd(int device, int dtype, int variant,
+                             const void* x, const void* w1, const void* b1,
+                             const void* w2, const void* b2, void* out,
+                             int Tn, int C, int F, void* stream) {
   if (C < 1 || C > kMaxC || F < 1 || Tn < 0) return (int)cudaErrorInvalidValue;
   if (Tn == 0) return 0;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(x, w1, b1, w2, b2, out, Tn, C, F, s);
-  if (dtype == 1) {
-    const uintptr_t addr =
-        reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w1) |
-        reinterpret_cast<uintptr_t>(w2) | reinterpret_cast<uintptr_t>(out);
-    if (C % 64 == 0 && F % kMmaFC == 0 && addr % 16 == 0) {
-      return launch_mma(x, w1, b1, w2, b2, out, Tn, C, F, s);
-    }
-    return launch<__nv_bfloat16>(x, w1, b1, w2, b2, out, Tn, C, F, s);
+  const uintptr_t addr =
+      reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(w1) |
+      reinterpret_cast<uintptr_t>(w2) | reinterpret_cast<uintptr_t>(out);
+  if (dtype == 0 && variant == 0)
+    return launch<float>(x, w1, b1, w2, b2, out, Tn, C, F, s);
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
+  switch (variant) {
+    case 0:
+      return launch<__nv_bfloat16>(x, w1, b1, w2, b2, out, Tn, C, F, s);
+    case 1:
+    case 2:
+      if (addr % 16 != 0) return (int)cudaErrorInvalidValue;
+      return launch_wgmma(variant == 2, x, w1, b1, w2, b2, out, Tn, C, F, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -1,7 +1,8 @@
 // Thin helpers for Hopper (sm_90a): TMA tensor maps and loads, mbarriers,
 // warpgroup matrix multiplies (wgmma), named barriers and register
 // reallocation.  Each is a few lines of inline PTX; the flash-attention
-// kernels (flash_attention.cu, flash_attention_bwd.cu) build on them.
+// kernels (flash_attention.cu, flash_attention_bwd.cu) and the fused GEGLU
+// (geglu.cu: 2-D weight maps, wgmma, the proxy fence) build on them.
 //
 // Shared-memory tiles are the 128-byte swizzled layout that TMA writes with
 // CU_TENSOR_MAP_SWIZZLE_128B: rows of 64 bf16 (128 bytes), eight rows to a
@@ -71,6 +72,26 @@ inline int make_map_bthd(CUtensorMap* map, const void* base, int B, int T,
   return r == CUDA_SUCCESS ? 0 : 1000 + (int)r;
 }
 
+// A 2-D tensor map over a contiguous bf16 [rows, cols] array (cols % 8 ==
+// 0) whose box is ``box_rows`` rows of 64 columns, 128-byte swizzled; rows
+// past the end read as zeros.  Error codes as make_map_bthd.
+inline int make_map_2d(CUtensorMap* map, const void* base, int rows, int cols,
+                       int box_rows) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return 999;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * sizeof(__nv_bfloat16)};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  const cuuint32_t estr[2] = {1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                        const_cast<void*>(base), dims, strides, box, estr,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : 1000 + (int)r;
+}
+
 // ---------------------------------------------------------------------------
 // device
 
@@ -129,6 +150,23 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// TMA: a box of a 2-D tensor map (column c0, row c1)
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+
+// make this thread's generic-proxy writes to shared memory visible to the
+// async proxy (wgmma operands, TMA) before a barrier
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // named barriers over ``n`` threads (id 0 is __syncthreads')

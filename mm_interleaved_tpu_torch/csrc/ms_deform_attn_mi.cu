@@ -13,17 +13,37 @@
 // is how the denoise loop shares one image side between the two CFG
 // halves.
 //
-// Bound: gathered bytes, as for the single-image kernel.  The TPU kernel
-// builds dense bilinear matrices from value slabs, occupancy bit-words and
-// a transposed query slab because a TPU has no gather; none of that is
-// needed here.  One thread per (b, q, h, 4 channels), lanes along D, so
-// 16 lanes read one 128-byte row of a bf16 texel per corner (D = 64) with
-// 8-byte loads, and the location and weight arithmetic, which every lane of
-// a (b, q, h) repeats, is done once per 4 channels instead of once per
-// channel.  Where D or the pointers do not allow it the wrapper asks for
-// one channel per thread.  Images, levels and points loop inside the
-// thread with an fp32 accumulator; an image whose wi is all zero for the
-// (b, h) is skipped, which is exact and makes masked images cost nothing.
+// Bound: the four corner FMAs of every sample and channel (fp32 on the CUDA
+// cores) at the flagship's sites, the gathered bytes at small ones.  The
+// TPU kernel builds dense bilinear matrices from value slabs, occupancy
+// bit-words and a transposed query slab because a TPU has no gather; none
+// of that is needed here.  An image whose wi is all zero for the (b, h) is
+// skipped, which is exact and makes masked images cost nothing.  The
+// wrapper picks the variant (ops/ms_deform_attn_mi.py::mi_variant) and
+// passes it in:
+//  * "tiled" (every call whose texel row is a whole number of 16-byte
+//    lanes: D % 8 == 0 in bf16, D % 4 == 0 in fp32): a CTA owns one image
+//    row bv, one head and a tile of spatially neighbouring queries taken
+//    from every query row that reads bv (both CFG halves: rows bv and
+//    bv + Bv), so that the texels a tile's samples touch are read from L1
+//    by its neighbours and by the other half.  The wrapper passes the tile
+//    order (8 x 8 blocks of a square query grid).  Each (b, q) is a stream
+//    of LANES lanes, each lane 16 bytes of channels (8 in bf16); a warp
+//    takes 32 / LANES streams at a time, 1-4 times (fewer where the grid
+//    would not give every SM two CTAs: the 8 and 16 px sites).  The CTA
+//    reads the (bv, h) delta rows, their liveness and the level table once
+//    into shared memory; per chunk of LANES samples each lane computes one
+//    sample's location, its corners' byte offsets (clamped into the level)
+//    and weights (bilinear x attention) into a per-warp table, which the
+//    stream's lanes then read; the lanes issue all corner loads of two
+//    samples before the first FMA, and widen bf16 by a shift or a mask.
+//    Every level is read through L1.  Measured on the H100, the kernel
+//    takes the same time under
+//    uniform locations as under the flagship's clustered ones: it is bound
+//    by the instructions a sample costs (the FMAs, the widening, the
+//    addresses), not by where the corners lie.
+//  * "flat" (other widths): one thread per (b, q, h, 4 channels), lanes
+//    along D; images, levels and points loop inside the thread.
 //
 // C interface (ctypes): mmi_ms_deform_attn_mi_fwd, see the end of the file.
 
@@ -160,17 +180,265 @@ void launch(const void* value, const float* delta, const float* ref,
       L, P, inv_base, total, lv);
 }
 
+// ---------------------------------------------------------------------------
+// the tiled kernel
+
+constexpr int kTThreads = 256;  // 8 warps
+constexpr int kMaxRounds = 4;   // stream groups a warp takes in turn
+
+// one sample of one stream: each corner's byte offset from the image's base
+// and weight (bilinear x attention, 0 outside the level)
+struct alignas(16) Entry {
+  uint32_t o[4];
+  float w[4];
+};
+
+size_t tiled_smem_bytes(int n_img, int LP) {
+  return sizeof(Entry) * 8 * 32 + sizeof(float) * n_img * LP * 3 +
+         sizeof(int) * (n_img + 3 * kMaxLevels);
+}
+
+// the four corners of a sample, 16 bytes of channels each, through the
+// read-only path
+__device__ __forceinline__ void load_corners(uint4 (&v)[4], const Entry& e,
+                                             const char* gbase) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c)
+    v[c] = __ldg(reinterpret_cast<const uint4*>(gbase + e.o[c]));
+}
+
+// acc += w * the 16 bytes of channels in ``u`` (bf16 widened by a shift or
+// a mask: one integer op a value)
+__device__ __forceinline__ void fma16(float (&acc)[8], float w,
+                                      const uint4& u, __nv_bfloat16) {
+  const uint32_t x[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    acc[2 * i] = fmaf(w, __uint_as_float(x[i] << 16), acc[2 * i]);
+    acc[2 * i + 1] =
+        fmaf(w, __uint_as_float(x[i] & 0xffff0000u), acc[2 * i + 1]);
+  }
+}
+__device__ __forceinline__ void fma16(float (&acc)[4], float w,
+                                      const uint4& u, float) {
+  acc[0] = fmaf(w, __uint_as_float(u.x), acc[0]);
+  acc[1] = fmaf(w, __uint_as_float(u.y), acc[1]);
+  acc[2] = fmaf(w, __uint_as_float(u.z), acc[2]);
+  acc[3] = fmaf(w, __uint_as_float(u.w), acc[3]);
+}
+
+// value [Bv, n_img, S, H, D], the rest as mi_fwd_kernel; order [Lq] int32,
+// the query of each tile slot (null: the identity).  Grid: (query tiles,
+// H, Bv); a tile is 8 * (32 / LANES) * rounds streams, R = B / Bv of them
+// per query.
+template <typename V, int LANES>
+__global__ void __launch_bounds__(kTThreads, 3)
+mi_tiled_kernel(const V* __restrict__ value, const float* __restrict__ delta,
+                const float* __restrict__ ref, const float* __restrict__ off_q,
+                const V* __restrict__ wq, V* __restrict__ out,
+                const int* __restrict__ order, int rounds, int Bv, int R,
+                int Lq, int n_img, int S, int H, int D, int L, int P,
+                float inv_base, Levels lv) {
+  constexpr int VEC = 16 / sizeof(V);
+  constexpr int SW = 32 / LANES;  // streams a warp
+  using Vec = Pack<V, VEC>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Entry* ent = reinterpret_cast<Entry*>(smem_raw);  // [8 warps][32]
+  const int LP = L * P;
+  float* dsm = reinterpret_cast<float*>(ent + 8 * 32);  // [n_img][LP][3]
+  int* live = reinterpret_cast<int*>(dsm + n_img * LP * 3);
+  int* lh = live + n_img;
+  int* lw = lh + kMaxLevels;
+  int* lst = lw + kMaxLevels;
+
+  const int tile = blockIdx.x, h = blockIdx.y, bv = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int ks = lane / LANES;  // the lane's stream in the warp
+  const int cc = lane % LANES;  // its 16-byte channel block
+  const int TQ = 8 * SW * rounds / R;  // queries a tile
+
+  const float* dg = delta + ((int64_t)bv * H + h) * n_img * LP * 3;
+  for (int i = tid; i < n_img * LP * 3; i += kTThreads) dsm[i] = dg[i];
+  if (tid == 0) {
+#pragma unroll
+    for (int l = 0; l < kMaxLevels; ++l) {
+      lh[l] = lv.h[l];
+      lw[l] = lv.w[l];
+      lst[l] = lv.start[l];
+    }
+  }
+  __syncthreads();
+  if (tid < n_img) {
+    bool any = false;
+    for (int lp = 0; lp < LP; ++lp) any |= dsm[(tid * LP + lp) * 3 + 2] != 0.f;
+    live[tid] = any;
+  }
+  __syncthreads();
+
+  const int64_t HD = (int64_t)H * D;
+  const uint32_t stride = (uint32_t)HD * sizeof(V);  // bytes a texel
+  Entry* my = ent + warp * 32;
+  for (int r = 0; r < rounds; ++r) {
+    const int s = (r * 8 + warp) * SW + ks;
+    const int slot = s / R;
+    const int pos = tile * TQ + slot;
+    const bool ok = slot < TQ && pos < Lq;
+    const int q = ok ? (order != nullptr ? order[pos] : pos) : 0;
+    const int64_t bq = (int64_t)((s % R) * Bv + bv) * Lq + q;
+    const float rx = ref[2 * bq], ry = ref[2 * bq + 1];
+    const float* oq = off_q + (bq * H + h) * P * 2;
+    const V* wqp = wq + (bq * H + h) * LP;
+    float acc[VEC];
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) acc[e] = 0.f;
+
+    for (int n = 0; n < n_img; ++n) {
+      if (!live[n]) continue;
+      const char* gbase = reinterpret_cast<const char*>(
+          value + ((int64_t)bv * n_img + n) * S * HD + h * D + cc * VEC);
+      const float* dl = dsm + n * LP * 3;
+      for (int k0 = 0; k0 < LP; k0 += LANES) {
+        // the table: lane (ks, cc) builds sample k0 + cc of stream ks
+        Entry e;
+        const int j = k0 + cc;
+        if (j < LP) {
+          const int l = j / P, p = j - l * P;
+          const int hl = lh[l], wl = lw[l];
+          float aw = 0.f, x = 0.f, y = 0.f;
+          if (ok) {
+            x = (rx + oq[2 * p] * inv_base) * wl - 0.5f + dl[3 * j];
+            y = (ry + oq[2 * p + 1] * inv_base) * hl - 0.5f + dl[3 * j + 1];
+            aw = to_f32(wqp[j]) * dl[3 * j + 2];
+          }
+          const float x0f = floorf(x), y0f = floorf(y);
+          const float fx = x - x0f, fy = y - y0f;
+          const int x0 = (int)x0f, y0 = (int)y0f;
+          const float cw[4] = {(1.f - fx) * (1.f - fy), fx * (1.f - fy),
+                               (1.f - fx) * fy, fx * fy};
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int xi = x0 + (c & 1), yi = y0 + (c >> 1);
+            const bool in = xi >= 0 && xi < wl && yi >= 0 && yi < hl;
+            e.o[c] = (uint32_t)(lst[l] + min(max(yi, 0), hl - 1) * wl +
+                                min(max(xi, 0), wl - 1)) * stride;
+            e.w[c] = in ? cw[c] * aw : 0.f;
+          }
+        } else {
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            e.o[c] = 0;
+            e.w[c] = 0.f;
+          }
+        }
+        __syncwarp();  // the last chunk's entries are read
+        my[lane] = e;
+        __syncwarp();
+        // the gather: two samples' corners in flight at once
+        const int nk = min(LANES, LP - k0);
+        const Entry* se = my + ks * LANES;
+        for (int i = 0; i < nk; i += 2) {
+          const int i1 = i + 1 < nk ? i + 1 : i;
+          const Entry e0 = se[i];
+          Entry e1 = se[i1];
+          if (i1 == i) {
+#pragma unroll
+            for (int c = 0; c < 4; ++c) e1.w[c] = 0.f;
+          }
+          uint4 v0[4], v1[4];
+          load_corners(v0, e0, gbase);
+          load_corners(v1, e1, gbase);
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            fma16(acc, e0.w[c], v0[c], V());
+            fma16(acc, e1.w[c], v1[c], V());
+          }
+        }
+      }
+    }
+    if (ok) {
+      Vec o;
+#pragma unroll
+      for (int x = 0; x < VEC; ++x) o.v[x] = from_f32<V>(acc[x]);
+      *reinterpret_cast<Vec*>(out + (bq * H + h) * D + cc * VEC) = o;
+    }
+  }
+}
+
+template <typename V, int LANES>
+int launch_tiled_lanes(const void* value, const float* delta, const float* ref,
+                       const float* off_q, const void* wq, void* out,
+                       const int* order, int Bv, int B, int Lq, int n_img,
+                       int S, int H, int D, int L, int P, float inv_base,
+                       const Levels& lv, cudaStream_t stream) {
+  const size_t bytes = tiled_smem_bytes(n_img, L * P);
+  if (bytes > 232448) return (int)cudaErrorInvalidValue;
+  cudaError_t e = cudaFuncSetAttribute(
+      mi_tiled_kernel<V, LANES>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bytes);
+  if (e != cudaSuccess) return (int)e;
+  int dev = 0, sms = 0;
+  e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  // the most rounds (the largest query tile) that still gives every SM two
+  // CTAs
+  const int R = B / Bv;
+  const int per_round = 8 * (32 / LANES);
+  int rounds = kMaxRounds;
+  auto ctas = [&](int rr) {
+    const int tq = per_round * rr / R;
+    return tq < 1 ? 0L : (long)((Lq + tq - 1) / tq) * H * Bv;
+  };
+  while (rounds > 1 && ctas(rounds) < 2L * sms) rounds /= 2;
+  while (per_round * rounds / R < 1 && rounds < 64) rounds *= 2;
+  const long n_ctas = ctas(rounds);
+  if (n_ctas < 1 || n_ctas / ((long)H * Bv) > 0x7fffffffL)
+    return (int)cudaErrorInvalidValue;
+  dim3 grid((unsigned)(n_ctas / ((long)H * Bv)), H, Bv);
+  mi_tiled_kernel<V, LANES><<<grid, kTThreads, bytes, stream>>>(
+      static_cast<const V*>(value), delta, ref, off_q,
+      static_cast<const V*>(wq), static_cast<V*>(out), order, rounds, Bv, R,
+      Lq, n_img, S, H, D, L, P, inv_base, lv);
+  return (int)cudaGetLastError();
+}
+
+// LANES = D * sizeof(V) / 16, one of 1, 2, 4, 8, 16, 32
+template <typename V>
+int launch_tiled(const void* value, const float* delta, const float* ref,
+                 const float* off_q, const void* wq, void* out,
+                 const int* order, int Bv, int B, int Lq, int n_img, int S,
+                 int H, int D, int L, int P, float inv_base, const Levels& lv,
+                 cudaStream_t stream) {
+  if ((D * (int)sizeof(V)) % 16 != 0) return (int)cudaErrorInvalidValue;
+#define MMI_LANES(n)                                                         \
+  case n:                                                                    \
+    return launch_tiled_lanes<V, n>(value, delta, ref, off_q, wq, out, order, \
+                                    Bv, B, Lq, n_img, S, H, D, L, P,         \
+                                    inv_base, lv, stream);
+  switch (D * (int)sizeof(V) / 16) {
+    MMI_LANES(1) MMI_LANES(2) MMI_LANES(4) MMI_LANES(8) MMI_LANES(16)
+    MMI_LANES(32)
+  }
+#undef MMI_LANES
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (value, wq and out).  level_hw: host
-// array of 2*L ints (h0, w0, h1, w1, ...).  Returns a cudaError_t code
-// (0 = launched).
+// dtype: 0 = float32, 1 = bfloat16 (value, wq and out).  variant: 0 =
+// flat, 1 = tiled (ops/ms_deform_attn_mi.py::mi_variant).  order: int32
+// [Lq], the tiled kernel's query order, or null.  level_hw: host array of
+// 2*L ints (h0, w0, h1, w1, ...).  Returns a cudaError_t code (0 =
+// launched); a variant that cannot take the call is cudaErrorInvalidValue.
 extern "C" int mmi_ms_deform_attn_mi_fwd(
-    int device, int dtype, const void* value, const void* delta,
-    const void* ref, const void* off_q, const void* wq, void* out, int Bv,
-    int B, int Lq, int n_img, int S, int H, int D, int L, int P,
-    float inv_base, const int* level_hw, void* stream) {
-  if (L < 1 || L > kMaxLevels || P < 1 || D < 1 || Bv < 1 || B % Bv != 0) {
+    int device, int dtype, int variant, const void* value, const void* delta,
+    const void* ref, const void* off_q, const void* wq, void* out,
+    const void* order, int Bv, int B, int Lq, int n_img, int S, int H, int D,
+    int L, int P, float inv_base, const int* level_hw, void* stream) {
+  if (L < 1 || L > kMaxLevels || P < 1 || D < 1 || Bv < 1 || B % Bv != 0 ||
+      (dtype != 0 && dtype != 1)) {
     return (int)cudaErrorInvalidValue;
   }
   Levels lv = {};
@@ -182,30 +450,42 @@ extern "C" int mmi_ms_deform_attn_mi_fwd(
     start += lv.h[l] * lv.w[l];
   }
   if (start != S) return (int)cudaErrorInvalidValue;
+  if ((int64_t)B * Lq * H == 0) return 0;
   const uintptr_t addr = reinterpret_cast<uintptr_t>(value) |
                          reinterpret_cast<uintptr_t>(out);
   const int elem = dtype == 0 ? 4 : 2;
-  const int vec = (D % 4 == 0 && addr % (4 * elem) == 0) ? 4 : 1;
-  const int64_t total = (int64_t)B * Lq * H * (D / vec);
-  if (total == 0) return 0;
-  if ((total + kThreads - 1) / kThreads > 0x7fffffffLL) {
-    return (int)cudaErrorInvalidConfiguration;
-  }
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* dl = static_cast<const float*>(delta);
   const float* rf = static_cast<const float*>(ref);
   const float* oq = static_cast<const float*>(off_q);
+  if (variant == 1) {
+    if (addr % 16 != 0 || (int64_t)S * H * D * elem > 0xffffffffLL ||
+        Bv > 65535 || H > 65535) {
+      return (int)cudaErrorInvalidValue;
+    }
+    const int* od = static_cast<const int*>(order);
+    if (dtype == 0)
+      return launch_tiled<float>(value, dl, rf, oq, wq, out, od, Bv, B, Lq,
+                                 n_img, S, H, D, L, P, inv_base, lv, s);
+    return launch_tiled<__nv_bfloat16>(value, dl, rf, oq, wq, out, od, Bv, B,
+                                       Lq, n_img, S, H, D, L, P, inv_base, lv,
+                                       s);
+  }
+  if (variant != 0) return (int)cudaErrorInvalidValue;
+  const int vec = (D % 4 == 0 && addr % (4 * elem) == 0) ? 4 : 1;
+  const int64_t total = (int64_t)B * Lq * H * (D / vec);
+  if ((total + kThreads - 1) / kThreads > 0x7fffffffLL) {
+    return (int)cudaErrorInvalidConfiguration;
+  }
 #define MMI_LAUNCH(V, VEC)                                                    \
   launch<V, VEC>(value, dl, rf, oq, wq, out, Bv, Lq, n_img, S, H, D, L, P,   \
                  inv_base, total, lv, s)
   if (dtype == 0) {
     if (vec == 4) MMI_LAUNCH(float, 4); else MMI_LAUNCH(float, 1);
-  } else if (dtype == 1) {
-    if (vec == 4) MMI_LAUNCH(__nv_bfloat16, 4); else MMI_LAUNCH(__nv_bfloat16, 1);
   } else {
-    return (int)cudaErrorInvalidValue;
+    if (vec == 4) MMI_LAUNCH(__nv_bfloat16, 4); else MMI_LAUNCH(__nv_bfloat16, 1);
   }
 #undef MMI_LAUNCH
   return (int)cudaGetLastError();

@@ -16,7 +16,11 @@ and accumulates in fp32.  The TPU's value slabs, occupancy bit-words and
 query slab have no counterpart: the kernel gathers from ``value`` as it is.
 
 * `ms_deform_attn_mi_cuda` launches ``csrc/ms_deform_attn_mi.cu``
-  (``.launches`` counts its launches);
+  (``.launches`` counts its launches), as the variant `mi_variant` picks:
+  "tiled" (a CTA per image row, head and tile of neighbouring queries of
+  both CFG halves, in `query_tile_order`) where a texel row is a whole
+  number of 16-byte lanes, "flat" elsewhere.  The tiled kernel's 16-byte
+  loads need ``value`` on a 16-byte boundary: a base off it raises;
 * `ms_deform_attn_mi_plain` is the same function in plain PyTorch, summed
   in the kernel's order (images, levels, points, then the four corners);
 * `mmfs_deform_factorized` dispatches by device: every CUDA call launches
@@ -38,8 +42,56 @@ from .cuda_build import (CountedKernel, check_cuda, forbid_grad,
                          load_library, raise_on_error, stream_of)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# the kernel's variants, by the code its C interface takes
+VARIANTS = {"tiled": 1, "flat": 0}  # in the order of preference
+TILE = 8  # the side of a square tile of queries
+MAX_LEVELS = 8  # csrc: kMaxLevels
 
 Shapes = Sequence[Tuple[int, int]]
+
+
+def mi_accepts(variant: str, D: int, dtype: torch.dtype) -> bool:
+    """Whether ``variant`` of ``csrc/ms_deform_attn_mi.cu`` takes head
+    width ``D`` in ``dtype``: "tiled" where a texel row is 1, 2, 4, 8, 16
+    or 32 whole 16-byte lanes (D % 8 == 0 up to 256 in bf16, D % 4 == 0 up
+    to 128 in fp32); "flat" always."""
+    if variant not in VARIANTS:
+        raise ValueError(f"ms_deform_attn_mi: unknown variant {variant!r}")
+    if variant == "flat":
+        return True
+    row = D * torch.empty((), dtype=dtype).element_size()
+    return row % 16 == 0 and row // 16 in (1, 2, 4, 8, 16, 32)
+
+
+def mi_variant(D: int, dtype: torch.dtype) -> str:
+    """The variant that serves a call: "tiled" where `mi_accepts` it, else
+    "flat" (a choice by shape; a variant never retries as another)."""
+    return next(v for v in VARIANTS if mi_accepts(v, D, dtype))
+
+
+def query_tile_order(Lq: int) -> torch.Tensor:
+    """The order in which the tiled kernel takes the queries, ``[Lq]``
+    int64: for a square grid whose side W is a multiple of `TILE` (the
+    UNet's row-major 64, 32, 16 and 8 px maps), `TILE` x `TILE` blocks in
+    row-major block order, each block row-major; otherwise the identity.
+    A CTA takes a run of consecutive entries (64 at the flagship)."""
+    W = int(round(Lq ** 0.5))
+    if W * W != Lq or W % TILE or W == TILE:
+        return torch.arange(Lq)
+    n = W // TILE
+    grid = torch.arange(Lq).reshape(n, TILE, n, TILE)  # [by, i, bx, j]
+    return grid.permute(0, 2, 1, 3).reshape(Lq)
+
+
+_orders = {}
+
+
+def _order_on(Lq: int, device) -> torch.Tensor:
+    key = (Lq, str(device))
+    if key not in _orders:
+        _orders[key] = query_tile_order(Lq).to(device=device,
+                                               dtype=torch.int32)
+    return _orders[key]
 
 
 def build_delta(off_img: torch.Tensor, wi: torch.Tensor, level_shapes: Shapes,
@@ -127,29 +179,39 @@ def ms_deform_attn_mi_plain(value, delta, level_shapes: Shapes, ref, off_q,
 
 def _launch(value, delta, level_shapes: Shapes, ref, off_q, wq,
             inv_base: float) -> torch.Tensor:
-    """Launch the CUDA kernel; raises on input it does not take."""
+    """Launch the CUDA kernel as `mi_variant` picks; raises on input it
+    does not take."""
     name = "ms_deform_attn_mi"
-    check_cuda(name, (value, wq))
-    check_cuda(name, (delta, ref, off_q, value), dtypes=(torch.float32,))
-    forbid_grad(name, value, delta, ref, off_q, wq)
     if wq.dtype != value.dtype:
         raise TypeError(f"{name}: wq dtype {wq.dtype} != value {value.dtype}")
     _check_shapes(value, delta, level_shapes, ref, off_q, wq)
     Bv, n_img, S, H, D = value.shape
     B, Lq, _, P, _ = off_q.shape
     L = len(level_shapes)
+    if L > MAX_LEVELS:
+        raise ValueError(f"{name}: {L} levels > {MAX_LEVELS}")
+    variant = mi_variant(D, value.dtype)
+    # the output, from torch.empty, is aligned as the allocator's blocks
+    if variant == "tiled" and value.data_ptr() % 16:
+        raise ValueError(f"{name}: the tiled kernel needs value on a 16-byte "
+                         "boundary (a misaligned view: pass a copy)")
+    check_cuda(name, (value, wq))
+    check_cuda(name, (delta, ref, off_q, value), dtypes=(torch.float32,))
+    forbid_grad(name, value, delta, ref, off_q, wq)
     fn = load_library("ms_deform_attn_mi").mmi_ms_deform_attn_mi_fwd
-    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6 \
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 7 \
         + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p,
                                 ctypes.c_void_p]
     fn.restype = ctypes.c_int
     out = torch.empty((B, Lq, H * D), dtype=value.dtype, device=value.device)
+    order = _order_on(Lq, value.device) if variant == "tiled" else None
     hw = (ctypes.c_int * (2 * L))(*[s for hw_ in level_shapes for s in hw_])
-    err = fn(value.device.index, _DTYPE_CODE[value.dtype], value.data_ptr(),
-             delta.data_ptr(), ref.data_ptr(), off_q.data_ptr(), wq.data_ptr(),
-             out.data_ptr(), Bv, B, Lq, n_img, S, H, D, L, P, float(inv_base),
-             hw, stream_of(value))
-    raise_on_error(name, err)
+    err = fn(value.device.index, _DTYPE_CODE[value.dtype], VARIANTS[variant],
+             value.data_ptr(), delta.data_ptr(), ref.data_ptr(),
+             off_q.data_ptr(), wq.data_ptr(), out.data_ptr(),
+             None if order is None else order.data_ptr(), Bv, B, Lq, n_img,
+             S, H, D, L, P, float(inv_base), hw, stream_of(value))
+    raise_on_error(f"{name} ({variant})", err)
     return out
 
 

@@ -137,3 +137,21 @@ def flash_edge_case(case, D, rs):
         qs[:, :7] = 9
         kw.update(q_segment_ids=qs, kv_segment_ids=ks)
     return q, k, v, dout, kw
+
+
+def mi_inputs(level_shapes, Lq, n_img, Bv, B, seed):
+    """The inputs of tests/test_pallas_kernel.py's factorised-kernel tests,
+    with the last image masked out through its weight factor and offsets
+    large enough to leave the grid."""
+    rng = np.random.RandomState(seed)
+    H, P, D = 4, 3, 8
+    L = len(level_shapes)
+    hw = sum(h * w for h, w in level_shapes)
+    value = rng.randn(Bv, n_img, hw, H, D).astype(np.float32)
+    off_img = (rng.randn(Bv, n_img, H, P, 2) * 2).astype(np.float32)
+    wi = rng.rand(Bv, n_img, H, L, P).astype(np.float32)
+    wi[:, -1] = 0.0
+    ref = rng.rand(B, Lq, 2).astype(np.float32)
+    off_q = (rng.randn(B, Lq, H, P, 2) * 2).astype(np.float32)
+    wq = rng.rand(B, Lq, H, L, P).astype(np.float32)
+    return value, off_img, wi, ref, off_q, wq

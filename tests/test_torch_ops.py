@@ -43,7 +43,7 @@ from mm_interleaved_tpu_torch.ops.rotary import (
     apply_rotary_embedding, rotary_cos_sin,
 )
 
-from _torch_parity import FLASH_EDGES, close, flash_edge_case, t
+from _torch_parity import FLASH_EDGES, close, flash_edge_case, mi_inputs, t
 
 
 @pytest.mark.parametrize("preset,kwargs", [
@@ -225,24 +225,6 @@ from mm_interleaved_tpu_torch.ops import group_norm as tgn
 from mm_interleaved_tpu_torch.ops import ms_deform_attn_mi as tmi
 
 
-def _mi_inputs(level_shapes, Lq, n_img, Bv, B, seed):
-    """The inputs of tests/test_pallas_kernel.py's factorised-kernel tests,
-    with the last image masked out through its weight factor and offsets
-    large enough to leave the grid."""
-    rng = np.random.RandomState(seed)
-    H, P, D = 4, 3, 8
-    L = len(level_shapes)
-    hw = sum(h * w for h, w in level_shapes)
-    value = rng.randn(Bv, n_img, hw, H, D).astype(np.float32)
-    off_img = (rng.randn(Bv, n_img, H, P, 2) * 2).astype(np.float32)
-    wi = rng.rand(Bv, n_img, H, L, P).astype(np.float32)
-    wi[:, -1] = 0.0
-    ref = rng.rand(B, Lq, 2).astype(np.float32)
-    off_q = (rng.randn(B, Lq, H, P, 2) * 2).astype(np.float32)
-    wq = rng.rand(B, Lq, H, L, P).astype(np.float32)
-    return value, off_img, wi, ref, off_q, wq
-
-
 @pytest.mark.parametrize(
     "level_shapes,Lq,n_img",
     [(((8, 8), (4, 4)), 70, 2), (((16, 16), (8, 8), (4, 4), (2, 2)), 128, 3)],
@@ -251,7 +233,7 @@ def test_mi_plain_matches_factorized_kernel_interpret(level_shapes, Lq,
                                                       n_img):
     """Plain factorised readout against the Pallas kernel in interpret
     mode (atol 1e-5: the same sums in another order)."""
-    value, off_img, wi, ref, off_q, wq = _mi_inputs(level_shapes, Lq, n_img,
+    value, off_img, wi, ref, off_q, wq = mi_inputs(level_shapes, Lq, n_img,
                                                     2, 2, 3)
     base = level_shapes[0][0]
     want = j_mi(jnp.asarray(value), level_shapes, jnp.asarray(ref),
@@ -269,7 +251,7 @@ def test_mi_plain_cfg_shared_image_side():
     """A half-batch image side (query row c*Bv + b reads image row b)
     against `mmfs_deform_factorized_prepared` on the same layout."""
     shapes = ((8, 8), (4, 4))
-    value, off_img, wi, ref, off_q, wq = _mi_inputs(shapes, 70, 2, 2, 4, 7)
+    value, off_img, wi, ref, off_q, wq = mi_inputs(shapes, 70, 2, 2, 4, 7)
     level_vals, jdelta = j_image_side(jnp.asarray(value), shapes,
                                       jnp.asarray(off_img), jnp.asarray(wi),
                                       1.0 / 8)
