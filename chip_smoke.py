@@ -26,7 +26,8 @@ Phases, each of which raises (and exits nonzero) on failure:
    `generate_images` on all 4 target rows, 25 DDPM steps, guidance 3.5:
    images [4, 512, 512, 3], finite, in [0, 1], two seeded runs identical,
    the live rows moved by the MMFS values, and every kernel's launch count
-   equal to the count derived from the config;
+   equal to the count derived from the config (each GroupNorm call, with
+   or without the SiLU, one launch of each of its two kernels);
 7. each kernel against its plain version on the inputs captured at each
    distinct call shape of the path, and at the first call of the tiny
    preset's image path (whose widths take the kernels' CUDA-core variants
@@ -48,8 +49,17 @@ Phases, each of which raises (and exits nonzero) on failure:
    masked for some heads only, no CFG sharing, uniform locations), each
    within one bf16 ulp of its plain version and bit-identical over two
    runs, and a misaligned view refused before any launch at the widths
-   of the Hopper variants; the captured inputs of both saved under
-   ``build/sites/`` for `bench_unet_kernels --sites`;
+   of the Hopper variants; GroupNorm(+SiLU) as the whole op (moments and
+   apply kernels, two launches a call) at every distinct call shape of the
+   UNet and the VAE decoder, each kernel on its own too, within one bf16
+   ulp (fp32: 1e-5) of the plain version and bit-identical over two runs,
+   timed as events, device time by kernel and back to back, and at the
+   `GN_EDGES` shapes (the scalar body, groups straddling vectors, one
+   group, one row, B = 1, a large mean against fp64 with a derived
+   tolerance, a CTA whose last warp is partial, a misaligned view
+   refused); the captured inputs of kernels
+   4 and 7 and GroupNorm saved under ``build/sites/`` for
+   `bench_unet_kernels --sites`;
 8. training: (a) right after phase 3, one `Trainer` step of the tiny preset
    with its image decoder, fp32, on the card against the CPU with the same
    injected draws: loss within 1e-5 relative, every trainable gradient
@@ -76,7 +86,12 @@ Phases, each of which raises (and exits nonzero) on failure:
    fp64 there;
    the bf16 flash backward bit-identical over two runs at UNet attn1
    64 px, and at the `FLASH_EDGES` shapes against fp64 autograd with the
-   sites' tolerances, bit-identical over two runs;
+   sites' tolerances, bit-identical over two runs; the location/weight
+   gradient (kernel 3) bit-identical at every site, read as device time
+   and back to back, and at the `DEFORM_BWD_EDGES` (D = 32, 128, every
+   corner out of bounds, L * P = 9, fp32, the warp body at D = 16 and
+   20, a misaligned value refused); its captured training inputs saved
+   beside phase 7's;
 9. the deformable-kernel benchmark (`mm_interleaved_tpu_torch.
    bench_deform_kernel.run`): the v1 and v4 kernels and kernel 1 at its
    unet and prefill cases, bf16, each timed (median of 25), the v1 and v4
@@ -100,7 +115,7 @@ Phases, each of which raises (and exits nonzero) on failure:
    kernels', beside the bounds of kernels 2 and 3 (the same function) and
    the design's own operation count.
 
-Prints a ``{"kernels": [...]}`` line (all twelve kernels), the
+Prints a ``{"kernels": [...]}`` line (all thirteen kernels), the
 ``nvidia-smi`` name/power line, and last ``{"ok": true, "device":
 {...}}``.  Needs one CUDA card and the
 repository checkout around it; imports no JAX.
@@ -112,6 +127,7 @@ import contextlib
 import copy
 import dataclasses
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -122,7 +138,7 @@ import numpy as np
 # and the run with it, outside the repository checkout or without torch)
 from mm_interleaved_tpu_torch.utils.timing import (
     PEAK_BF16_FLOPS, PEAK_BYTES, PEAK_FP32_FLOPS, device_kernels, device_ms,
-    queued_ms, time_ms)
+    device_ms_by_kernel, queued_ms, time_ms)
 from mm_interleaved_tpu_torch.utils.timing import RUNS as TIMING_RUNS
 from mm_interleaved_tpu_torch.utils.timing import nbytes as _nbytes
 
@@ -152,9 +168,15 @@ KERNELS = {
         plain="attention_plain", source="flash_attention.cu",
         replaces="mm_interleaved_tpu/ops/flash_attention.py:19 "
                  "flash_attention"),
-    "group_norm_silu_apply": dict(
-        module="group_norm", kernel="group_norm_silu_apply_cuda",
-        plain="group_norm_silu_apply_plain", source="group_norm_silu.cu",
+    "group_norm_moments": dict(
+        module="group_norm", kernel="group_norm_moments_cuda",
+        plain="group_norm_moments_plain", source="group_norm_silu.cu",
+        replaces="mm_interleaved_tpu/ops/group_norm.py:157 the moments of "
+                 "group_norm_silu and group_norm (XLA reductions on the TPU, "
+                 "beside the Pallas apply at :74)"),
+    "group_norm_apply": dict(
+        module="group_norm", kernel="group_norm_apply_cuda",
+        plain="group_norm_apply_plain", source="group_norm_silu.cu",
         replaces="mm_interleaved_tpu/ops/group_norm.py:74 "
                  "_apply_silu_kernel"),
     "geglu_fwd": dict(
@@ -203,7 +225,11 @@ KERNELS = {
 # the forward kernels of the inference phases and the backward kernels of
 # the training phase
 FORWARD = ("ms_deform_attn_fwd", "ms_deform_attn_mi_fwd",
-           "flash_attention_fwd", "group_norm_silu_apply", "geglu_fwd")
+           "flash_attention_fwd", "group_norm_moments", "group_norm_apply",
+           "geglu_fwd")
+# the two kernels of every GroupNorm(+SiLU) call, captured and compared as
+# the whole op (`group_norm_cuda`, "group_norm" in the captured cases)
+GN = ("group_norm_moments", "group_norm_apply")
 BACKWARD = ("ms_deform_attn_bwd_value", "ms_deform_attn_bwd_loc_weight",
             "flash_attention_bwd")
 # the benchmark's kernels (phase 9), by their formulation's name there
@@ -341,12 +367,14 @@ def _site_flash(q, k, v, causal=False, **kw):
     return f"Tq{Tq}_Tk{Tk}_H{H}_D{D}"
 
 
-def _site_gn(x, w, b):
-    if x.shape[1] == 64 and x.shape[-1] == 320:
-        return "unet_64px"
-    if x.shape[1] == 512:
-        return "vae_512px"
-    return None
+def _site_gn(x, scale, bias, num_groups, eps, silu):
+    """Every call shape of the whole op (`gn_site_keys` lists the image
+    path's)."""
+    return gn_key(x.shape[0], x.shape[1], x.shape[-1], silu)
+
+
+def gn_key(batch, px, C, silu):
+    return f"b{batch}_{px}px_c{C}_{'silu' if silu else 'norm'}"
 
 
 def _site_geglu(x, w1, b1, w2, b2):
@@ -370,7 +398,7 @@ SITES = {
     "ms_deform_attn_fwd": _site_deform,
     "ms_deform_attn_mi_fwd": _site_mi,
     "flash_attention_fwd": _site_flash,
-    "group_norm_silu_apply": _site_gn,
+    "group_norm": _site_gn,
     "geglu_fwd": _site_geglu,
     "ms_deform_attn_bwd_value": _site_deform_bwd,
     "ms_deform_attn_bwd_loc_weight": _site_deform_bwd,
@@ -390,9 +418,11 @@ WANT_SITES = {
                             "unet_attn1_16px", "unet_attn1_8px",
                             "unet_attn2_64px", "unet_attn2_32px",
                             "unet_attn2_16px", "unet_attn2_8px", TINY],
-    "group_norm_silu_apply": ["unet_64px", "vae_512px", TINY],
     "geglu_fwd": ["C320", "C640", TINY],
 }
+# where a capture wraps a whole op rather than a kernel's wrapper: name ->
+# (module under ops/, attribute)
+CAPTURE_AT = {"group_norm": ("group_norm", "group_norm_cuda")}
 _DEFORM_TRAIN = ["injector", "extractor", "mmfs_llm", "unet_64px",
                  "unet_32px", "unet_16px", "unet_8px", TINY]
 WANT_SITES.update({
@@ -416,9 +446,13 @@ def capture(names, cases, site=None):
     first call alone."""
     import torch
 
+    import importlib
+
     saved = []
     for name in names:
-        mod, attr = kmod(name), KERNELS[name]["kernel"]
+        mod_name, attr = CAPTURE_AT.get(name) or (KERNELS[name]["module"],
+                                                  KERNELS[name]["kernel"])
+        mod = importlib.import_module(f"mm_interleaved_tpu_torch.ops.{mod_name}")
         orig = getattr(mod, attr)
         site_of = SITES[name] if site is None else (lambda *a, **k: site)
         store = cases.setdefault(name, {})
@@ -529,7 +563,7 @@ def small_reference(cases) -> dict:
     # the image path: the same prompt, injected draws
     steps = 3
     inp_cpu = cpu.generate_image_inputs(ids, imgs, n_img, att)
-    with capture(list(KERNELS), cases, site=TINY):
+    with capture([*KERNELS, "group_norm"], cases, site=TINY):
         inp_gpu = gpu.generate_image_inputs(*dev[:4])
     inputs_err = max(float((a.cpu().float() - b.float()).abs().max())
                      for a, b in zip(inp_gpu, inp_cpu))
@@ -546,7 +580,7 @@ def small_reference(cases) -> dict:
     kw = dict(num_inference_steps=steps, guidance_scale=2.0)
     img_cpu = generate_images(cpu, *inp_cpu, latents=latents, noises=noises,
                               **kw)
-    with capture(list(KERNELS), cases, site=TINY):
+    with capture([*KERNELS, "group_norm"], cases, site=TINY):
         img_gpu = generate_images(gpu, *inp_gpu, latents=latents.cuda(),
                                   noises=noises.cuda(), **kw).cpu()
     img_err = float((img_gpu - img_cpu).abs().max())
@@ -812,14 +846,108 @@ def encoder_flash_calls(cfg) -> int:
             + len(range(0, p.num_hidden_layers, p.cross_attention_frequency)))
 
 
+def unet_gn_calls(u, batch: int) -> list:
+    """``(batch, px, C, silu)`` of each GroupNorm call of one UNet forward,
+    in order: each ResnetBlock's two norms (with SiLU), each
+    SpatialTransformer's (without), the output norm (with), as
+    `UNet2DConditionModel` builds them."""
+    chans, n, lpb = u.block_out_channels, len(u.block_out_channels), \
+        u.layers_per_block
+    px, ch, skips, calls = u.sample_size, chans[0], [chans[0]], []
+
+    def res(cin, cout):
+        calls.extend([(batch, px, cin, True), (batch, px, cout, True)])
+
+    for i, out in enumerate(chans):
+        for _ in range(lpb):
+            res(ch, out)
+            ch = out
+            if i != n - 1:
+                calls.append((batch, px, ch, False))
+            skips.append(ch)
+        if i != n - 1:
+            px //= 2
+            skips.append(ch)
+    res(ch, ch)
+    calls.append((batch, px, ch, False))
+    res(ch, ch)
+    for i, out in enumerate(reversed(chans)):
+        for _ in range(lpb + 1):
+            res(ch + skips.pop(), out)
+            ch = out
+            if i != 0:
+                calls.append((batch, px, ch, False))
+        if i != n - 1:
+            px *= 2
+    calls.append((batch, px, ch, True))
+    return calls
+
+
+def vae_gn_calls(v, batch: int, size: int, encoder: bool) -> list:
+    """``(batch, px, C, silu)`` of each GroupNorm call of the VAE's encoder
+    (``size``: the image's) or decoder (the latents'), as `sd/vae.py`
+    builds them: each ResnetBlock's two norms, the mid attention's, the
+    output norm."""
+    chans, n, lpb = v.block_out_channels, len(v.block_out_channels), \
+        v.layers_per_block
+    calls = []
+
+    def res(px, cin, cout):
+        calls.extend([(batch, px, cin, True), (batch, px, cout, True)])
+
+    def mid(px, ch):
+        res(px, ch, ch)
+        calls.append((batch, px, ch, False))
+        res(px, ch, ch)
+
+    if encoder:
+        px, ch = size, chans[0]
+        for i, out in enumerate(chans):
+            for _ in range(lpb):
+                res(px, ch, out)
+                ch = out
+            if i != n - 1:
+                px //= 2
+        mid(px, ch)
+    else:
+        px, ch = size, chans[-1]
+        mid(px, ch)
+        for i, out in enumerate(reversed(chans)):
+            for _ in range(lpb + 1):
+                res(px, ch, out)
+                ch = out
+            if i != n - 1:
+                px *= 2
+    calls.append((batch, px, ch, True))
+    return calls
+
+
+def _chunks(batch: int, mini: int) -> int:
+    return batch // mini if 0 < mini < batch and batch % mini == 0 else 1
+
+
+def image_gn_calls(cfg, rows: int) -> tuple:
+    """(the GroupNorm calls of one denoise step, of the VAE decode) of
+    `generate_images` over ``rows`` image rows with CFG."""
+    idc = cfg.image_decoder
+    chunks = _chunks(rows, idc.vae_decode_mini_bs)
+    return (unet_gn_calls(idc.unet, 2 * rows),
+            vae_gn_calls(idc.vae, rows // chunks, idc.latent_size, False)
+            * chunks)
+
+
+def gn_site_keys(cfg, rows: int) -> list:
+    """The distinct GroupNorm call shapes of the image path."""
+    step, vae = image_gn_calls(cfg, rows)
+    return sorted({gn_key(*c) for c in step + vae})
+
+
 def expected_image_launches(cfg, steps: int, rows: int) -> dict:
     """Each kernel's launches for `generate_image_inputs` + one
     `generate_images` call, derived from the config."""
     idc = cfg.image_decoder
-    u, v = idc.unet, idc.vae
-    n = len(u.block_out_channels)
+    u = idc.unet
     lpb = u.layers_per_block
-    resnets = n * lpb + 2 + n * (lpb + 1)
     # SpatialTransformer widths: every down block but the last, the mid
     # block, every up block but the first
     widths = ([ch for ch in u.block_out_channels[:-1] for _ in range(lpb)]
@@ -828,10 +956,7 @@ def expected_image_launches(cfg, steps: int, rows: int) -> dict:
                  for _ in range(lpb + 1)])
     geglu_blocks = sum(1 for ch in widths if ch <= 640)
     mmfs_blocks = len(u.down_residual_spec()[0]) + 1
-    mini = idc.vae_decode_mini_bs
-    chunks = rows // mini if 0 < mini < rows and rows % mini == 0 else 1
-    nv = len(v.block_out_channels)
-    vae_resnets = 2 + nv * (v.layers_per_block + 1)
+    step_gn, vae_gn = image_gn_calls(cfg, rows)
     n_cross = cfg.llm.num_hidden_layers // cfg.llm.cross_attention_frequency
     adapter = cfg.visual.encoder
     return {
@@ -842,8 +967,8 @@ def expected_image_launches(cfg, steps: int, rows: int) -> dict:
                                 + cfg.llm.num_hidden_layers
                                 + idc.perceiver.num_hidden_layers
                                 + 2 * len(widths) * steps),
-        "group_norm_silu_apply": ((2 * resnets + 1) * steps
-                                  + (2 * vae_resnets + 1) * chunks),
+        # each GroupNorm(+SiLU) call: one moments and one apply launch
+        **dict.fromkeys(GN, len(step_gn) * steps + len(vae_gn)),
         "geglu_fwd": geglu_blocks * steps,
         # inference records no graph: no backward kernel runs; the
         # benchmark's kernels serve the benchmark alone
@@ -852,10 +977,10 @@ def expected_image_launches(cfg, steps: int, rows: int) -> dict:
 
 
 def unet_counts(cfg):
-    """(ResnetBlocks, SpatialTransformers, MMFS blocks) of the UNet."""
+    """(SpatialTransformers, MMFS blocks) of the UNet."""
     u = cfg.image_decoder.unet
     n, lpb = len(u.block_out_channels), u.layers_per_block
-    return (n * lpb + 2 + n * (lpb + 1), (n - 1) * lpb + 1 + (n - 1) * (lpb + 1),
+    return ((n - 1) * lpb + 1 + (n - 1) * (lpb + 1),
             len(u.down_residual_spec()[0]) + 1)
 
 
@@ -868,15 +993,17 @@ def expected_train_launches(cfg, images: int) -> dict:
     backward; the VAE encodes without gradient; the fused GEGLU and the
     factorised MMFS kernel serve inference alone."""
     idc = cfg.image_decoder
-    resnets, transformers, mmfs_blocks = unet_counts(cfg)
+    transformers, mmfs_blocks = unet_counts(cfg)
     adapter = cfg.visual.encoder
     n_cross = cfg.llm.num_hidden_layers // cfg.llm.cross_attention_frequency
     llm_r = 2 if cfg.llm.remat else 1
     unet_r = 2 if idc.unet.remat else 1
-    mini = idc.vae_encode_mini_bs
-    chunks = images // mini if 0 < mini < images and images % mini == 0 else 1
-    vae = idc.vae
-    enc_resnets = len(vae.block_out_channels) * vae.layers_per_block + 2
+    chunks = _chunks(images, idc.vae_encode_mini_bs)
+    # the UNet's norms but the output norm sit in its remat'd blocks; the
+    # VAE encodes without gradient
+    gn = ((len(unet_gn_calls(idc.unet, images)) - 1) * unet_r + 1
+          + len(vae_gn_calls(idc.vae, images // chunks, idc.image_size,
+                             True)) * chunks)
     deform = 2 * adapter.num_interactions + adapter.extra_extractors \
         + n_cross + mmfs_blocks
     flash = (encoder_flash_calls(cfg) + cfg.llm.num_hidden_layers
@@ -887,8 +1014,7 @@ def expected_train_launches(cfg, images: int) -> dict:
         "flash_attention_fwd": flash
         + (llm_r - 1) * cfg.llm.num_hidden_layers
         + (unet_r - 1) * 2 * transformers,
-        "group_norm_silu_apply": (2 * resnets * unet_r + 1
-                                  + (2 * enc_resnets + 1) * chunks),
+        **dict.fromkeys(GN, gn),
         "geglu_fwd": 0,
         "ms_deform_attn_bwd_value": deform,
         "ms_deform_attn_bwd_loc_weight": deform,
@@ -930,17 +1056,23 @@ def run_image_slice(model, device: str, cases) -> dict:
         t2 = time.perf_counter()
         return out, mask, (t1 - t0) * 1e3, (t2 - t1) * 1e3
 
-    with capture([k for k in FORWARD if k != "ms_deform_attn_fwd"], cases):
+    rows = B * N_IMG
+    with capture([k for k in FORWARD if k not in ("ms_deform_attn_fwd", *GN)]
+                 + ["group_norm"], cases):
         run(2)
     for name in FORWARD:
-        check_sites(name, cases)
+        if name not in GN:
+            check_sites(name, cases)
+    want = sorted(gn_site_keys(cfg, rows) + [TINY])
+    if sorted(cases["group_norm"]) != want:
+        raise AssertionError(f"group_norm: captured sites "
+                             f"{sorted(cases['group_norm'])} != {want}")
 
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     images1, mask, inputs_ms, gen_ms = run(IMG_STEPS)
     launches = read_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    rows = images1.shape[0]
     expected = expected_image_launches(cfg, IMG_STEPS, rows)
     if launches != expected:
         raise AssertionError(f"image slice launches {launches} != "
@@ -1046,6 +1178,7 @@ def run_training(device: str, cases) -> dict:
 
     cfg = flagship_config(max_num_images=N_IMG)
     optim = OptimConfig(warmup_steps=0)
+    held_gb = torch.cuda.memory_allocated() / 1e9  # earlier phases' inputs
     t0 = time.perf_counter()
     model = build_model(cfg, device, torch.bfloat16, seed=SEED, optim=optim)
     perturb_zero_inits(model, SEED + 1)
@@ -1137,7 +1270,8 @@ def run_training(device: str, cases) -> dict:
     return dict(metrics=metrics, step_ms=[ms1, ms2, ms3],
                 first_run=m_first, loss_rel=loss_rel, grad_norm_rel=gn_rel,
                 update_rel=upd_rel, launches=launches, expected=expected,
-                peak_gb=peak_gb, moved=moved, trainable=n_train,
+                peak_gb=peak_gb, held_gb=held_gb, moved=moved,
+                trainable=n_train,
                 device_ms=device_ms, busy=device_ms / ms2,
                 profiled_launches=n_launch,
                 top=[dict(kernel=k[:80], ms=round(v, 3)) for k, v in top[:14]])
@@ -1187,11 +1321,6 @@ def work_flash(args, kw, out):
     return flops, _nbytes(q, k, v, out), PEAK_BF16_FLOPS
 
 
-def work_gn(args, kw, out):
-    x, w, b = args
-    return 6 * x.numel(), _nbytes(x, w, b, out), PEAK_FP32_FLOPS
-
-
 def work_mi(args, kw, out):
     from mm_interleaved_tpu_torch.bench_unet_kernels import mi_work
 
@@ -1208,7 +1337,6 @@ WORK = {
     "ms_deform_attn_fwd": work_deform,
     "ms_deform_attn_mi_fwd": work_mi,
     "flash_attention_fwd": work_flash,
-    "group_norm_silu_apply": work_gn,
     "geglu_fwd": work_geglu,
 }
 # kernels whose sites are also timed as device time under torch.profiler
@@ -1238,7 +1366,6 @@ CAST = {
     "ms_deform_attn_fwd": (0, 2, 3),
     "ms_deform_attn_mi_fwd": (0, 5),
     "flash_attention_fwd": (0, 1, 2),
-    "group_norm_silu_apply": (0,),
     "geglu_fwd": (0, 1, 2, 3, 4),
 }
 
@@ -1791,19 +1918,374 @@ def check_mi_edges() -> list:
     return recs
 
 
-def save_sites(cases) -> str:
-    """The captured flagship inputs of kernels 4 and 7, for
-    `bench_unet_kernels --sites` in a process of its own; returns the
-    path (under the git-ignored build directory)."""
+def compare_group_norm(sites_cases, want) -> dict:
+    """GroupNorm(+SiLU) at each captured call shape ``want`` of the image
+    path and at ``tiny``, in bf16 and fp32, through `group_norm_cuda` (the
+    two kernels): two launches a call, the output within one bf16 ulp at
+    its scale (fp32: 1e-5 of it) of the plain version, and two runs
+    bit-identical; then each kernel on its own: the moments kernel's
+    ``wb`` within 1e-5 of the plain moments' scale (fp32 sums of the same
+    values in another order), the apply kernel on the plain ``wb`` within
+    the whole op's tolerance.  Each kernel and the whole op timed beside
+    the plain version's (CUDA events), the whole op also as device time by
+    kernel and back to back, and without the SiLU beside `F.group_norm`
+    on the same input (one PyTorch call computing GroupNorm).  Every failure is gathered; the phase fails
+    after the last site.  Returns each kernel's site records."""
+    import torch
+    import torch.nn.functional as F
+
+    from mm_interleaved_tpu_torch.ops import group_norm as gm
+
+    moments, apply = (kernel_of(n) for n in GN)
+    out, fails = {n: [] for n in GN}, []
+    for site in want:
+        (x, scale, bias, G, eps, silu), _ = sites_cases[site]
+        base = dict(site=site, shapes=[list(x.shape)], groups=G, silu=silu)
+        recs = {n: dict(base) for n in GN}
+        for dt, tag in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+            xa = x.to(dt)
+            N = xa.numel() // (xa.shape[0] * xa.shape[-1])
+            plan = gm.gn_plan(xa.shape[0], N, xa.shape[-1], dt)
+
+            def whole(xa=xa):
+                return gm.group_norm_cuda(xa, scale, bias, G, eps, silu)
+
+            def plain_whole(xa=xa):
+                return gm.group_norm_plain(xa, scale, bias, G, eps, silu)
+
+            with torch.inference_mode():
+                before = moments.launches + apply.launches
+                y = whole()
+                launched = moments.launches + apply.launches - before
+                again = whole()
+                want_y = plain_whole()
+                wb = moments(xa, scale, bias, G, eps)
+                wb_plain = gm.group_norm_moments_plain(xa, scale, bias, G,
+                                                       eps)
+                ya = apply(xa, wb_plain, silu)
+                ya_plain = gm.group_norm_apply_plain(xa, wb_plain, silu)
+                torch.cuda.synchronize()
+            scale_y = float(want_y.float().abs().max())
+            tol = (_ulps(scale_y) if tag == "bf16"
+                   else 1e-5 * max(scale_y, 1.0))
+            errs = dict(
+                whole=float((y.float() - want_y.float()).abs().max()),
+                moments=float((wb - wb_plain).abs().max()),
+                apply=float((ya.float() - ya_plain.float()).abs().max()))
+            tols = dict(whole=tol, apply=tol, moments=1e-5 * max(
+                float(wb_plain.abs().max()), 1.0))
+            for key in errs:
+                if not errs[key] <= tols[key]:
+                    fails.append(f"group_norm {site} {tag} {key}: "
+                                 f"{errs[key]} > {tols[key]}")
+            same = bool(torch.equal(y, again))
+            if not same:
+                fails.append(f"group_norm {site} {tag}: two runs differ")
+            if launched != 2:
+                fails.append(f"group_norm {site} {tag}: {launched} launches "
+                             "a call")
+            m, a = recs["group_norm_moments"], recs["group_norm_apply"]
+            m.update({f"plan_{tag}": list(plan), f"launches_a_call_{tag}":
+                      launched, f"bit_identical_{tag}": same,
+                      f"whole_op_err_{tag}": errs["whole"],
+                      f"whole_op_tol_{tag}": tol,
+                      f"max_abs_err_{tag}": errs["moments"],
+                      f"tol_{tag}": tols["moments"]})
+            a.update({f"max_abs_err_{tag}": errs["apply"],
+                      f"tol_{tag}": tol})
+            with torch.inference_mode():
+                m[f"ms_{tag}"] = time_ms(lambda: moments(xa, scale, bias, G,
+                                                         eps))
+                m[f"plain_ms_{tag}"] = time_ms(
+                    lambda: gm.group_norm_moments_plain(xa, scale, bias, G,
+                                                        eps))
+                a[f"ms_{tag}"] = time_ms(lambda: apply(xa, wb_plain, silu))
+                a[f"plain_ms_{tag}"] = time_ms(
+                    lambda: gm.group_norm_apply_plain(xa, wb_plain, silu))
+                m[f"whole_op_ms_{tag}"] = time_ms(whole)
+                m[f"whole_op_plain_ms_{tag}"] = time_ms(plain_whole)
+                if tag == "bf16":
+                    n_el = xa.numel()
+                    for r, (flops, nbytes) in (
+                            (m, (3 * n_el, _nbytes(xa, scale, bias, wb))),
+                            (a, (6 * n_el, _nbytes(xa, wb, y)))):
+                        r["ops_ms"], r["bytes_ms"] = _bound(
+                            flops, nbytes, PEAK_FP32_FLOPS)
+                        r["bound_ms"] = max(r["ops_ms"], r["bytes_ms"])
+                        r["bound_by"] = ("operations" if r["ops_ms"]
+                                         > r["bytes_ms"] else "bytes")
+                        r["library_ms"] = None
+                    m["whole_op_bound_ms"] = max(_bound(
+                        6 * n_el, _nbytes(xa, scale, bias, y),
+                        PEAK_FP32_FLOPS))
+                    by_kernel = device_ms_by_kernel(whole)
+                    for r, key in ((m, "gn_moments"), (a, "gn_apply")):
+                        r["device_ms"] = (None if by_kernel is None else sum(
+                            ms for k, ms in by_kernel.items() if key in k))
+                    m["queued_ms"] = queued_ms(lambda: moments(
+                        xa, scale, bias, G, eps))
+                    a["queued_ms"] = queued_ms(lambda: apply(xa, wb_plain,
+                                                             silu))
+                    m["whole_op_device_ms"] = (None if by_kernel is None
+                                               else sum(by_kernel.values()))
+                    m["whole_op_queued_ms"] = queued_ms(whole)
+                    # GroupNorm without the SiLU is one PyTorch call (the
+                    # yardstick; the port never calls it)
+                    m["whole_op_library_ms"] = None if silu else time_ms(
+                        lambda: F.group_norm(xa.permute(0, 3, 1, 2), G,
+                                             scale, bias, eps))
+            del y, again, want_y, wb, wb_plain, ya, ya_plain, xa
+        for n in GN:
+            out[n].append(recs[n])
+            log(f"kernel vs plain, {n} {site}: {json.dumps(recs[n])}")
+        torch.cuda.empty_cache()
+    if fails:
+        raise AssertionError(f"{len(fails)} failed checks: {fails}")
+    return out
+
+
+def whole_op_sums(sites) -> dict:
+    """The whole GroupNorm op's times summed over the captured flagship
+    sites (bf16), beside its bound, from the moments kernel's records."""
+    main = [s for s in sites if s["site"] != TINY]
+    dev = [s["whole_op_device_ms"] for s in main]
+    return dict(
+        ms=sum(s["whole_op_ms_bf16"] for s in main),
+        plain_ms=sum(s["whole_op_plain_ms_bf16"] for s in main),
+        bound_ms=sum(s["whole_op_bound_ms"] for s in main),
+        device_ms=None if None in dev else sum(dev),
+        queued_ms=sum(s["whole_op_queued_ms"] for s in main),
+        launches_a_call=max(s["launches_a_call_bf16"] for s in sites))
+
+
+def gn_f64(x, scale, bias, G, eps, silu):
+    """The plain version's formula, E[x^2] - E[x]^2 included, in fp64."""
     import torch
 
+    B, C = x.shape[0], x.shape[-1]
+    xd = x.double().reshape(B, -1, C)
+    cpg = C // G
+    n = xd.shape[1] * cpg
+    mean = xd.sum(1).reshape(B, G, cpg).sum(-1) / n
+    var = (xd * xd).sum(1).reshape(B, G, cpg).sum(-1) / n - mean * mean
+    w = scale.double() * torch.rsqrt(var + eps).repeat_interleave(cpg, -1)
+    b = bias.double() - mean.repeat_interleave(cpg, -1) * w
+    t = xd * w[:, None] + b[:, None]
+    y = t * torch.sigmoid(t) if silu else t
+    return y.reshape(x.shape), t, w, mean, var, n
+
+
+# Shapes no captured site has, which the two GroupNorm kernels' layout (a
+# thread a 16-byte column vector, a CTA R row groups, the chunks of a
+# batch folded by its last CTA) makes risky: name: (B, px, C, groups,
+# dtype, mean, the vector width `gn_plan` must pick).  "large_mean" is
+# fp32 with mean 8 and std 1, where E[x^2] - E[x]^2 cancels; it is held
+# against the same formula in fp64 (`check_gn_edges` states its tolerance)
+GN_EDGES = {
+    "scalar_c20": (2, 16, 20, 4, "bfloat16", 0.0, 1),
+    "straddle_c320_g32": (2, 24, 320, 32, "bfloat16", 0.0, 8),
+    "one_group": (2, 16, 64, 1, "bfloat16", 0.0, 8),
+    "one_row": (3, 1, 320, 32, "bfloat16", 0.0, 8),
+    "b1": (1, 32, 128, 32, "bfloat16", 0.0, 8),
+    "large_mean": (2, 32, 320, 32, "float32", 8.0, 4),
+    # 504 threads (21 vectors x 24 row groups): 15 whole warps and one of
+    # 24 lanes, fewer whole warps than groups
+    "c192_g16": (2, 16, 192, 16, "bfloat16", 0.0, 8),
+    "c192_g32": (2, 16, 192, 32, "bfloat16", 0.0, 8),
+}
+
+
+def check_gn_edges() -> list:
+    """Each `GN_EDGES` case with and without the SiLU, scale and bias in
+    bf16 as the model keeps them: the vector width as listed, two runs
+    bit-identical, and the output within one bf16 ulp at its scale of the
+    plain version (fp32: 1e-5).  "large_mean": the kernels and the plain
+    version each against `gn_f64`, within a tolerance derived from the fp32
+    rounding of s2: with u = 2^-24 and n = N * C / G terms a group, the
+    sums carry about 4 sqrt(n) u of relative error (random rounding, four
+    standard deviations), so var is off by dv = 4 sqrt(n) u E[x^2] and the
+    mean by dm = 4 sqrt(n) u |mean|, and y by at most 1.1 (max|t| dv /
+    (2 (var + eps)) + max|w| dm), 1.1 the steepest slope of the SiLU.  A
+    view of x off a 16-byte boundary at the vector widths is refused by
+    both kernels before any launch.  Every failure is gathered; the phase
+    fails after the last case."""
+    import torch
+
+    from mm_interleaved_tpu_torch.ops import group_norm as gm
+
+    recs, fails = [], []
+    for i, (name, (B_, px, C, G, dt, mean, width)) in enumerate(
+            GN_EDGES.items()):
+        rng = np.random.RandomState(SEED + 400 + i)
+        dt = getattr(torch, dt)
+        x = torch.tensor(rng.randn(B_, px, px, C) + mean, dtype=dt,
+                         device="cuda")
+        scale, bias = (torch.tensor(a, dtype=torch.bfloat16, device="cuda")
+                       for a in (1 + 0.1 * rng.randn(C), 0.1 * rng.randn(C)))
+        plan = gm.gn_plan(B_, px * px, C, dt)
+        rec = dict(case=name, x=list(x.shape), groups=G, dtype=str(dt),
+                   plan=list(plan))
+        if plan[0] != width:
+            fails.append(f"gn edge {name}: width {plan[0]} != {width}")
+        for silu in (True, False):
+            tag = f"gn edge {name} silu={silu}"
+            with torch.inference_mode():
+                got = gm.group_norm_cuda(x, scale, bias, G, 1e-6, silu)
+                again = gm.group_norm_cuda(x, scale, bias, G, 1e-6, silu)
+                want = gm.group_norm_plain(x, scale, bias, G, 1e-6, silu)
+                torch.cuda.synchronize()
+            r = rec.setdefault("silu" if silu else "norm", {})
+            if mean:
+                ref, t, w, mu, var, n = gn_f64(x, scale, bias, G, 1e-6, silu)
+                u = 2.0 ** -24
+                e2 = float((var + mu * mu).max())
+                dv = 4 * n ** 0.5 * u * e2
+                dm = 4 * n ** 0.5 * u * float(mu.abs().max())
+                tol = 1.1 * (float(t.abs().max()) * dv
+                             / (2 * (float(var.min()) + 1e-6))
+                             + float(w.abs().max()) * dm)
+                r.update(tol=tol, bit_identical=bool(torch.equal(got,
+                                                                 again)))
+                for who, y in (("kernels", got), ("plain", want)):
+                    r[f"err_{who}"] = float((y.double() - ref).abs().max())
+                    if not r[f"err_{who}"] <= tol:
+                        fails.append(f"{tag} {who} vs fp64: "
+                                     f"{r[f'err_{who}']} > {tol}")
+                if not r["bit_identical"]:
+                    fails.append(f"{tag}: two runs differ")
+            else:
+                _edge_check(tag, got, again, want, r, fails)
+        if width > 1:
+            with torch.inference_mode():
+                wb = gm.group_norm_moments_plain(x, scale, bias, G, 1e-6)
+                for kname, args in (("group_norm_moments",
+                                     (x, scale, bias, G, 1e-6)),
+                                    ("group_norm_apply", (x, wb, True))):
+                    r = rec.setdefault(kname, {})
+                    _refuses_misaligned(f"gn edge {name} {kname}",
+                                        kernel_of(kname), args, 0, r, fails)
+        recs.append(rec)
+        log(f"group norm edge case: {json.dumps(rec)}")
+    if fails:
+        raise AssertionError(f"{len(fails)} failed checks: {fails}")
+    return recs
+
+
+# Shapes no training site has, which kernel 3's "grouped" body (G lanes a
+# sample, 32 / G samples a warp, a warp a query-head, 32-query CTAs) makes
+# risky, and widths that take the "warp" body: name: (keywords of
+# `deform_bwd_edge_case`, the variant `loc_weight_variant` must pick).
+# Q = 300 fills no whole number of CTAs; "lp_9" has L * P = 9 samples a
+# query-head, not a multiple of the 4 a warp holds at D = 64; "out" puts
+# every corner out of bounds
+DEFORM_BWD_EDGES = {
+    "d16": (dict(D=16), "warp"),
+    "d32": (dict(D=32), "grouped"),
+    "d128": (dict(D=128), "grouped"),
+    "all_corners_out": (dict(out=True), "grouped"),
+    "lp_9": (dict(shapes=((16, 16), (8, 8), (4, 4)), P=3), "grouped"),
+    "fp32": (dict(dtype="float32"), "grouped"),
+    "warp_d20": (dict(D=20), "warp"),
+}
+
+
+def deform_bwd_edge_case(rng, D=64, dtype="bfloat16", shapes=((16, 16),
+                                                              (8, 8)),
+                         P=4, out=False, N=2, Q=300, H=4):
+    """``(value, shapes, loc, w, grad_out)`` on the card: locations uniform
+    over [-0.1, 1.1] (some corners out of bounds), or over [1.6, 3] with
+    ``out`` (every corner)."""
+    import torch
+
+    dt = getattr(torch, dtype)
+    L, S = len(shapes), sum(h * w for h, w in shapes)
+    lo, hi = (1.6, 3.0) if out else (-0.1, 1.1)
+
+    def dev(a):
+        return torch.tensor(a, dtype=dt, device="cuda")
+
+    return (dev(rng.randn(N, S, H, D)), shapes,
+            dev(rng.uniform(lo, hi, (N, Q, H, L, P, 2))),
+            dev(rng.rand(N, Q, H, L, P)), dev(rng.randn(N, Q, H * D)))
+
+
+def check_deform_bwd_edges() -> list:
+    """Kernel 3 at each `DEFORM_BWD_EDGES` case: the variant as listed, the
+    location and weight gradients against autograd through the plain
+    version in fp32 with phase 8c's tolerances (2 bf16 ulps at each
+    gradient's scale; fp32 1e-5 of it), exact zeros where every corner is
+    out of bounds, two runs bit-identical, and on the grouped body a value
+    off a 16-byte boundary refused before any launch.  Every failure is
+    gathered; the phase fails after the last case."""
+    import torch
+
+    from mm_interleaved_tpu_torch.ops import ms_deform_attn_cuda as dk
+
+    kernel = kernel_of("ms_deform_attn_bwd_loc_weight")
+    recs, fails = [], []
+    for i, (name, (kw, want_variant)) in enumerate(DEFORM_BWD_EDGES.items()):
+        args = deform_bwd_edge_case(np.random.RandomState(SEED + 500 + i),
+                                    **kw)
+        value, shapes, loc, w, go = args
+        rec = dict(case=name, value=list(value.shape), loc=list(loc.shape),
+                   variant=dk.loc_weight_variant(value.shape[-1],
+                                                 value.dtype))
+        if rec["variant"] != want_variant:
+            fails.append(f"deform bwd edge {name}: variant {rec['variant']} "
+                         f"!= {want_variant}")
+        got, again = kernel(*args), kernel(*args)
+        ref = dk.ms_deform_attn_plain_backward(
+            value.float(), shapes, loc.float(), w.float(), go.float())[1:]
+        torch.cuda.synchronize()
+        rec["bit_identical"] = all(bool(torch.equal(a, b))
+                                   for a, b in zip(got, again))
+        if not rec["bit_identical"]:
+            fails.append(f"deform bwd edge {name}: two runs differ")
+        rec["errs"], rec["tols"] = [], []
+        for key, g, r in zip(("d_loc", "d_w"), got, ref):
+            scale = float(r.abs().max())
+            tol = 1e-5 * scale if value.dtype == torch.float32 \
+                else _ulps(scale, 2)
+            err = float((g.double() - r.double()).abs().max())
+            rec["errs"].append(err), rec["tols"].append(tol)
+            if not err <= tol:
+                fails.append(f"deform bwd edge {name} {key}: {err} > {tol}")
+        if kw.get("out"):
+            rec["all_zero"] = all(bool((g == 0).all()) for g in got)
+            if not rec["all_zero"]:
+                fails.append(f"deform bwd edge {name}: nonzero gradient with "
+                             "every corner out of bounds")
+        if rec["variant"] == "grouped":
+            _refuses_misaligned(f"deform bwd edge {name}", kernel, args, 0,
+                                rec, fails)
+        recs.append(rec)
+        log(f"deform bwd edge case: {json.dumps(rec)}")
+    if fails:
+        raise AssertionError(f"{len(fails)} failed checks: {fails}")
+    return recs
+
+
+def sites_dir():
+    """Where the captured flagship inputs go for `bench_unet_kernels
+    --sites` (under the git-ignored build directory): a file a kernel."""
     from mm_interleaved_tpu_torch.ops.cuda_build import BUILD_DIR
 
-    path = BUILD_DIR.parent / "sites" / "unet_sites.pt"
-    path.parent.mkdir(parents=True, exist_ok=True)
-    torch.save({name: {site: args for site, (args, _) in cases[name].items()
-                       if site != TINY}
-                for name in ("geglu_fwd", "ms_deform_attn_mi_fwd")}, path)
+    return BUILD_DIR.parent / "sites"
+
+
+def save_sites(cases, names) -> str:
+    """Write the captured flagship inputs of each of ``names`` to ``<sites
+    dir>/<name>.pt``, on the host; returns the directory.  `main` empties
+    the directory first, so a file there is this run's."""
+    import torch
+
+    path = sites_dir()
+    path.mkdir(parents=True, exist_ok=True)
+    for name in names:
+        torch.save({site: tuple(a.cpu() if isinstance(a, torch.Tensor)
+                                else a for a in args)
+                    for site, (args, _) in cases[name].items()
+                    if site != TINY}, path / f"{name}.pt")
     return str(path)
 
 
@@ -1843,7 +2325,8 @@ def compare_backward(name, sites_cases) -> list:
                                                               fails)
             got = kernel(*a, **kw)
             got = got if isinstance(got, tuple) else (got,)
-            if flash and tag == "bf16" and site == "unet_attn1_64px":
+            if tag == "bf16" and (name == "ms_deform_attn_bwd_loc_weight"
+                                  or flash and site == "unet_attn1_64px"):
                 # no atomics: the same gradients bit for bit
                 again = kernel(*a, **kw)
                 rec["bit_identical"] = all(torch.equal(x, y)
@@ -1898,11 +2381,12 @@ def compare_backward(name, sites_cases) -> list:
                 rec["library_ms"] = (time_ms(sdpa_grad_timer(a, kw))
                                      if name == "flash_attention_bwd"
                                      else None)
+                if flash or name == "ms_deform_attn_bwd_loc_weight":
+                    rec["device_ms"] = device_ms(lambda: kernel(*a, **kw))
+                    rec["queued_ms"] = queued_ms(lambda: kernel(*a, **kw))
                 if flash:
                     lib = sdpa_grad_timer(a, kw)
-                    rec["device_ms"] = device_ms(lambda: kernel(*a, **kw))
                     rec["library_device_ms"] = device_ms(lib)
-                    rec["queued_ms"] = queued_ms(lambda: kernel(*a, **kw))
                     rec["library_queued_ms"] = queued_ms(lib)
             del got, ref, plain, a, fwd
         sites.append(rec)
@@ -2258,6 +2742,8 @@ def main() -> int:
     names = cuda_build.build_all()
     log(f"built {names} in {time.perf_counter() - t0:.1f} s")
 
+    shutil.rmtree(sites_dir(), ignore_errors=True)
+
     # 3. small reference
     cases = {}
     ref = small_reference(cases)
@@ -2311,12 +2797,27 @@ def main() -> int:
     launches = dict(img["launches"])
     launches["ms_deform_attn_fwd"] = res["launches"]["ms_deform_attn_fwd"]
     lines = [kernel_line(name, compare_kernel(name, cases[name]),
-                         launches[name]) for name in FORWARD]
+                         launches[name]) for name in FORWARD
+             if name not in GN]
+    gn = compare_group_norm(cases["group_norm"],
+                            gn_site_keys(cfg, B * N_IMG) + [TINY])
+    lines += [kernel_line(name, gn[name], launches[name]) for name in GN]
     line_of = {line["name"]: line for line in lines}
     line_of["flash_attention_fwd"]["edge_cases"] = check_flash_edges(False)
     line_of["geglu_fwd"]["edge_cases"] = check_geglu_edges()
     line_of["ms_deform_attn_mi_fwd"]["edge_cases"] = check_mi_edges()
-    log(f"captured sites of kernels 4 and 7 saved to {save_sites(cases)}")
+    line_of["group_norm_moments"]["whole_op"] = whole_op_sums(
+        gn["group_norm_moments"])
+    line_of["group_norm_moments"]["edge_cases"] = check_gn_edges()
+    log("captured sites of kernels 4 and 7 and GroupNorm saved to "
+        + save_sites(cases, ("geglu_fwd", "ms_deform_attn_mi_fwd",
+                             "group_norm")))
+    # nothing reads the GroupNorm inputs again (1.6 GB at the flagship's
+    # sites); held through phase 8 they would count in its peak memory
+    freed = sum(a.numel() * a.element_size()
+                for args, _ in cases.pop("group_norm").values()
+                for a in args if isinstance(a, torch.Tensor))
+    log(f"captured GroupNorm inputs freed: {freed / 1e9:.3f} GB")
 
     # 8. the flagship training step, then the backward kernels against
     # their plain versions at the captured shapes
@@ -2325,7 +2826,8 @@ def main() -> int:
     log(f"training: B={B} rows of {PROMPT_LEN} tokens, {B * N_IMG} target "
         f"images at {cfg.image_decoder.image_size} px, {TRAIN_STEPS} AdamW "
         f"steps: {[round(x, 1) for x in tr['step_ms']]} ms/step, peak "
-        f"memory {tr['peak_gb']:.2f} GB; loss {[x['loss'] for x in m]}, "
+        f"memory {tr['peak_gb']:.2f} GB ({tr['held_gb']:.2f} GB held before "
+        f"the build); loss {[x['loss'] for x in m]}, "
         f"loss_txt {[x['loss_txt'] for x in m]}, loss_img "
         f"{[x['loss_img'] for x in m]}, grad_norm "
         f"{[x['grad_norm'] for x in m]}")
@@ -2341,6 +2843,10 @@ def main() -> int:
                           tr["launches"][name]) for name in BACKWARD]
     line_of.update((line["name"], line) for line in lines)
     line_of["flash_attention_bwd"]["edge_cases"] = check_flash_edges(True)
+    line_of["ms_deform_attn_bwd_loc_weight"]["edge_cases"] = \
+        check_deform_bwd_edges()
+    log("captured training sites of kernel 3 saved to "
+        + save_sites(cases, ("ms_deform_attn_bwd_loc_weight",)))
 
     # 9. the deformable-kernel benchmark
     lines += run_bench_phase()

@@ -1,39 +1,52 @@
-"""Kernels 4 and 7 at the flagship's UNet call sites, in a process of their
-own: the multi-image MMFS readout (`ops/ms_deform_attn_mi.py`) and the
-fused GEGLU feed-forward (`ops/geglu.py`).
+"""The UNet's kernels at the flagship's call sites, in a process of their
+own: the multi-image MMFS readout (kernel 4, `ops/ms_deform_attn_mi.py`),
+the fused GEGLU feed-forward (kernel 7, `ops/geglu.py`), GroupNorm and
+GroupNorm+SiLU (`ops/group_norm.py`) and the deformable location/weight
+gradient of the training step (kernel 3, `ops/ms_deform_attn_cuda.py`).
 
     python -m mm_interleaved_tpu_torch.bench_unet_kernels            # card
-    python -m mm_interleaved_tpu_torch.bench_unet_kernels --sites FILE
-    python -m mm_interleaved_tpu_torch.bench_unet_kernels --kernels mi
+    python -m mm_interleaved_tpu_torch.bench_unet_kernels --sites DIR
+    python -m mm_interleaved_tpu_torch.bench_unet_kernels --kernels gn deform_bwd
     python -m mm_interleaved_tpu_torch.bench_unet_kernels --device cpu
 
-The sites are the ones `chip_smoke.py` captures on the flagship's image
-path: GEGLU at C = 320 (x [32768, 320]) and C = 640 ([8192, 640]); the MMFS
+The sites are the ones `chip_smoke.py` captures on the flagship's paths:
+GEGLU at C = 320 (x [32768, 320]) and C = 640 ([8192, 640]); the MMFS
 readout at 64, 32, 16 and 8 px (value [4, 1, 5440, 16, 64] in bf16, the
 queries of both CFG halves, 4 levels x 8 points, two of the four image rows
 masked), plus ``mi_uniform_64px``, the 64 px site with its locations drawn
-uniformly over [-0.1, 1.1] (every corner a random read).  By default their
-inputs are drawn from a numpy ``RandomState(0)`` at those shapes;
-``--sites`` reads the inputs `chip_smoke.py` captured instead (its phase 7
-saves them under ``build/sites/``).
+uniformly over [-0.1, 1.1] (every corner a random read); GroupNorm+SiLU at
+the UNet's ResnetBlock inputs at 64 / 32 / 16 / 8 px (x [8, px, px, C] in
+bf16), the VAE decoder's 512 px site ([4, 512, 512, 128] bf16) and the
+fp32 VAE encode's ([4, 512, 512, 128] fp32, training), and GroupNorm at
+the UNet's SpatialTransformer inputs (``gn``); kernel 3 at the training
+step's UNet MMFS sites, 64 and 32 px (value [4, 5440, 16, 64] bf16, 4096 /
+1024 queries, 4 levels x 8 points, offsets of about 2 texels of level 0;
+``deform_bwd``).  By default their inputs are drawn from a numpy
+``RandomState(0)`` at those shapes; ``--sites`` reads the inputs
+`chip_smoke.py` captured instead (its phases 7 and 8 save them under
+``build/sites/``, a file a kernel), where it has them.
 
-Each kernel, as its wrapper calls it (the variant the wrapper picks by
-shape, logged as ``variant``), is held against the plain version (bf16:
-one ulp at the output's scale) and timed three ways: ``ms``, the median of
-25 synchronised CUDA-event runs; ``device_ms``, the mean device time of 10
-calls under `torch.profiler` (None where the profiler dropped records);
-``queued_ms``, the mean of 25 calls enqueued back to back.  GEGLU also
-gets ``unfused_ms``: two `F.linear` calls around a plain GEGLU, the path of
-the C = 1280 blocks, as a yardstick (the port never calls it at these
-widths).  The MMFS sites also log the spread of their sampling offsets in
-texels per level.  The card's ``nvidia-smi`` name and power line, then one
-JSON row per (kernel, site).
+Each kernel, as its public entry calls it (the variant the wrapper picks
+by shape, logged as ``variant``), is held against the plain version (bf16:
+one ulp at the output's scale; kernel 3 two, as phase 8c holds it) and
+timed three ways: ``ms``, the median of 25 synchronised CUDA-event runs;
+``device_ms``, the mean device time of 10 calls under `torch.profiler`
+(None where the profiler dropped records); ``queued_ms``, the mean of 25
+calls enqueued back to back; ``launches``, the kernels a call launches
+(from the profiler); GroupNorm's apply kernel is also timed after an
+L2 flush (``apply_cold_l2_ms``, beside its time in the op in
+``by_kernel``).  GEGLU also gets ``unfused_ms``: two `F.linear` calls
+around a plain GEGLU, the path of the C = 1280 blocks, as a yardstick (the
+port never calls it at these widths).  The MMFS sites also log the spread
+of their sampling offsets in texels per level.  The card's ``nvidia-smi``
+name and power line, then one JSON row per (kernel, site).
 
-The module needs only the two wrappers, their plain versions and
-`utils/timing.py`, so copied with that into an older checkout of the
-package it measures that checkout's kernels on the same inputs: before
-and after in one call.  ``--device cpu`` runs the plain versions at a tiny
-size and times nothing.
+The module needs only the public entries it times, their plain versions
+and `utils/timing.py`, so copied into an older checkout of the package it
+measures that checkout's code on the same inputs: before and after in one
+call (GroupNorm through `group_norm_silu` / `group_norm`, whatever they
+launch there).  ``--device cpu`` runs the plain versions at a tiny size
+and times nothing.
 """
 
 from __future__ import annotations
@@ -41,6 +54,7 @@ from __future__ import annotations
 import argparse
 import json
 import subprocess
+from pathlib import Path
 from typing import Dict, Optional
 
 import numpy as np
@@ -48,9 +62,11 @@ import torch
 import torch.nn.functional as F
 
 from .ops import geglu as geglu_ops
+from .ops import group_norm as gn_ops
+from .ops import ms_deform_attn_cuda as deform_ops
 from .ops import ms_deform_attn_mi as mi_ops
 from .utils.timing import (PEAK_BF16_FLOPS, PEAK_BYTES, PEAK_FP32_FLOPS,
-                           device_ms, queued_ms, time_ms)
+                           device_kernels, device_ms, queued_ms, time_ms)
 from .utils.timing import nbytes as _nbytes
 
 SEED = 0
@@ -58,8 +74,22 @@ LEVELS = ((64, 64), (32, 32), (16, 16), (8, 8))
 GEGLU = {"C320": (8 * 4096, 320), "C640": (8 * 1024, 640)}
 MI_SITES = {"unet_64px": 4096, "unet_32px": 1024, "unet_16px": 256,
             "unet_8px": 64}
+# GroupNorm sites: (B, px, C, groups, eps, silu, dtype)
+GN = {
+    "unet_64px_c320": (8, 64, 320, 32, 1e-5, True, torch.bfloat16),
+    "unet_32px_c640": (8, 32, 640, 32, 1e-5, True, torch.bfloat16),
+    "unet_16px_c1280": (8, 16, 1280, 32, 1e-5, True, torch.bfloat16),
+    "unet_8px_c1280": (8, 8, 1280, 32, 1e-5, True, torch.bfloat16),
+    "unet_attn_64px_c320": (8, 64, 320, 32, 1e-6, False, torch.bfloat16),
+    "unet_attn_32px_c640": (8, 32, 640, 32, 1e-6, False, torch.bfloat16),
+    "vae_512px_c128": (4, 512, 128, 32, 1e-6, True, torch.bfloat16),
+    "vae_enc_512px_c128_fp32": (4, 512, 128, 32, 1e-6, True, torch.float32),
+}
+DEFORM_BWD = {"unet_64px": 4096, "unet_32px": 1024}
 TINY_GEGLU = {"C64": (40, 64)}
 TINY_MI = {"tiny_16px": 256}
+TINY_GN = {"tiny_8px_c32": (2, 8, 32, 4, 1e-5, True, torch.float32)}
+TINY_DEFORM_BWD = {"tiny_8px": 64}
 
 
 # --------------------------------------------------------------------------
@@ -78,6 +108,33 @@ def geglu_inputs(T: int, C: int, rng, device, dtype=torch.bfloat16):
     return (dev(rng.randn(T, C)), dev(rng.randn(2 * Fh, C), C ** -0.5),
             dev(rng.randn(2 * Fh), 0.1), dev(rng.randn(C, Fh), Fh ** -0.5),
             dev(rng.randn(C), 0.1))
+
+
+def gn_inputs(B, px, C, groups, eps, silu, dtype, rng, device):
+    """``(x, scale, bias, groups, eps, silu)`` of a GroupNorm site: x
+    [B, px, px, C] with a per-channel mean (the input of a norm is a
+    residual stream), scale and bias in bf16 as the model keeps them."""
+    x = rng.randn(B, px, px, C) + rng.randn(C) * 0.5
+    t = lambda a, dt: torch.from_numpy(a.astype(np.float32)).to(
+        device=device, dtype=dt)
+    return (t(x, dtype), t(1 + 0.1 * rng.randn(C), torch.bfloat16),
+            t(0.1 * rng.randn(C), torch.bfloat16), groups, eps, silu)
+
+
+def deform_bwd_inputs(Q, rng, device, shapes=LEVELS, N=4, H=16, D=64, P=8,
+                      dtype=torch.bfloat16):
+    """``(value, shapes, loc, w, grad_out)`` of kernel 3 at a UNet MMFS
+    training site: queries on a square grid, each point offset by about 2
+    texels of level 0 from its query, the same on every level."""
+    L = len(shapes)
+    S = sum(h * w for h, w in shapes)
+    ref = grid_ref(Q)[None, :, None, None, None, :]
+    off = rng.randn(N, Q, H, L, P, 2) * 2 / shapes[0][1]
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a).astype(
+        np.float32)).to(device=device, dtype=dtype)
+    return (t(rng.randn(N, S, H, D)), shapes, t(ref + off),
+            t(rng.rand(N, Q, H, L, P) / (L * P)),
+            t(rng.randn(N, Q, H * D)))
 
 
 def grid_ref(Lq: int) -> np.ndarray:
@@ -201,6 +258,44 @@ def _time(rec, fn, timed):
         rec["queued_ms"] = queued_ms(fn)
 
 
+def launches(fn, runs: int = 5) -> dict:
+    """The kernels one call of ``fn`` launches, and each one's device ms a
+    call, by the profiler."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    by_kernel = device_kernels(prof)
+    return dict(launches=sum(n for _, n in by_kernel.values()) / runs,
+                by_kernel={k[:48]: ms / runs for k, (ms, _) in
+                           by_kernel.items()})
+
+
+def gn_work(args, out):
+    """(flops, bytes, peak) of the whole op: x read once, y written once,
+    scale and bias read; about 6 fp32 operations an element (the moments,
+    the multiply-add, the silu)."""
+    x, scale, bias = args[:3]
+    return 6 * x.numel(), _nbytes(x, scale, bias, out), PEAK_FP32_FLOPS
+
+
+def deform_bwd_work(args, out):
+    """(flops, bytes, peak) of kernel 3, as `chip_smoke.py` counts it: the
+    corners the samples can touch, dOut, the locations and weights read,
+    their gradients written; 8 operations a sample and channel."""
+    value, shapes, loc, w, grad_out = args
+    N, Q, H, L, P, _ = loc.shape
+    D = value.shape[3]
+    samples = N * Q * H * L * P
+    touched = min(value.numel(), 4 * samples * D) * value.element_size()
+    return (8 * samples * D, touched + _nbytes(grad_out, loc, w, *out),
+            PEAK_FP32_FLOPS)
+
+
 def unfused_geglu(x, w1, b1, w2, b2):
     """The C = 1280 blocks' path: two `F.linear` calls around a plain
     GEGLU (the yardstick; the port never calls it on a fused site)."""
@@ -267,8 +362,101 @@ def run_mi(sites: Dict[str, tuple], timed: bool) -> list:
     return rows
 
 
-def synthetic_sites(device, tiny=False):
-    """``(geglu sites, mi sites)`` from one ``RandomState(SEED)``."""
+def _gn_entry(args):
+    """The public entry a GroupNorm site calls."""
+    x, scale, bias, groups, eps, silu = args
+    fn = gn_ops.group_norm_silu if silu else gn_ops.group_norm
+    return lambda: fn(x, scale, bias, groups, eps)
+
+
+def _gn_plain(args):
+    """The plain version: the JAX package's math in plain PyTorch (written
+    out from `group_affine`, which older checkouts have too)."""
+    x, scale, bias, groups, eps, silu = args
+    w, b = gn_ops.group_affine(x, scale, bias, groups, eps)
+    shape = (x.shape[0],) + (1,) * (x.dim() - 2) + (x.shape[-1],)
+    t = x.float() * w.reshape(shape) + b.reshape(shape)
+    return (t * torch.sigmoid(t) if silu else t).to(x.dtype)
+
+
+def run_gn(sites: Dict[str, tuple], timed: bool) -> list:
+    rows = []
+    for site, args in sites.items():
+        x = args[0]
+        rec = dict(kernel="group_norm" + ("_silu" if args[5] else ""),
+                   site=site, shape=list(x.shape), dtype=str(x.dtype),
+                   plan=list(gn_ops.gn_plan(
+                       x.shape[0], x.numel() // (x.shape[0] * x.shape[-1]),
+                       x.shape[-1], x.dtype))
+                   if hasattr(gn_ops, "gn_plan") else None)
+        call = _gn_entry(args)
+        with torch.inference_mode():
+            got, again = call(), call()
+            want = _gn_plain(args)
+            torch.cuda.synchronize()
+            rec["max_abs_err"], rec["tol"] = _err(got, want), _tol(want)
+            rec["bit_identical"] = bool(torch.equal(got, again))
+            rec["ok"] = rec["max_abs_err"] <= rec["tol"] \
+                and rec["bit_identical"]
+            rec["bound_ms"], rec["bound_by"] = bound_ms(*gn_work(args, got))
+            _time(rec, call, timed)
+            rec.update(launches(call))
+            rec["plain_ms"] = time_ms(lambda: _gn_plain(args))
+            apply = getattr(gn_ops, "group_norm_apply_cuda", None)
+            if apply is not None:
+                # the apply pass after 128 MB written (x out of the 50 MB
+                # L2), beside its time in the op, where x was just read
+                wb = gn_ops.group_norm_moments_cuda(*args[:5])
+                flush = torch.empty(2 ** 25, device=x.device)
+                cold = launches(lambda: (flush.zero_(),
+                                         apply(x, wb, args[5])))
+                # None where the profiler dropped the kernel's record
+                read = [ms for k, ms in cold["by_kernel"].items()
+                        if "gn_apply" in k]
+                rec["apply_cold_l2_ms"] = read[0] if read else None
+                del wb, flush
+        rows.append(rec)
+        del got, again, want
+        torch.cuda.empty_cache()
+    return rows
+
+
+def run_deform_bwd(sites: Dict[str, tuple], timed: bool) -> list:
+    kernel = deform_ops.ms_deform_attn_bwd_loc_weight_cuda
+    rows = []
+    for site, args in sites.items():
+        value, shapes, loc, w, grad_out = args
+        pick = getattr(deform_ops, "loc_weight_variant", None)
+        rec = dict(kernel="ms_deform_attn_bwd_loc_weight", site=site,
+                   value=list(value.shape), loc=list(loc.shape),
+                   variant=_variant(pick, value.shape[-1], value.dtype))
+        call = lambda: kernel(*args)
+        with torch.inference_mode():
+            got, again = call(), call()
+        ref = deform_ops.ms_deform_attn_plain_backward(
+            value.float(), shapes, loc.float(), w.float(),
+            grad_out.float())[1:]
+        torch.cuda.synchronize()
+        errs = [_err(g, r) for g, r in zip(got, ref)]
+        tols = [2 * _tol(r.to(loc.dtype)) for r in ref]
+        rec.update(errs=errs, tols=tols,
+                   bit_identical=all(bool(torch.equal(a, b))
+                                     for a, b in zip(got, again)))
+        rec["ok"] = all(e <= t for e, t in zip(errs, tols)) \
+            and rec["bit_identical"]
+        rec["bound_ms"], rec["bound_by"] = bound_ms(
+            *deform_bwd_work(args, got))
+        with torch.inference_mode():
+            _time(rec, call, timed)
+            rec.update(launches(call))
+        rows.append(rec)
+        del got, again, ref
+        torch.cuda.empty_cache()
+    return rows
+
+
+def synthetic_sites(device, tiny=False) -> dict:
+    """Each kernel's sites, from one ``RandomState(SEED)``."""
     rng = np.random.RandomState(SEED)
     geglu = {k: geglu_inputs(T, C, rng, device)
              for k, (T, C) in (TINY_GEGLU if tiny else GEGLU).items()}
@@ -279,14 +467,40 @@ def synthetic_sites(device, tiny=False):
     else:
         mi = {k: mi_inputs(lq, rng, device) for k, lq in MI_SITES.items()}
         mi["mi_uniform_64px"] = mi_inputs(4096, rng, device, uniform=True)
-    return geglu, mi
+    gn = {k: gn_inputs(*shape, rng, device)
+          for k, shape in (TINY_GN if tiny else GN).items()}
+    if tiny:
+        bwd = {k: deform_bwd_inputs(q, rng, device, shapes=((8, 8), (4, 4)),
+                                    N=2, H=2, D=8, P=2, dtype=torch.float32)
+               for k, q in TINY_DEFORM_BWD.items()}
+    else:
+        bwd = {k: deform_bwd_inputs(q, rng, device)
+               for k, q in DEFORM_BWD.items()}
+    return {"geglu": geglu, "mi": mi, "gn": gn, "deform_bwd": bwd}
 
 
-def load_sites(path: str, device):
-    """The captured sites `chip_smoke.py` saved: ``{"geglu_fwd": {site:
-    args}, "ms_deform_attn_mi_fwd": {site: args}}``."""
-    saved = torch.load(path, map_location=device, weights_only=False)
-    return saved["geglu_fwd"], saved["ms_deform_attn_mi_fwd"]
+# the kernels line's names, which name the files of a `--sites` directory
+SAVED = {"geglu": "geglu_fwd", "mi": "ms_deform_attn_mi_fwd",
+         "gn": "group_norm", "deform_bwd": "ms_deform_attn_bwd_loc_weight"}
+
+
+def load_sites(path: str, device, kernels) -> dict:
+    """The captured sites `chip_smoke.py` saved, ``<path>/<kernel name>.pt``
+    each (``{site: args}``); a kernel without its file gets its seeded
+    sites."""
+    seeded = None
+    out = {}
+    for k in kernels:
+        f = Path(path) / f"{SAVED[k]}.pt"
+        if f.exists():
+            out[k] = torch.load(f, map_location=device, weights_only=False)
+        else:
+            seeded = seeded or synthetic_sites(device)
+            out[k] = seeded[k]
+    return out
+
+
+KERNELS = ("geglu", "mi", "gn", "deform_bwd")
 
 
 def run(device="cuda", sites: Optional[str] = None,
@@ -296,25 +510,32 @@ def run(device="cuda", sites: Optional[str] = None,
     timed = device == "cuda"
     if timed and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device")
-    geglu, mi = (load_sites(sites, device) if sites
-                 else synthetic_sites(device, tiny=not timed))
+    cases = (load_sites(sites, device, kernels) if sites
+             else synthetic_sites(device, tiny=not timed))
     if not timed:
-        return [dict(kernel=k, site=s, finite=bool(torch.isfinite(
-            plain(*a).float()).all())) for k, plain, cases in (
-                ("geglu_fwd", geglu_ops.geglu_plain, geglu),
-                ("ms_deform_attn_mi_fwd", mi_ops.ms_deform_attn_mi_plain, mi))
-            for s, a in cases.items()]
-    return ((run_geglu(geglu, timed) if "geglu" in kernels else [])
-            + (run_mi(mi, timed) if "mi" in kernels else []))
+        plain = dict(
+            geglu=("geglu_fwd", lambda a: geglu_ops.geglu_plain(*a)),
+            mi=("ms_deform_attn_mi_fwd",
+                lambda a: mi_ops.ms_deform_attn_mi_plain(*a)),
+            gn=("group_norm", _gn_plain),
+            deform_bwd=("ms_deform_attn_bwd_loc_weight",
+                        lambda a: deform_ops.ms_deform_attn_plain_backward(
+                            *a)[1]))
+        return [dict(kernel=plain[k][0], site=s, finite=bool(
+            torch.isfinite(plain[k][1](a).float()).all()))
+            for k in kernels for s, a in cases[k].items()]
+    runners = dict(geglu=run_geglu, mi=run_mi, gn=run_gn,
+                   deform_bwd=run_deform_bwd)
+    return [row for k in kernels for row in runners[k](cases[k], timed)]
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     ap.add_argument("--sites", default=None,
-                    help="captured inputs saved by chip_smoke.py")
+                    help="directory of the inputs chip_smoke.py captured")
     ap.add_argument("--kernels", nargs="+", default=["geglu", "mi"],
-                    choices=("geglu", "mi"))
+                    choices=KERNELS)
     a = ap.parse_args(argv)
     if a.device == "cuda":
         if not torch.cuda.is_available():

@@ -9,6 +9,10 @@ versions (counterpart of `mm_interleaved_tpu/ops/ms_deform_attn_pallas_v5.py`).
   ``.launches`` (a launch that raises is not counted).  `launch_forward`
   serves every forward of the same C signature: kernel 1 and the
   benchmark's v1 and v4 kernels (`ms_deform_attn_v1`, `ms_deform_attn_v4`).
+  `loc_weight_variant` (a pure function of D and the dtype) picks the
+  location/weight gradient's body: "grouped" (a group of lanes a sample,
+  16-byte loads; a misaligned value or dOut is refused before launch) or
+  "warp" (any D).
 * `MSDeformAttnFunction` is the differentiable op on the card: its forward
   launches the forward kernel, its backward the two backward kernels.  The
   bare forward wrapper refuses a call that autograd records.
@@ -198,29 +202,49 @@ def _launch_bwd_value(value, level_shapes, sampling_locations,
     return grad.to(value.dtype)
 
 
+def loc_weight_variant(D: int, dtype: torch.dtype) -> str:
+    """The location/weight-gradient body for a head width ``D`` of values in
+    ``dtype``: "grouped" where D is 4, 8 or 16 whole 16-byte vectors (a
+    group of that many lanes takes a sample), else "warp" (a warp a sample,
+    any D)."""
+    nbytes = D * (torch.finfo(dtype).bits // 8)
+    if nbytes % 16 == 0 and nbytes // 16 in (4, 8, 16):
+        return "grouped"
+    return "warp"
+
+
 def _launch_bwd_loc_weight(value, level_shapes, sampling_locations,
                            attention_weights, grad_out):
     """Launch the location/weight-gradient kernel; returns ``(d_loc, d_w)``
-    in the dtypes of the locations and weights."""
+    in the dtype of the locations and weights.  The "grouped" body loads
+    16-byte vectors of the value and dOut: there a base off a 16-byte
+    boundary is refused before any launch."""
     name = "ms_deform_attn_bwd_loc_weight"
+    variant = (loc_weight_variant(value.shape[-1], value.dtype)
+               if value.dtype in _DTYPE_CODE else "warp")
+    if variant == "grouped" and (value.data_ptr() % 16
+                                 or grad_out.data_ptr() % 16):
+        raise ValueError(f"{name}: value and grad_out must start on a "
+                         f"16-byte boundary at D = {value.shape[-1]} "
+                         f"({value.dtype})")
     N, S, Q, H, D, L, P = _check(name, value, level_shapes,
                                  sampling_locations, attention_weights,
                                  grad_out)
     fn = load_library("ms_deform_attn_bwd").mmi_ms_deform_attn_bwd_loc_weight
-    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 6 \
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 6 \
         + [ctypes.c_int] * 7 + [ctypes.c_void_p, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     dev = value.device
-    d_loc = torch.empty((N, Q, H, L, P, 2), dtype=torch.float32, device=dev)
-    d_w = torch.empty((N, Q, H, L, P), dtype=torch.float32, device=dev)
-    err = fn(dev.index, _DTYPE_CODE[value.dtype],
-             _DTYPE_CODE[sampling_locations.dtype], value.data_ptr(),
+    dt = sampling_locations.dtype
+    d_loc = torch.empty((N, Q, H, L, P, 2), dtype=dt, device=dev)
+    d_w = torch.empty((N, Q, H, L, P), dtype=dt, device=dev)
+    err = fn(dev.index, _DTYPE_CODE[value.dtype], _DTYPE_CODE[dt],
+             int(variant == "grouped"), value.data_ptr(),
              sampling_locations.data_ptr(), attention_weights.data_ptr(),
              grad_out.data_ptr(), d_loc.data_ptr(), d_w.data_ptr(),
              N, S, Q, H, D, L, P, _level_array(level_shapes), stream_of(value))
     raise_on_error(name, err)
-    return (d_loc.to(sampling_locations.dtype),
-            d_w.to(attention_weights.dtype))
+    return d_loc, d_w
 
 
 ms_deform_attn_cuda = CountedKernel(_launch)

@@ -4,7 +4,7 @@
 * `time_ms`: the median of synchronised CUDA-event runs (host gaps
   included);
 * `device_ms`: device time under `torch.profiler`, the sum of every kernel
-  the call launches;
+  the call launches (`device_ms_by_kernel`: by kernel);
 * `queued_ms`: the mean of calls enqueued back to back between two events
   (the device time where the card is slower than the host's calls, else
   the host's time a call).
@@ -74,14 +74,15 @@ def device_kernels(prof) -> dict:
     return out
 
 
-def device_ms(fn, runs: int = 10, tries: int = 3) -> Optional[float]:
-    """Device time of one call of ``fn``: the time of every kernel it
-    launches under `torch.profiler`, summed over ``runs`` calls, divided by
-    ``runs``.  Unlike a CUDA-event time it leaves out the host's gaps
-    between launches.  The profiler drops kernel records now and then in a
-    long process, so a reading counts only where every kernel was recorded
-    a whole multiple of ``runs`` times; after ``tries`` incomplete readings
-    it returns None."""
+def device_ms_by_kernel(fn, runs: int = 10,
+                        tries: int = 3) -> Optional[dict]:
+    """Device time of one call of ``fn`` by kernel name: the time of each
+    kernel it launches under `torch.profiler`, summed over ``runs`` calls,
+    divided by ``runs``.  Unlike a CUDA-event time it leaves out the host's
+    gaps between launches.  The profiler drops kernel records now and then
+    in a long process, so a reading counts only where every kernel was
+    recorded a whole multiple of ``runs`` times; after ``tries`` incomplete
+    readings it returns None."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -95,6 +96,12 @@ def device_ms(fn, runs: int = 10, tries: int = 3) -> Optional[float]:
         counts = {k[:60]: n for k, (_, n) in by_kernel.items()}
         if by_kernel and all(n > 0 and n % runs == 0
                              for n in counts.values()):
-            return sum(ms for ms, _ in by_kernel.values()) / runs
+            return {k: ms / runs for k, (ms, _) in by_kernel.items()}
         print(f"device_ms: incomplete profiler reading {counts}", flush=True)
     return None
+
+
+def device_ms(fn, runs: int = 10, tries: int = 3) -> Optional[float]:
+    """The sum of `device_ms_by_kernel`, or None."""
+    by_kernel = device_ms_by_kernel(fn, runs, tries)
+    return None if by_kernel is None else sum(by_kernel.values())

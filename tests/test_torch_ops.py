@@ -314,10 +314,11 @@ def test_group_norm_and_silu_match_jax(eps, shape, G):
     bias = (0.1 * rs.randn(shape[-1])).astype(np.float32)
     args_j = (jnp.asarray(x), jnp.asarray(scale), jnp.asarray(bias), G, eps)
     args_t = (t(x), t(scale), t(bias), G, eps)
+    kernels = (tgn.group_norm_moments_cuda, tgn.group_norm_apply_cuda)
+    before = [k.launches for k in kernels]
     close(tgn.group_norm(*args_t), j_gn(*args_j), 0, 1e-5)
-    before = tgn.group_norm_silu_apply_cuda.launches
     close(tgn.group_norm_silu(*args_t), j_gn_silu(*args_j), 0, 1e-5)
-    assert tgn.group_norm_silu_apply_cuda.launches == before
+    assert [k.launches for k in kernels] == before
 
 
 @pytest.mark.parametrize("B,T,C", [(2, 32, 16), (1, 64, 32)])
@@ -382,8 +383,9 @@ def test_new_cuda_wrappers_refuse_cpu_tensors_and_count_nothing():
     x = torch.zeros(1, 4, 4, 8)
     calls = [
         (fa.flash_attention, (x, x, x)),
-        (tgn.group_norm_silu_apply_cuda,
-         (x, torch.zeros(1, 8), torch.zeros(1, 8))),
+        (tgn.group_norm_moments_cuda,
+         (x, torch.zeros(8), torch.zeros(8), 2, 1e-5)),
+        (tgn.group_norm_apply_cuda, (x, torch.zeros(1, 2, 8), True)),
         (tgeglu.geglu_cuda, (torch.zeros(3, 8), torch.zeros(64, 8),
                              torch.zeros(64), torch.zeros(8, 32),
                              torch.zeros(8))),
