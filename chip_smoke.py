@@ -72,9 +72,9 @@ Phases, each of which raises (and exits nonzero) on failure:
    the JAX package freezes them, bf16 compute, fp32 masters in the
    optimizer, remat as configured, ``warmup_steps=0``: optax's first
    update is at count 0) on the phase 5-6 prompt with 512 px targets:
-   step 1 twice from one state (the same loss, the gradient norm and the
-   update within stated tolerances: the value gradient's fp32 atomics sum
-   in varying order), then steps 2 and 3; finite metrics, frozen leaves
+   step 1 twice from one state (the same loss, gradient norm and fp32
+   masters, bit for bit: every kernel of the step sums in a fixed order),
+   then steps 2 and 3; finite metrics, frozen leaves
    bit-identical, every trainable group moved, every kernel's launch count
    equal to the count derived from the config, one step under
    `torch.profiler`; (c) each backward kernel against the plain version's
@@ -86,12 +86,16 @@ Phases, each of which raises (and exits nonzero) on failure:
    fp64 there;
    the bf16 flash backward bit-identical over two runs at UNet attn1
    64 px, and at the `FLASH_EDGES` shapes against fp64 autograd with the
-   sites' tolerances, bit-identical over two runs; the location/weight
-   gradient (kernel 3) bit-identical at every site, read as device time
-   and back to back, and at the `DEFORM_BWD_EDGES` (D = 32, 128, every
-   corner out of bounds, L * P = 9, fp32, the warp body at D = 16 and
-   20, a misaligned value refused); its captured training inputs saved
-   beside phase 7's;
+   sites' tolerances, bit-identical over two runs; the value gradient
+   (kernel 2) and the location/weight gradient (kernel 3) bit-identical at
+   every site, read as device time and back to back; kernel 1 against its
+   plain version at every training site too (bf16 and fp32, bit-identical
+   over two runs); kernels 1, 2 and 3 at the `DEFORM_BWD_EDGES` (D = 32,
+   128, every corner out of bounds, L * P = 9, fp32 values, fp32
+   locations with bf16 values, every sample in one cell, a level whose
+   cell table sits in device memory, the bodies for any D at D = 16 and
+   20, a misaligned view refused), bit-identical over two runs; the
+   captured inputs of kernels 1, 2 and 3 saved beside phase 7's;
 9. the deformable-kernel benchmark (`mm_interleaved_tpu_torch.
    bench_deform_kernel.run`): the v1 and v4 kernels and kernel 1 at its
    unet and prefill cases, bf16, each timed (median of 25), the v1 and v4
@@ -1227,20 +1231,19 @@ def run_training(device: str, cases) -> dict:
     expected = expected_train_launches(cfg, images)
     if launches != expected:
         raise AssertionError(f"training launches {launches} != {expected}")
-    # the two runs of step 1
-    upd_diff = upd_norm = 0.0
-    for x0, x1, x in zip(start, first, opt.masters):
-        x0 = x0.to(device).float()
-        d1 = x1.to(device) - x0
-        d2 = x - x0
-        upd_diff += float((d2 - d1).pow(2).sum())
-        upd_norm += float(d1.pow(2).sum())
-    upd_rel = (upd_diff / upd_norm) ** 0.5
-    loss_rel = abs(m1["loss"] - m_first["loss"]) / abs(m_first["loss"])
-    gn_rel = abs(m1["grad_norm"] - m_first["grad_norm"]) / m_first["grad_norm"]
-    if not (loss_rel <= 1e-6 and gn_rel <= 1e-3 and upd_rel <= 1e-2):
-        raise AssertionError(f"two runs of step 1 differ: loss {loss_rel}, "
-                             f"grad norm {gn_rel}, update {upd_rel}")
+    # the two runs of step 1: the same bits (every kernel sums in a fixed
+    # order)
+    same = dict(loss=m1["loss"] == m_first["loss"],
+                grad_norm=m1["grad_norm"] == m_first["grad_norm"],
+                masters=all(torch.equal(x.cpu(), x1)
+                            for x, x1 in zip(opt.masters, first)))
+    if not all(same.values()):
+        differ = [lab for lab, x, x1 in zip(opt.labels, opt.masters, first)
+                  if not torch.equal(x.cpu(), x1)]
+        raise AssertionError(
+            f"two runs of step 1 differ: {same}; loss {m_first['loss']!r} / "
+            f"{m1['loss']!r}, grad norm {m_first['grad_norm']!r} / "
+            f"{m1['grad_norm']!r}; masters of groups {sorted(set(differ))}")
     m2, ms2 = step()
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -1268,8 +1271,8 @@ def run_training(device: str, cases) -> dict:
     del model, trainer, opt, params
     torch.cuda.empty_cache()
     return dict(metrics=metrics, step_ms=[ms1, ms2, ms3],
-                first_run=m_first, loss_rel=loss_rel, grad_norm_rel=gn_rel,
-                update_rel=upd_rel, launches=launches, expected=expected,
+                first_run=m_first, step1_same=same, launches=launches,
+                expected=expected,
                 peak_gb=peak_gb, held_gb=held_gb, moved=moved,
                 trainable=n_train,
                 device_ms=device_ms, busy=device_ms / ms2,
@@ -1341,7 +1344,8 @@ WORK = {
 }
 # kernels whose sites are also timed as device time under torch.profiler
 # and back to back (phase 7)
-DEVICE_TIMED = ("flash_attention_fwd", "ms_deform_attn_mi_fwd", "geglu_fwd")
+DEVICE_TIMED = ("flash_attention_fwd", "ms_deform_attn_mi_fwd", "geglu_fwd",
+                "ms_deform_attn_fwd")
 
 
 def _geglu_variant(args):
@@ -2171,95 +2175,188 @@ def check_gn_edges() -> list:
     return recs
 
 
-# Shapes no training site has, which kernel 3's "grouped" body (G lanes a
-# sample, 32 / G samples a warp, a warp a query-head, 32-query CTAs) makes
-# risky, and widths that take the "warp" body: name: (keywords of
-# `deform_bwd_edge_case`, the variant `loc_weight_variant` must pick).
-# Q = 300 fills no whole number of CTAs; "lp_9" has L * P = 9 samples a
-# query-head, not a multiple of the 4 a warp holds at D = 64; "out" puts
-# every corner out of bounds
+# Shapes no site has, which the deformable kernels' Hopper bodies make
+# risky, and widths and sizes that take their other bodies: name:
+# (keywords of `deform_bwd_edge_case`, the bodies the pure functions must
+# pick: kernel 1's `forward_variant`, kernel 2's `value_grad_plan` table and
+# body, kernel 3's `loc_weight_variant`).  Q = 300 fills no whole number of
+# CTAs; "lp_9" has L * P = 9 samples a query-head, not a multiple of the 4 a
+# warp holds at D = 64; "all_corners_out" puts every corner out of bounds
+# (every gradient exactly 0); "one_cell" every sample of an (n, h) in one
+# cell (the four texels around it walk 16,384 samples each); a 128 x 128
+# level keeps the value gradient's cell table in device memory; the default
+# two levels walk by group (level 0) and by warp (level 1).
+_HOPPER = dict(fwd="grouped", table="shared", value="grouped",
+               loc_weight="grouped")
+_ANY_D = dict(fwd="channel", table="shared", value="lanes", loc_weight="warp")
 DEFORM_BWD_EDGES = {
-    "d16": (dict(D=16), "warp"),
-    "d32": (dict(D=32), "grouped"),
-    "d128": (dict(D=128), "grouped"),
-    "all_corners_out": (dict(out=True), "grouped"),
-    "lp_9": (dict(shapes=((16, 16), (8, 8), (4, 4)), P=3), "grouped"),
-    "fp32": (dict(dtype="float32"), "grouped"),
-    "warp_d20": (dict(D=20), "warp"),
+    "d16": (dict(D=16), _ANY_D),
+    "d32": (dict(D=32), _HOPPER),
+    "d128": (dict(D=128), _HOPPER),
+    "all_corners_out": (dict(out=True), _HOPPER),
+    "lp_9": (dict(shapes=((16, 16), (8, 8), (4, 4)), P=3), _HOPPER),
+    "fp32": (dict(dtype="float32"), _HOPPER),
+    "fp32_locations": (dict(loc_dtype="float32"), _HOPPER),
+    "warp_d20": (dict(D=20), _ANY_D),
+    "one_cell": (dict(shapes=((16, 16),), one_cell=True, Q=2048, P=8),
+                 _HOPPER),
+    "global_table": (dict(shapes=((128, 128),), N=1, H=2),
+                     dict(_HOPPER, table="global")),
+    "global_table_d20_fp32": (dict(shapes=((128, 128),), N=1, H=2, D=20,
+                                   dtype="float32"),
+                              dict(_ANY_D, table="global")),
 }
 
 
 def deform_bwd_edge_case(rng, D=64, dtype="bfloat16", shapes=((16, 16),
                                                               (8, 8)),
-                         P=4, out=False, N=2, Q=300, H=4):
+                         P=4, out=False, N=2, Q=300, H=4, one_cell=False,
+                         loc_dtype=None):
     """``(value, shapes, loc, w, grad_out)`` on the card: locations uniform
-    over [-0.1, 1.1] (some corners out of bounds), or over [1.6, 3] with
-    ``out`` (every corner)."""
+    over [-0.1, 1.1] (some corners out of bounds), over [1.6, 3] with
+    ``out`` (every corner), or all at (0.37, 0.37) with ``one_cell``;
+    locations and weights in ``loc_dtype`` (default: the values')."""
     import torch
 
     dt = getattr(torch, dtype)
+    lt = getattr(torch, loc_dtype or dtype)
     L, S = len(shapes), sum(h * w for h, w in shapes)
     lo, hi = (1.6, 3.0) if out else (-0.1, 1.1)
+    loc = rng.uniform(lo, hi, (N, Q, H, L, P, 2))
+    if one_cell:
+        loc[:] = 0.37
 
-    def dev(a):
-        return torch.tensor(a, dtype=dt, device="cuda")
+    def dev(a, t=dt):
+        return torch.tensor(a, dtype=t, device="cuda")
 
-    return (dev(rng.randn(N, S, H, D)), shapes,
-            dev(rng.uniform(lo, hi, (N, Q, H, L, P, 2))),
-            dev(rng.rand(N, Q, H, L, P)), dev(rng.randn(N, Q, H * D)))
+    return (dev(rng.randn(N, S, H, D)), shapes, dev(loc, lt),
+            dev(rng.rand(N, Q, H, L, P), lt), dev(rng.randn(N, Q, H * D)))
 
 
 def check_deform_bwd_edges() -> list:
-    """Kernel 3 at each `DEFORM_BWD_EDGES` case: the variant as listed, the
-    location and weight gradients against autograd through the plain
-    version in fp32 with phase 8c's tolerances (2 bf16 ulps at each
-    gradient's scale; fp32 1e-5 of it), exact zeros where every corner is
-    out of bounds, two runs bit-identical, and on the grouped body a value
-    off a 16-byte boundary refused before any launch.  Every failure is
+    """Kernels 1, 2 and 3 at each `DEFORM_BWD_EDGES` case: the bodies and
+    plan as listed; against the plain version in fp32 (its autograd for the
+    gradients) with the sites' tolerances (the output one bf16 ulp at its
+    scale, the gradients 2; fp32 1e-5 of the scale); exact zeros where every
+    corner is out of bounds; two runs bit-identical; and where a body loads
+    16-byte vectors, a view off a 16-byte boundary refused before any launch
+    (kernel 1's value, kernel 2's dOut, kernel 3's value).  Every failure is
     gathered; the phase fails after the last case."""
     import torch
 
     from mm_interleaved_tpu_torch.ops import ms_deform_attn_cuda as dk
 
-    kernel = kernel_of("ms_deform_attn_bwd_loc_weight")
+    k1 = kernel_of("ms_deform_attn_fwd")
+    k2 = kernel_of("ms_deform_attn_bwd_value")
+    k3 = kernel_of("ms_deform_attn_bwd_loc_weight")
     recs, fails = [], []
-    for i, (name, (kw, want_variant)) in enumerate(DEFORM_BWD_EDGES.items()):
+    for i, (name, (kw, want)) in enumerate(DEFORM_BWD_EDGES.items()):
+        tag = f"deform edge {name}"
         args = deform_bwd_edge_case(np.random.RandomState(SEED + 500 + i),
                                     **kw)
         value, shapes, loc, w, go = args
+        N, Q, H, L, P, _ = loc.shape
+        D = value.shape[-1]
+        plan = dk.value_grad_plan(shapes, Q, L, P, D, value.dtype)
         rec = dict(case=name, value=list(value.shape), loc=list(loc.shape),
-                   variant=dk.loc_weight_variant(value.shape[-1],
-                                                 value.dtype))
-        if rec["variant"] != want_variant:
-            fails.append(f"deform bwd edge {name}: variant {rec['variant']} "
-                         f"!= {want_variant}")
-        got, again = kernel(*args), kernel(*args)
-        ref = dk.ms_deform_attn_plain_backward(
-            value.float(), shapes, loc.float(), w.float(), go.float())[1:]
+                   loc_dtype=str(loc.dtype), plan=plan._asdict(),
+                   bodies=dict(fwd=dk.forward_variant(D, value.dtype),
+                               table=plan.table, value=plan.body,
+                               loc_weight=dk.loc_weight_variant(
+                                   D, value.dtype)))
+        if rec["bodies"] != want:
+            fails.append(f"{tag}: bodies {rec['bodies']} != {want}")
+        got = dict(fwd=(k1(*args[:4]), k1(*args[:4])),
+                   value=(k2(*args), k2(*args)),
+                   loc_weight=(k3(*args), k3(*args)))
+        f32 = [x.float() if isinstance(x, torch.Tensor) else x for x in args]
+        ref = dict(fwd=dk.ms_deform_attn_plain(*f32[:4]))
+        ref["value"], d_loc, d_w = dk.ms_deform_attn_plain_backward(*f32)
+        ref["loc_weight"] = (d_loc, d_w)
         torch.cuda.synchronize()
-        rec["bit_identical"] = all(bool(torch.equal(a, b))
-                                   for a, b in zip(got, again))
-        if not rec["bit_identical"]:
-            fails.append(f"deform bwd edge {name}: two runs differ")
-        rec["errs"], rec["tols"] = [], []
-        for key, g, r in zip(("d_loc", "d_w"), got, ref):
-            scale = float(r.abs().max())
-            tol = 1e-5 * scale if value.dtype == torch.float32 \
-                else _ulps(scale, 2)
-            err = float((g.double() - r.double()).abs().max())
-            rec["errs"].append(err), rec["tols"].append(tol)
-            if not err <= tol:
-                fails.append(f"deform bwd edge {name} {key}: {err} > {tol}")
-        if kw.get("out"):
-            rec["all_zero"] = all(bool((g == 0).all()) for g in got)
-            if not rec["all_zero"]:
-                fails.append(f"deform bwd edge {name}: nonzero gradient with "
-                             "every corner out of bounds")
-        if rec["variant"] == "grouped":
-            _refuses_misaligned(f"deform bwd edge {name}", kernel, args, 0,
-                                rec, fails)
+        rec["errs"], rec["tols"], rec["bit_identical"] = {}, {}, {}
+        for k in ("fwd", "value", "loc_weight"):
+            first, again = got[k]
+            first = first if isinstance(first, tuple) else (first,)
+            again = again if isinstance(again, tuple) else (again,)
+            want_k = ref[k] if isinstance(ref[k], tuple) else (ref[k],)
+            rec["bit_identical"][k] = all(bool(torch.equal(a, b))
+                                          for a, b in zip(first, again))
+            if not rec["bit_identical"][k]:
+                fails.append(f"{tag} {k}: two runs differ")
+            errs, tols = [], []
+            for g, r in zip(first, want_k):
+                scale = float(r.abs().max())
+                if value.dtype == torch.float32:
+                    tol = 1e-5 * (max(scale, 1.0) if k == "fwd" else scale)
+                else:
+                    tol = _ulps(scale, 1 if k == "fwd" else 2)
+                err = float((g.double() - r.double()).abs().max())
+                errs.append(err), tols.append(tol)
+                if not err <= tol:
+                    fails.append(f"{tag} {k}: {err} > {tol}")
+                if kw.get("out") and bool((g != 0).any()):
+                    fails.append(f"{tag} {k}: nonzero with every corner "
+                                 "out of bounds")
+            rec["errs"][k], rec["tols"][k] = errs, tols
+        for k, kernel, arg in (("fwd", k1, 0), ("value", k2, 4),
+                               ("loc_weight", k3, 0)):
+            if rec["bodies"][k] == "grouped":
+                sub = {}
+                _refuses_misaligned(f"{tag} {k}", kernel,
+                                    args[:4] if k == "fwd" else args, arg,
+                                    sub, fails)
+                rec[f"misaligned_refused_{k}"] = sub["misaligned_refused"]
         recs.append(rec)
-        log(f"deform bwd edge case: {json.dumps(rec)}")
+        log(f"deform edge case: {json.dumps(rec)}")
+        del got, ref
+    if fails:
+        raise AssertionError(f"{len(fails)} failed checks: {fails}")
+    return recs
+
+
+def check_forward_at_training_sites(sites_cases) -> list:
+    """Kernel 1 at each `_DEFORM_TRAIN` site (value, locations and weights
+    from the captured backward inputs), in bf16 and fp32: against its plain
+    version in the same dtype (one bf16 ulp at the output's scale; fp32
+    1e-5 of it), bit-identical over two runs, timed beside its bound (bf16;
+    events, and device time and back to back at the UNet's 64 and 32 px).
+    The failures are gathered; the phase fails after the last site."""
+    import torch
+
+    mod = kmod("ms_deform_attn_fwd")
+    kernel, plain = kernel_of("ms_deform_attn_fwd"), mod.ms_deform_attn_plain
+    recs, fails = [], []
+    for site in _DEFORM_TRAIN:
+        args, _ = sites_cases[site]
+        rec = dict(site=site, shapes=[list(a.shape) for a in args[:4]
+                                      if isinstance(a, torch.Tensor)])
+        for dt, tag in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+            a = tuple(x.to(dt) if isinstance(x, torch.Tensor) else x
+                      for x in args[:4])
+            with torch.inference_mode():
+                got, again, want = kernel(*a), kernel(*a), plain(*a)
+                torch.cuda.synchronize()
+                scale = float(want.float().abs().max())
+                tol = 1e-5 * max(scale, 1.0) if tag == "fp32" else _ulps(scale)
+                err = float((got.float() - want.float()).abs().max())
+                rec[f"max_abs_err_{tag}"], rec[f"tol_{tag}"] = err, tol
+                rec[f"bit_identical_{tag}"] = bool(torch.equal(got, again))
+                if not err <= tol:
+                    fails.append(f"kernel 1 {site} {tag}: {err} > {tol}")
+                if not rec[f"bit_identical_{tag}"]:
+                    fails.append(f"kernel 1 {site} {tag}: two runs differ")
+                if tag == "bf16":
+                    rec["ms_bf16"] = time_ms(lambda: kernel(*a))
+                    flops, nbytes, rate = WORK["ms_deform_attn_fwd"](a, {},
+                                                                     got)
+                    rec["bound_ms"] = max(_bound(flops, nbytes, rate))
+                    if site in ("unet_64px", "unet_32px"):
+                        rec["device_ms"] = device_ms(lambda: kernel(*a))
+                        rec["queued_ms"] = queued_ms(lambda: kernel(*a))
+            del got, again, want
+        recs.append(rec)
+        log(f"kernel 1 at a training site: {json.dumps(rec)}")
     if fails:
         raise AssertionError(f"{len(fails)} failed checks: {fails}")
     return recs
@@ -2325,10 +2422,10 @@ def compare_backward(name, sites_cases) -> list:
                                                               fails)
             got = kernel(*a, **kw)
             got = got if isinstance(got, tuple) else (got,)
-            if tag == "bf16" and (name == "ms_deform_attn_bwd_loc_weight"
-                                  or flash and site == "unet_attn1_64px"):
-                # no atomics: the same gradients bit for bit
+            if tag == "bf16" and (not flash or site == "unet_attn1_64px"):
+                # no float atomics: the same gradients bit for bit
                 again = kernel(*a, **kw)
+                again = again if isinstance(again, tuple) else (again,)
                 rec["bit_identical"] = all(torch.equal(x, y)
                                            for x, y in zip(got, again))
                 if not rec["bit_identical"]:
@@ -2381,7 +2478,7 @@ def compare_backward(name, sites_cases) -> list:
                 rec["library_ms"] = (time_ms(sdpa_grad_timer(a, kw))
                                      if name == "flash_attention_bwd"
                                      else None)
-                if flash or name == "ms_deform_attn_bwd_loc_weight":
+                if flash or site != TINY:
                     rec["device_ms"] = device_ms(lambda: kernel(*a, **kw))
                     rec["queued_ms"] = queued_ms(lambda: kernel(*a, **kw))
                 if flash:
@@ -2831,8 +2928,8 @@ def main() -> int:
         f"loss_txt {[x['loss_txt'] for x in m]}, loss_img "
         f"{[x['loss_img'] for x in m]}, grad_norm "
         f"{[x['grad_norm'] for x in m]}")
-    log(f"training step 1 twice: loss rel {tr['loss_rel']:.2e}, grad norm "
-        f"rel {tr['grad_norm_rel']:.2e}, update rel {tr['update_rel']:.2e}; "
+    log(f"training step 1 twice, the same bits: "
+        f"{json.dumps(tr['step1_same'])}; "
         f"groups moved {json.dumps(tr['moved'])}; launches "
         f"{json.dumps(tr['launches'])} (derived {json.dumps(tr['expected'])})")
     log(f"one training step (torch.profiler): device time "
@@ -2843,10 +2940,15 @@ def main() -> int:
                           tr["launches"][name]) for name in BACKWARD]
     line_of.update((line["name"], line) for line in lines)
     line_of["flash_attention_bwd"]["edge_cases"] = check_flash_edges(True)
-    line_of["ms_deform_attn_bwd_loc_weight"]["edge_cases"] = \
-        check_deform_bwd_edges()
-    log("captured training sites of kernel 3 saved to "
-        + save_sites(cases, ("ms_deform_attn_bwd_loc_weight",)))
+    line_of["ms_deform_attn_fwd"]["training_sites"] = \
+        check_forward_at_training_sites(cases["ms_deform_attn_bwd_value"])
+    edges = check_deform_bwd_edges()
+    for name in ("ms_deform_attn_fwd", "ms_deform_attn_bwd_value",
+                 "ms_deform_attn_bwd_loc_weight"):
+        line_of[name]["edge_cases"] = edges
+    log("captured sites of kernels 1, 2 and 3 saved to "
+        + save_sites(cases, ("ms_deform_attn_fwd", "ms_deform_attn_bwd_value",
+                             "ms_deform_attn_bwd_loc_weight")))
 
     # 9. the deformable-kernel benchmark
     lines += run_bench_phase()

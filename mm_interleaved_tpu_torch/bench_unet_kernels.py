@@ -1,12 +1,16 @@
 """The UNet's kernels at the flagship's call sites, in a process of their
 own: the multi-image MMFS readout (kernel 4, `ops/ms_deform_attn_mi.py`),
 the fused GEGLU feed-forward (kernel 7, `ops/geglu.py`), GroupNorm and
-GroupNorm+SiLU (`ops/group_norm.py`) and the deformable location/weight
-gradient of the training step (kernel 3, `ops/ms_deform_attn_cuda.py`).
+GroupNorm+SiLU (`ops/group_norm.py`), and the deformable kernels of
+`ops/ms_deform_attn_cuda.py` in the training step: the forward (kernel 1,
+``deform_fwd``), the value gradient (kernel 2, ``deform_value``) and the
+location/weight gradient (kernel 3, ``deform_bwd``).
 
     python -m mm_interleaved_tpu_torch.bench_unet_kernels            # card
     python -m mm_interleaved_tpu_torch.bench_unet_kernels --sites DIR
     python -m mm_interleaved_tpu_torch.bench_unet_kernels --kernels gn deform_bwd
+    python -m mm_interleaved_tpu_torch.bench_unet_kernels \
+        --kernels deform_fwd deform_value deform_bwd
     python -m mm_interleaved_tpu_torch.bench_unet_kernels --device cpu
 
 The sites are the ones `chip_smoke.py` captures on the flagship's paths:
@@ -18,18 +22,21 @@ uniformly over [-0.1, 1.1] (every corner a random read); GroupNorm+SiLU at
 the UNet's ResnetBlock inputs at 64 / 32 / 16 / 8 px (x [8, px, px, C] in
 bf16), the VAE decoder's 512 px site ([4, 512, 512, 128] bf16) and the
 fp32 VAE encode's ([4, 512, 512, 128] fp32, training), and GroupNorm at
-the UNet's SpatialTransformer inputs (``gn``); kernel 3 at the training
-step's UNet MMFS sites, 64 and 32 px (value [4, 5440, 16, 64] bf16, 4096 /
-1024 queries, 4 levels x 8 points, offsets of about 2 texels of level 0;
-``deform_bwd``).  By default their inputs are drawn from a numpy
+the UNet's SpatialTransformer inputs (``gn``); kernels 1, 2 and 3 at the
+training step's UNet MMFS sites, 64 and 32 px (value [4, 5440, 16, 64]
+bf16, 4096 / 1024 queries, 4 levels x 8 points, offsets of about 2 texels
+of level 0), and kernel 1 also at the LLM's one-query MMFS decode
+(``mmfs_decode``: value [4, 1344, 16, 64] bf16, levels 32, 16, 8 px, 8
+points).  By default their inputs are drawn from a numpy
 ``RandomState(0)`` at those shapes; ``--sites`` reads the inputs
 `chip_smoke.py` captured instead (its phases 7 and 8 save them under
 ``build/sites/``, a file a kernel), where it has them.
 
 Each kernel, as its public entry calls it (the variant the wrapper picks
-by shape, logged as ``variant``), is held against the plain version (bf16:
-one ulp at the output's scale; kernel 3 two, as phase 8c holds it) and
-timed three ways: ``ms``, the median of 25 synchronised CUDA-event runs;
+by shape, logged as ``variant``; kernel 2's plan as ``plan``), is held
+against the plain version (bf16: one ulp at the output's scale; kernels 2
+and 3 two, as phase 8c holds them; kernels 1, 2 and 3 also bit-identical
+over two calls) and timed three ways: ``ms``, the median of 25 synchronised CUDA-event runs;
 ``device_ms``, the mean device time of 10 calls under `torch.profiler`
 (None where the profiler dropped records); ``queued_ms``, the mean of 25
 calls enqueued back to back; ``launches``, the kernels a call launches
@@ -86,6 +93,8 @@ GN = {
     "vae_enc_512px_c128_fp32": (4, 512, 128, 32, 1e-6, True, torch.float32),
 }
 DEFORM_BWD = {"unet_64px": 4096, "unet_32px": 1024}
+# the LLM's MMFS at decode: one query, its levels, points and batch
+DECODE = dict(shapes=((32, 32), (16, 16), (8, 8)), N=4, H=16, D=64, P=8)
 TINY_GEGLU = {"C64": (40, 64)}
 TINY_MI = {"tiny_16px": 256}
 TINY_GN = {"tiny_8px_c32": (2, 8, 32, 4, 1e-5, True, torch.float32)}
@@ -296,6 +305,28 @@ def deform_bwd_work(args, out):
             PEAK_FP32_FLOPS)
 
 
+def deform_fwd_work(args, out):
+    """(flops, bytes, peak) of kernel 1, as `chip_smoke.py` counts it: the
+    value texels the samples can touch, the locations, weights and output;
+    8 operations a sample and channel."""
+    value, shapes, loc, w = args[:4]
+    N, Q, H, L, P, _ = loc.shape
+    D = value.shape[3]
+    samples = N * Q * H * L * P
+    touched = min(value.numel(), 4 * samples * D) * value.element_size()
+    return 8 * samples * D, touched + _nbytes(loc, w, out), PEAK_FP32_FLOPS
+
+
+def deform_value_work(args, out):
+    """(flops, bytes, peak) of kernel 2, as `chip_smoke.py` counts it: dOut,
+    the locations and weights read, the value gradient written once; 8
+    operations a sample and channel."""
+    value, shapes, loc, w, grad_out = args
+    N, Q, H, L, P, _ = loc.shape
+    return (8 * N * Q * H * L * P * value.shape[3],
+            _nbytes(grad_out, loc, w, value), PEAK_FP32_FLOPS)
+
+
 def unfused_geglu(x, w1, b1, w2, b2):
     """The C = 1280 blocks' path: two `F.linear` calls around a plain
     GEGLU (the yardstick; the port never calls it on a fused site)."""
@@ -455,6 +486,79 @@ def run_deform_bwd(sites: Dict[str, tuple], timed: bool) -> list:
     return rows
 
 
+def decode_inputs(rng, device, shapes, N, H, D, P, dtype=torch.bfloat16):
+    """``(value, shapes, loc, w)`` of kernel 1 at the one-query MMFS
+    decode: locations uniform over [0, 1], weights summing to about 1."""
+    L = len(shapes)
+    S = sum(h * w for h, w in shapes)
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(device=device,
+                                                            dtype=dtype)
+    return (t(rng.randn(N, S, H, D)), shapes,
+            t(rng.rand(N, 1, H, L, P, 2)), t(rng.rand(N, 1, H, L, P) / (L * P)))
+
+
+def _deform_row(kernel_name, site, args, call, want, tol, work):
+    """Kernel 1's or 2's row: the call against ``want``, bit-identical over
+    two calls, its bound, its three times and launches."""
+    value, shapes, loc = args[:3]
+    rec = dict(kernel=kernel_name, site=site, value=list(value.shape),
+               loc=list(loc.shape))
+    with torch.inference_mode():
+        got, again = call(), call()
+        torch.cuda.synchronize()
+    rec["max_abs_err"], rec["tol"] = _err(got, want), tol
+    rec["bit_identical"] = bool(torch.equal(got, again))
+    rec["ok"] = rec["max_abs_err"] <= rec["tol"] and rec["bit_identical"]
+    rec["bound_ms"], rec["bound_by"] = bound_ms(*work(args, got))
+    with torch.inference_mode():
+        _time(rec, call, True)
+        rec.update(launches(call))
+    return rec
+
+
+def run_deform_fwd(sites: Dict[str, tuple], timed: bool) -> list:
+    """Kernel 1 through `ms_deform_attn_cuda`, against
+    `ms_deform_attn_plain` in the same dtype (one ulp at its scale)."""
+    kernel = deform_ops.ms_deform_attn_cuda
+    pick = getattr(deform_ops, "forward_variant", None)
+    rows = []
+    for site, args in sites.items():
+        args = args[:4]
+        want = deform_ops.ms_deform_attn_plain(*args)
+        rec = _deform_row("ms_deform_attn_fwd", site, args,
+                          lambda: kernel(*args), want, _tol(want),
+                          deform_fwd_work)
+        rec["variant"] = _variant(pick, args[0].shape[-1], args[0].dtype)
+        rows.append(rec)
+        del want
+        torch.cuda.empty_cache()
+    return rows
+
+
+def run_deform_value(sites: Dict[str, tuple], timed: bool) -> list:
+    """Kernel 2 through `ms_deform_attn_bwd_value_cuda`, against autograd
+    through the plain version in fp32 (two ulps at the gradient's scale)."""
+    kernel = deform_ops.ms_deform_attn_bwd_value_cuda
+    pick = getattr(deform_ops, "value_grad_plan", None)
+    rows = []
+    for site, args in sites.items():
+        value, shapes, loc, w, grad_out = args
+        ref = deform_ops.ms_deform_attn_plain_backward(
+            value.float(), shapes, loc.float(), w.float(),
+            grad_out.float())[0]
+        rec = _deform_row("ms_deform_attn_bwd_value", site, args,
+                          lambda: kernel(*args), ref,
+                          2 * _tol(ref.to(value.dtype)), deform_value_work)
+        if pick is not None:
+            rec["plan"] = pick(shapes, loc.shape[1], loc.shape[3],
+                               loc.shape[4], value.shape[-1],
+                               value.dtype)._asdict()
+        rows.append(rec)
+        del ref
+        torch.cuda.empty_cache()
+    return rows
+
+
 def synthetic_sites(device, tiny=False) -> dict:
     """Each kernel's sites, from one ``RandomState(SEED)``."""
     rng = np.random.RandomState(SEED)
@@ -476,31 +580,54 @@ def synthetic_sites(device, tiny=False) -> dict:
     else:
         bwd = {k: deform_bwd_inputs(q, rng, device)
                for k, q in DEFORM_BWD.items()}
-    return {"geglu": geglu, "mi": mi, "gn": gn, "deform_bwd": bwd}
+    if tiny:
+        dec = dict(shapes=((4, 4), (2, 2)), N=2, H=2, D=8, P=2,
+                   dtype=torch.float32)
+    else:
+        dec = DECODE
+    fwd = dict({k: v[:4] for k, v in bwd.items()},
+               mmfs_decode=decode_inputs(rng, device, **dec))
+    return {"geglu": geglu, "mi": mi, "gn": gn, "deform_bwd": bwd,
+            "deform_fwd": fwd, "deform_value": dict(bwd)}
 
 
 # the kernels line's names, which name the files of a `--sites` directory
 SAVED = {"geglu": "geglu_fwd", "mi": "ms_deform_attn_mi_fwd",
-         "gn": "group_norm", "deform_bwd": "ms_deform_attn_bwd_loc_weight"}
+         "gn": "group_norm", "deform_bwd": "ms_deform_attn_bwd_loc_weight",
+         "deform_value": "ms_deform_attn_bwd_value",
+         "deform_fwd": "ms_deform_attn_bwd_value"}
 
 
 def load_sites(path: str, device, kernels) -> dict:
     """The captured sites `chip_smoke.py` saved, ``<path>/<kernel name>.pt``
     each (``{site: args}``); a kernel without its file gets its seeded
-    sites."""
+    sites.  Kernels 1 and 2 take the UNet's sites of the value gradient's
+    file (kernel 1 their value, locations and weights), kernel 1 also the
+    decode site of its own file."""
     seeded = None
     out = {}
     for k in kernels:
         f = Path(path) / f"{SAVED[k]}.pt"
         if f.exists():
             out[k] = torch.load(f, map_location=device, weights_only=False)
+            if k in ("deform_fwd", "deform_value"):
+                out[k] = {s: a for s, a in out[k].items() if s in DEFORM_BWD}
         else:
             seeded = seeded or synthetic_sites(device)
             out[k] = seeded[k]
+        if k == "deform_fwd":
+            own = Path(path) / "ms_deform_attn_fwd.pt"
+            if own.exists():
+                out[k]["mmfs_decode"] = torch.load(
+                    own, map_location=device,
+                    weights_only=False)["mmfs_decode"]
+            else:
+                seeded = seeded or synthetic_sites(device)
+                out[k]["mmfs_decode"] = seeded[k]["mmfs_decode"]
     return out
 
 
-KERNELS = ("geglu", "mi", "gn", "deform_bwd")
+KERNELS = ("geglu", "mi", "gn", "deform_bwd", "deform_fwd", "deform_value")
 
 
 def run(device="cuda", sites: Optional[str] = None,
@@ -520,12 +647,18 @@ def run(device="cuda", sites: Optional[str] = None,
             gn=("group_norm", _gn_plain),
             deform_bwd=("ms_deform_attn_bwd_loc_weight",
                         lambda a: deform_ops.ms_deform_attn_plain_backward(
-                            *a)[1]))
+                            *a)[1]),
+            deform_fwd=("ms_deform_attn_fwd",
+                        lambda a: deform_ops.ms_deform_attn_plain(*a[:4])),
+            deform_value=("ms_deform_attn_bwd_value",
+                          lambda a: deform_ops.ms_deform_attn_plain_backward(
+                              *a)[0]))
         return [dict(kernel=plain[k][0], site=s, finite=bool(
             torch.isfinite(plain[k][1](a).float()).all()))
             for k in kernels for s, a in cases[k].items()]
     runners = dict(geglu=run_geglu, mi=run_mi, gn=run_gn,
-                   deform_bwd=run_deform_bwd)
+                   deform_bwd=run_deform_bwd, deform_fwd=run_deform_fwd,
+                   deform_value=run_deform_value)
     return [row for k in kernels for row in runners[k](cases[k], timed)]
 
 

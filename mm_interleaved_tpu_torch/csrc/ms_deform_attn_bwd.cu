@@ -3,18 +3,46 @@
 // Replaces mm_interleaved_tpu/ops/ms_deform_attn_pallas_v5.py::
 // _kernel_v5_bwd_dv and ::_kernel_v5_bwd_dslab.  The TPU computes the value
 // gradient as the transposed product dOut^T . A over dense bilinear
-// matrices, accumulated across query tiles on its sequential grid, because
-// it has no fast scatter; the location/weight gradient folds dA = dOut . V^T
-// against separable hat factors.  A GPU scatters and gathers directly, as
-// the original ms_deformable_col2im_gpu_kernel does:
+// matrices, accumulated across query tiles on its sequential grid, in a
+// fixed order; the location/weight gradient folds dA = dOut . V^T against
+// separable hat factors.  A GPU gathers directly:
 //
-//  * grad value (mmi_ms_deform_attn_bwd_value): one thread per (n, q, h, d)
-//    that loops over the (level, point) samples of its query and adds
-//    w * corner_weight * dOut[n, q, h, d] to the four corner texels with
-//    fp32 atomicAdd into a zeroed fp32 [N, S, H, D] buffer (out-of-bounds
-//    corners skipped).  Lanes run along D, so the atomics of a warp land on
-//    consecutive addresses.  The wrapper casts the buffer to the value's
-//    dtype.  The order of the atomic sums varies from run to run.
+//  * grad value (mmi_ms_deform_attn_bwd_value): dV[n, t, h, :] is the sum
+//    of w * cw_c * dOut[n, q, h, :] over every sample (q, l, p) whose
+//    in-bounds corner c lands on texel t.  It is gathered by texel, in an
+//    order fixed by the data, with no float atomics and no fp32 buffer, in
+//    three launches:
+//    - cell_keys: each sample's cell, its corner (x0, y0) with x0 in
+//      -1 .. W_l - 1 and y0 alike ((H_l + 1)(W_l + 1) cells a level; -1 for
+//      a sample with no corner in bounds), a thread a sample in the
+//      locations' order, written per (n, h, level) in sample order.
+//    - bin_samples, one CTA per (n, h, level): a stable counting sort of
+//      the level's sample ids by cell.  Each warp owns a contiguous run of
+//      the samples and a row of a [W, cells_l] table: it counts its samples
+//      per cell (integer atomics: a count does not depend on their order),
+//      the rows become each warp's offset within each cell in warp order,
+//      the cells' totals an exclusive scan (the cell offsets), and each warp
+//      places its samples in sample order, 32 at a time, ranking the lanes
+//      of a step that share a cell by __match_any_sync.  A cell holds its
+//      samples in sample order, whatever the schedule.  The table sits in
+//      shared memory where W >= 4 warps' rows fit (the "shared" plan: 12
+//      warps at the UNet's 64 px level), else in a device scratch.
+//    - the gather: it walks the four cells whose samples can reach a
+//      texel, those whose corner (x0, y0) is the texel less (0, 0), (1, 0),
+//      (0, 1), (1, 1), in that order, each cell's samples in stored order;
+//      a lane reads a sample's id, location and weight and works out its
+//      corner weight by deform::corners' rounding.  "grouped" (D = 4, 8 or
+//      16 whole 16-byte vectors; ops/ms_deform_attn_cuda.py::
+//      value_grad_plan): G lanes a sample, each lane a 16-byte vector of
+//      its dOut row, eight rows in flight a lane; by level, a warp a texel
+//      (the groups take every (32 / G)-th sample, their fp32 sums folded by
+//      a fixed butterfly) where a texel's walk is long, or a group of G
+//      lanes a texel (its samples one after another) where it is short.
+//      The texel's [D] row is written once, in the value's dtype.  "lanes"
+//      (any D): a warp a texel, lanes along D, the samples one after
+//      another.
+//    Every sum runs in an order fixed by the data, so the gradient is the
+//    same bits every run.  An (n, h)'s Q*L*P ids must fit in int32.
 //  * grad locations and weights (mmi_ms_deform_attn_bwd_loc_weight): for
 //    each in-bounds corner c of a sample (n, q, h, l, p) the dot product
 //    g_c = sum_d dOut_d * V_c,d, then d_w = sum_c cw_c g_c and, with
@@ -42,10 +70,13 @@
 //      reduction per corner.
 //    Both write the gradients in the locations' dtype.
 //
-// Bound: bytes (the gathered corners, dOut, the locations and weights, and
-// the gradient written once), at about 8 flops per sample and channel in
-// each kernel, far below the card's ridge point.  Accumulation is fp32, in
-// a fixed order: the location/weight gradient is the same bits every run.
+// Bound: bytes (dOut, the locations and weights, the corners the location
+// gradient gathers, each gradient written once), at about 8 flops per
+// sample and channel in each kernel, far below the card's ridge point.
+// The value gradient's gather reads each walked sample's location and
+// weight at random, a 32-byte sector for 6 bytes (bf16), four times a
+// sample; that traffic, not dOut's, is what holds it.  Accumulation is
+// fp32, in a fixed order: both gradients are the same bits every run.
 //
 // C interface (ctypes): see the end of the file.
 
@@ -53,85 +84,22 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "ms_deform_attn_common.cuh"
+
 namespace {
 
-constexpr int kMaxLevels = 8;
+using deform::Corners;
+using deform::corners;
+using deform::from_f32;
+using deform::kFull;
+using deform::kMaxLevels;
+using deform::Levels;
+using deform::load_corners;
+using deform::to_f32;
+using deform::widen;
+
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-
-struct Levels {
-  int h[kMaxLevels];
-  int w[kMaxLevels];
-  int start[kMaxLevels];
-};
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-// value/dout type V, loc/weight type T.  dout [N, Q, H, D],
-// loc [N, Q, H, L, P, 2], weight [N, Q, H, L, P], grad_value fp32
-// [N, S, H, D] zeroed by the caller.
-template <typename V, typename T>
-__global__ void __launch_bounds__(kThreads)
-bwd_value_kernel(const T* __restrict__ loc, const T* __restrict__ weight,
-                 const V* __restrict__ dout, float* __restrict__ grad_value,
-                 int Q, int H, int D, int S, int L, int P, int64_t total,
-                 Levels lv) {
-  const int64_t i = (int64_t)blockIdx.x * kThreads + threadIdx.x;
-  if (i >= total) return;
-  const int d = (int)(i % D);
-  const int64_t nqh = i / D;
-  const int h = (int)(nqh % H);
-  const int64_t n = nqh / ((int64_t)Q * H);
-
-  const T* lp = loc + nqh * (int64_t)L * P * 2;
-  const T* wp = weight + nqh * (int64_t)L * P;
-  const float g = to_f32(dout[i]);
-  if (g == 0.f) return;
-  const int64_t row = (int64_t)H * D;
-  float* gbase = grad_value + n * (int64_t)S * row + (int64_t)h * D + d;
-
-  for (int l = 0; l < L; ++l) {
-    const int hl = lv.h[l];
-    const int wl = lv.w[l];
-    float* gl = gbase + (int64_t)lv.start[l] * row;
-    for (int p = 0; p < P; ++p) {
-      const int lp_i = l * P + p;
-      const float x = to_f32(lp[2 * lp_i]) * wl - 0.5f;
-      const float y = to_f32(lp[2 * lp_i + 1]) * hl - 0.5f;
-      const float a = to_f32(wp[lp_i]) * g;
-      const float x0f = floorf(x);
-      const float y0f = floorf(y);
-      const float fx = x - x0f;
-      const float fy = y - y0f;
-      const int x0 = (int)x0f;
-      const int y0 = (int)y0f;
-      const bool x0_in = x0 >= 0 && x0 < wl;
-      const bool x1_in = x0 + 1 >= 0 && x0 + 1 < wl;
-      const bool y0_in = y0 >= 0 && y0 < hl;
-      const bool y1_in = y0 + 1 >= 0 && y0 + 1 < hl;
-      if (y0_in && x0_in)
-        atomicAdd(gl + ((int64_t)y0 * wl + x0) * row, (1.f - fx) * (1.f - fy) * a);
-      if (y0_in && x1_in)
-        atomicAdd(gl + ((int64_t)y0 * wl + x0 + 1) * row, fx * (1.f - fy) * a);
-      if (y1_in && x0_in)
-        atomicAdd(gl + ((int64_t)(y0 + 1) * wl + x0) * row, (1.f - fx) * fy * a);
-      if (y1_in && x1_in)
-        atomicAdd(gl + ((int64_t)(y0 + 1) * wl + x0 + 1) * row, fx * fy * a);
-    }
-  }
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // (x, y) of one sample's location gradient, written as one pair
 __device__ __forceinline__ void store_pair(float* p, float x, float y) {
@@ -149,36 +117,586 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// The bilinear corners of one sample on level (hl, wl) of a [L, ...] level
-// table: fractions, the texel of corner (x0, y0) in the level, and the
-// in-bounds corners as bits 0-3 of (x0,y0), (x0+1,y0), (x0,y0+1),
-// (x0+1,y0+1).
-struct Corners {
-  float fx, fy;
-  int texel;
-  unsigned mask;
+
+// --------------------------------------------------------------------------
+// the value gradient: binning, then the gather
+
+constexpr int kMaxBinWarps = 32;
+// steps of 32 samples whose loads a binning warp issues at once
+constexpr int kSteps = 16;
+// dynamic shared memory a binning block may take on sm_90 (227 KB, less
+// room for its static tables)
+constexpr int kMaxShared = 232448 - 1024;
+
+// q = n / d for 0 <= n < 2^31 by a multiply and a shift (d >= 1):
+// s = ceil(log2 d), m = floor(2^32 (2^s - d) / d) + 1, q = (hi(n m) + n) >> s
+struct FastDiv {
+  unsigned m;
+  int s;
 };
 
-__device__ __forceinline__ Corners corners(float lx, float ly, int hl,
-                                           int wl) {
-  const float x = lx * wl - 0.5f;
-  const float y = ly * hl - 0.5f;
-  const float x0f = floorf(x);
-  const float y0f = floorf(y);
-  const int x0 = (int)x0f;
-  const int y0 = (int)y0f;
-  const bool x0_in = x0 >= 0 && x0 < wl;
-  const bool x1_in = x0 + 1 >= 0 && x0 + 1 < wl;
-  const bool y0_in = y0 >= 0 && y0 < hl;
-  const bool y1_in = y0 + 1 >= 0 && y0 + 1 < hl;
-  Corners k;
-  k.fx = x - x0f;
-  k.fy = y - y0f;
-  k.texel = y0 * wl + x0;
-  k.mask = (unsigned)(y0_in && x0_in) | (unsigned)(y0_in && x1_in) << 1 |
-           (unsigned)(y1_in && x0_in) << 2 | (unsigned)(y1_in && x1_in) << 3;
-  return k;
+FastDiv fast_div(int d) {
+  int s = 0;
+  while ((1LL << s) < d) ++s;
+  const unsigned long long m =
+      (1ULL << 32) * ((1ULL << s) - (unsigned long long)d) / d + 1;
+  return {(unsigned)m, s};
 }
+
+__device__ __forceinline__ int div_by(int n, FastDiv f) {
+  return (int)((__umulhi((unsigned)n, f.m) + (unsigned)n) >> f.s);
+}
+
+// Per level: where its [cells] block starts in an (n, h)'s cell tables
+// (cell), where its cell offsets start in the (n, h)'s row of cell_start
+// (slot: cell + l, each level keeps one end slot), and the first of its
+// gather's tiles (tile; tile[L] is an (n, h)'s count).
+struct CellLevels {
+  int cell[kMaxLevels];
+  int slot[kMaxLevels];
+  int tile[kMaxLevels + 1];
+};
+
+// The level tables of a block, in shared memory.
+struct LevelTables {
+  int h[kMaxLevels], w[kMaxLevels], start[kMaxLevels], cell[kMaxLevels],
+      slot[kMaxLevels], tile[kMaxLevels + 1];
+};
+
+__device__ __forceinline__ void load_tables(LevelTables& s, const Levels& lv,
+                                            const CellLevels& cl) {
+#pragma unroll
+  for (int i = 0; i < kMaxLevels; ++i) {
+    if (threadIdx.x == i) {
+      s.h[i] = lv.h[i];
+      s.w[i] = lv.w[i];
+      s.start[i] = lv.start[i];
+      s.cell[i] = cl.cell[i];
+      s.slot[i] = cl.slot[i];
+      s.tile[i] = cl.tile[i];
+    }
+  }
+  if (threadIdx.x == kMaxLevels) s.tile[kMaxLevels] = cl.tile[kMaxLevels];
+  __syncthreads();
+}
+
+// The cell of every sample (deform::cell_of; -1 for none): a thread a
+// sample i = q * L * P + l * P + p of one (n, h), so a warp reads whole
+// lines of the locations; written per (n, h, level) in sample order,
+// q * P + p: keys [N*H, L, Q*P].
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+cell_keys(const T* __restrict__ loc, int* __restrict__ keys, int Q, int H,
+          int L, int P, int per_nh, const __grid_constant__ Levels lv,
+          const __grid_constant__ CellLevels cl, FastDiv div_lp,
+          FastDiv div_p) {
+  __shared__ LevelTables s;
+  load_tables(s, lv, cl);
+  const int64_t nh = blockIdx.x / per_nh;
+  const int i = (int)(blockIdx.x - nh * per_nh) * kThreads + threadIdx.x;
+  const int LP = L * P;
+  if (i >= Q * LP) return;
+  const int q = div_by(i, div_lp);
+  const int lp = i - q * LP;
+  const int l = div_by(lp, div_p);
+  const int h = (int)(nh % H);
+  const int64_t n = nh / H;
+  const float2 xy = deform::load_xy(loc, ((n * Q + q) * H + h) * LP + lp);
+  keys[(nh * L + l) * Q * P + q * P + (lp - l * P)] =
+      deform::cell_of(xy.x, xy.y, s.h[l], s.w[l]);
+}
+
+// One CTA per (n, h, level), blockDim.x / 32 warps.  The level's Q*P
+// samples, i = q * P + p, are binned by their cells (from cell_keys): ids
+// [N*H, Q*L*P] holds, from l * Q * P on, the level's sample ids cell after
+// cell, each cell's in sample order; cell_start [N*H, cells + L] where
+// each cell's ids begin (from slot[l]; the level's last slot is its end).
+// table: null (the [W + 1, cells_l] table in dynamic shared memory) or a
+// device scratch of [N*H, W + 1, cells] (its level's block at (W + 1) *
+// cell[l]).
+__global__ void __launch_bounds__(kMaxBinWarps * 32)
+bin_samples(const int* __restrict__ keys, int* __restrict__ ids,
+            int* __restrict__ cell_start, int* __restrict__ gtable, int Q,
+            int L, int P, int cells_all,
+            const __grid_constant__ Levels lv,
+            const __grid_constant__ CellLevels cl) {
+  extern __shared__ int smem[];
+  __shared__ LevelTables s;
+  __shared__ int s_part[kMaxBinWarps];
+  load_tables(s, lv, cl);
+  const int W = blockDim.x >> 5;
+  const int l = (int)(blockIdx.x % L);
+  const int64_t nh = blockIdx.x / L;
+  const int hl = s.h[l], wl = s.w[l];
+  const int cells = (hl + 1) * (wl + 1);
+  int* table = gtable ? gtable + (nh * cells_all + s.cell[l]) * (W + 1)
+                      : smem;
+  int* total = table + (int64_t)W * cells;
+  for (int i = threadIdx.x; i < W * cells; i += blockDim.x) table[i] = 0;
+  __syncthreads();
+  const int QP = Q * P;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int seg = (QP + W - 1) / W;
+  const int s0 = min(QP, warp * seg);
+  const int s1 = min(QP, s0 + seg);
+  int* mine = table + (int64_t)warp * cells;
+  const int* kl = keys + (nh * L + l) * (int64_t)QP;  // this level's cells
+  // kSteps steps of 32 from base on: their cells (-1: none, or past the
+  // warp's run), loaded at once
+  auto keys_of = [&](int base, int (&key)[kSteps]) {
+#pragma unroll
+    for (int u = 0; u < kSteps; ++u) {
+      const int i = base + 32 * u + lane;
+      key[u] = i < s1 ? __ldg(kl + i) : -1;
+    }
+  };
+
+  // 1. each warp counts its samples per cell in its own row
+  for (int base = s0; base < s1; base += 32 * kSteps) {
+    int key[kSteps];
+    keys_of(base, key);
+#pragma unroll
+    for (int u = 0; u < kSteps; ++u)
+      if (key[u] >= 0) atomicAdd(mine + key[u], 1);
+  }
+  __syncthreads();
+  // 2. a cell's counts become the warps' offsets in it, in warp order
+  for (int c = threadIdx.x; c < cells; c += blockDim.x) {
+    int run = 0;
+    for (int w = 0; w < W; ++w) {
+      int* p = table + (int64_t)w * cells + c;
+      const int t = *p;
+      *p = run;
+      run += t;
+    }
+    total[c] = run;
+  }
+  __syncthreads();
+  // 3. the cells' starts: an exclusive scan of their totals, a thread a
+  // contiguous run of cells, after the level's l * Q * P; each warp's
+  // offsets become its cursors
+  const int per = (cells + blockDim.x - 1) / blockDim.x;
+  const int c0 = min(cells, (int)threadIdx.x * per);
+  const int c1 = min(cells, c0 + per);
+  int sum = 0;
+  for (int c = c0; c < c1; ++c) sum += total[c];
+  int incl = sum;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int v = __shfl_up_sync(kFull, incl, off);
+    if (lane >= off) incl += v;
+  }
+  if (lane == 31) s_part[warp] = incl;
+  __syncthreads();
+  int run = l * QP + incl - sum;
+  for (int w = 0; w < warp; ++w) run += s_part[w];
+  int* cs = cell_start + nh * (int64_t)(cells_all + L) + s.slot[l];
+  for (int c = c0; c < c1; ++c) {
+    const int t = total[c];
+    cs[c] = run;
+    for (int w = 0; w < W; ++w) table[(int64_t)w * cells + c] += run;
+    run += t;
+  }
+  if (threadIdx.x == blockDim.x - 1) cs[cells] = run;
+  __syncthreads();
+  // 4. each warp places its samples in sample order: a lane's rank among
+  // the lanes of its step that share its cell, after the cell's cursor
+  int* out = ids + nh * (int64_t)L * QP;
+  for (int base = s0; base < s1; base += 32 * kSteps) {
+    int key[kSteps];
+    keys_of(base, key);
+#pragma unroll
+    for (int u = 0; u < kSteps; ++u) {
+      if (base + 32 * u < s1) {  // the same for the whole warp
+        const unsigned peers = __match_any_sync(kFull, key[u]);
+        const int rank = __popc(peers & ((1u << lane) - 1u));
+        const int pos = key[u] >= 0 ? mine[key[u]] + rank : 0;
+        __syncwarp();
+        if (key[u] >= 0 && rank == 0) mine[key[u]] += __popc(peers);
+        __syncwarp();
+        if (key[u] >= 0) out[pos] = base + 32 * u + lane;
+      }
+    }
+  }
+}
+
+// The four cells a texel's gather walks, and where each one's samples
+// start in the walk.
+struct Walk {
+  int b[4];    // the cell's first id in the (n, h)'s ids
+  int off[4];  // where the cell's samples start in the walk
+  int total;
+};
+
+// Texel (ty, tx) of a level whose cell offsets start at cs: corner c = dy *
+// 2 + dx of the cell whose corner (x0, y0) is the texel less (dx, dy).
+// Lanes 0-3 of each ``width``-lane segment read, the segment shares.
+__device__ __forceinline__ Walk walk_of(int ty, int tx, int wl,
+                                        const int* cs, int sub, int width) {
+  int b = 0, e = 0;
+  if (sub < 4 && cs != nullptr) {
+    const int dx = sub & 1, dy = sub >> 1;
+    const int key = (ty - dy + 1) * (wl + 1) + tx - dx + 1;
+    b = __ldg(cs + key);
+    e = __ldg(cs + key + 1);
+  }
+  Walk wk;
+  int run = 0;
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    wk.b[c] = __shfl_sync(kFull, b, c, width);
+    wk.off[c] = run;
+    run += __shfl_sync(kFull, e, c, width) - wk.b[c];
+  }
+  wk.total = run;
+  return wk;
+}
+
+// Sample j of the walk: its query (in q) and its coefficient, the
+// attention weight times the bilinear weight of the walked texel's corner.
+// ``g0`` is where sample (q = 0, p = 0) of the level sits in loc / weight.
+template <typename T>
+__device__ __forceinline__ float walk_sample(const Walk& wk, int j,
+                                             const int* idrow,
+                                             const T* __restrict__ loc,
+                                             const T* __restrict__ weight,
+                                             int64_t g0, int64_t qstride,
+                                             int P, FastDiv div_p, int hl,
+                                             int wl, int& q) {
+  const int c = (j >= wk.off[1]) + (j >= wk.off[2]) + (j >= wk.off[3]);
+  const int b = c == 0 ? wk.b[0] : c == 1 ? wk.b[1] : c == 2 ? wk.b[2]
+                                                               : wk.b[3];
+  const int o = c == 0 ? 0 : c == 1 ? wk.off[1] : c == 2 ? wk.off[2]
+                                                          : wk.off[3];
+  const int i = __ldg(idrow + b + j - o);
+  q = div_by(i, div_p);
+  const int64_t g = g0 + q * qstride + (i - q * P);
+  const float2 xy = deform::load_xy(loc, g);
+  const float x = deform::grid_coord(xy.x, wl);
+  const float y = deform::grid_coord(xy.y, hl);
+  const float fx = x - floorf(x);
+  const float fy = y - floorf(y);
+  const float wx = c & 1 ? fx : 1.f - fx;
+  const float wy = c & 2 ? fy : 1.f - fy;
+  return to_f32(weight[g]) * (wx * wy);
+}
+
+// An (n, h)'s place in the gather: its texel grid on level l, where level
+// l's samples start in loc / weight and dOut, and its ids and offsets.
+struct GatherCtx {
+  int64_t n;
+  int h, hl, wl, Sl;
+  int64_t g0, qstride, drow0;
+  const int* idrow;
+  const int* cs;
+};
+
+__device__ __forceinline__ GatherCtx gather_ctx(const LevelTables& s,
+                                                int64_t nh, int l, int Q,
+                                                int H, int L, int P, int D,
+                                                int cells_all, const int* ids,
+                                                const int* cell_start) {
+  GatherCtx x;
+  x.h = (int)(nh % H);
+  x.n = nh / H;
+  x.hl = s.h[l];
+  x.wl = s.w[l];
+  x.Sl = x.hl * x.wl;
+  x.g0 = (x.n * Q * H + x.h) * (int64_t)L * P + l * P;
+  x.qstride = (int64_t)H * L * P;
+  x.drow0 = (x.n * Q * H + x.h) * (int64_t)D;
+  x.idrow = ids + nh * (int64_t)L * Q * P;
+  x.cs = cell_start + nh * (int64_t)(cells_all + L) + s.slot[l];
+  return x;
+}
+
+// The "grouped" gather (D = G * 16 / sizeof(V)).  Per level, by
+// ``group_levels``' bit l: a warp a texel (the groups take every NG-th
+// sample of 32, their sums folded by a fixed butterfly), for levels whose
+// cells hold many samples, or a group of G lanes a texel (its lanes take G
+// samples at a time, summed one after another), for levels whose cells hold
+// few.  A CTA takes neighbouring texels of one level of one (n, h).
+template <typename V, typename T, int G>
+__global__ void __launch_bounds__(kThreads, 4)
+bwd_value_grouped(const T* __restrict__ loc, const T* __restrict__ weight,
+                  const V* __restrict__ dout, const int* __restrict__ ids,
+                  const int* __restrict__ cell_start,
+                  V* __restrict__ grad_value, int Q, int H, int S, int L,
+                  int P, int cells_all, int group_levels,
+                  const __grid_constant__ Levels lv,
+                  const __grid_constant__ CellLevels cl, FastDiv div_p) {
+  constexpr int VW = 16 / (int)sizeof(V);
+  constexpr int D = G * VW;
+  constexpr int NG = 32 / G;  // groups a warp
+  constexpr int kR = 2;       // samples a lane sets up a round
+  constexpr int kChunk = G < 8 ? G : 8;  // dOut rows a lane loads at once
+  __shared__ LevelTables s;
+  load_tables(s, lv, cl);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int grp = lane / G;
+  const int sub = lane % G;
+  const int64_t nh = blockIdx.x / s.tile[L];
+  const int r = (int)(blockIdx.x % s.tile[L]);
+  int l = 0;
+  while (l + 1 < L && r >= s.tile[l + 1]) ++l;
+  const GatherCtx x = gather_ctx(s, nh, l, Q, H, L, P, D, cells_all, ids,
+                                 cell_start);
+  const int64_t hd = (int64_t)H * D;
+  const V* drow = dout + x.drow0 + sub * VW;
+  float acc[VW];
+#pragma unroll
+  for (int v = 0; v < VW; ++v) acc[v] = 0.f;
+  if (group_levels >> l & 1) {
+    // a group a texel: R * G samples a round, lane sub sets up samples
+    // base + r * G + sub
+    const int tl = ((r - s.tile[l]) * kWarps + warp) * NG + grp;
+    const bool live = tl < x.Sl;
+    const int ty = live ? tl / x.wl : 0, tx = live ? tl - ty * x.wl : 0;
+    const Walk wk = walk_of(ty, tx, x.wl, live ? x.cs : nullptr, sub, G);
+    const int most = (int)__reduce_max_sync(kFull, (unsigned)wk.total);
+    for (int base = 0; base < most; base += kR * G) {
+      int q[kR];
+      float coef[kR];
+#pragma unroll
+      for (int rr = 0; rr < kR; ++rr) {
+        const int j = base + rr * G + sub;
+        q[rr] = 0;
+        coef[rr] = j < wk.total
+                       ? walk_sample(wk, j, x.idrow, loc, weight, x.g0,
+                                     x.qstride, P, div_p, x.hl, x.wl, q[rr])
+                       : 0.f;
+      }
+      const int cnt = wk.total - base;  // this group's samples in the round
+      const int upto = min(kR * G, most - base);
+#pragma unroll
+      for (int k0 = 0; k0 < kR * G; k0 += kChunk) {
+        if (k0 < upto) {  // the same for the whole warp
+          uint4 row[kChunk];
+#pragma unroll
+          for (int k = 0; k < kChunk; ++k) {
+            const int kk = k0 + k;
+            const int qq = __shfl_sync(kFull, q[kk / G], kk % G, G);
+            row[k] = __ldg(reinterpret_cast<const uint4*>(drow + qq * hd));
+          }
+#pragma unroll
+          for (int k = 0; k < kChunk; ++k) {
+            const int kk = k0 + k;
+            const float cf = __shfl_sync(kFull, coef[kk / G], kk % G, G);
+            if (kk < cnt) {
+              float f[VW];
+              widen(row[k], f);
+#pragma unroll
+              for (int v = 0; v < VW; ++v) acc[v] = fmaf(cf, f[v], acc[v]);
+            }
+          }
+        }
+      }
+    }
+    if (live)
+      *reinterpret_cast<uint4*>(
+          grad_value + ((x.n * S + s.start[l] + tl) * H + x.h) * D +
+          sub * VW) = deform::narrow(acc);
+    return;
+  }
+  // a warp a texel: R * 32 samples a round, lane j sets up samples base +
+  // r * 32 + j; group grp takes samples grp, grp + NG, ... (sample k * NG +
+  // grp sits in lane (k % G) * NG + grp, register k / G)
+  const int tl = (r - s.tile[l]) * kWarps + warp;
+  if (tl >= x.Sl) return;  // whole warps leave together
+  const int ty = tl / x.wl, tx = tl - ty * x.wl;
+  const Walk wk = walk_of(ty, tx, x.wl, x.cs, lane, 32);
+  for (int base = 0; base < wk.total; base += kR * 32) {
+    int q[kR];
+    float coef[kR];
+#pragma unroll
+    for (int rr = 0; rr < kR; ++rr) {
+      const int j = base + rr * 32 + lane;
+      q[rr] = 0;  // past the walk's end: a row that exists, weight 0
+      coef[rr] = j < wk.total
+                     ? walk_sample(wk, j, x.idrow, loc, weight, x.g0,
+                                   x.qstride, P, div_p, x.hl, x.wl, q[rr])
+                     : 0.f;
+    }
+    const int cnt = min(kR * 32, wk.total - base);
+#pragma unroll
+    for (int k0 = 0; k0 < kR * G; k0 += kChunk) {
+      if (k0 * NG < cnt) {  // the same for the whole warp
+        uint4 row[kChunk];
+#pragma unroll
+        for (int k = 0; k < kChunk; ++k) {
+          const int kk = k0 + k;
+          const int qq = __shfl_sync(kFull, q[kk / G], (kk % G) * NG + grp);
+          row[k] = __ldg(reinterpret_cast<const uint4*>(drow + qq * hd));
+        }
+#pragma unroll
+        for (int k = 0; k < kChunk; ++k) {
+          const int kk = k0 + k;
+          const float cf =
+              __shfl_sync(kFull, coef[kk / G], (kk % G) * NG + grp);
+          if (kk * NG + grp < cnt) {
+            float f[VW];
+            widen(row[k], f);
+#pragma unroll
+            for (int v = 0; v < VW; ++v) acc[v] = fmaf(cf, f[v], acc[v]);
+          }
+        }
+      }
+    }
+  }
+  // the groups' sums, folded in a fixed order
+#pragma unroll
+  for (int off = G; off < 32; off <<= 1) {
+#pragma unroll
+    for (int v = 0; v < VW; ++v) acc[v] += __shfl_xor_sync(kFull, acc[v], off);
+  }
+  if (grp == 0)
+    *reinterpret_cast<uint4*>(grad_value +
+                              ((x.n * S + s.start[l] + tl) * H + x.h) * D +
+                              lane * VW) = deform::narrow(acc);
+}
+
+// The "lanes" gather, any D: a warp a texel, lanes along D in rounds of 32
+// channels, the walk's samples one after another.
+template <typename V, typename T>
+__global__ void __launch_bounds__(kThreads)
+bwd_value_lanes(const T* __restrict__ loc, const T* __restrict__ weight,
+                const V* __restrict__ dout, const int* __restrict__ ids,
+                const int* __restrict__ cell_start,
+                V* __restrict__ grad_value, int Q, int H, int D, int S, int L,
+                int P, int cells_all, const __grid_constant__ Levels lv,
+                const __grid_constant__ CellLevels cl,
+                FastDiv div_p) {
+  __shared__ LevelTables s;
+  load_tables(s, lv, cl);
+  const int lane = threadIdx.x & 31;
+  const int64_t nh = blockIdx.x / s.tile[L];
+  const int r = (int)(blockIdx.x % s.tile[L]);
+  int l = 0;
+  while (l + 1 < L && r >= s.tile[l + 1]) ++l;
+  const int tl = (r - s.tile[l]) * kWarps + (threadIdx.x >> 5);
+  const GatherCtx x = gather_ctx(s, nh, l, Q, H, L, P, D, cells_all, ids,
+                                 cell_start);
+  if (tl >= x.Sl) return;
+  const int ty = tl / x.wl, tx = tl - ty * x.wl;
+  const Walk wk = walk_of(ty, tx, x.wl, x.cs, lane, 32);
+  const V* dbase = dout + x.drow0;
+  const int64_t hd = (int64_t)H * D;
+  V* gout = grad_value + ((x.n * S + s.start[l] + tl) * H + x.h) * (int64_t)D;
+  for (int d0 = 0; d0 < D; d0 += 32) {
+    const int d = d0 + lane;
+    float acc = 0.f;
+    for (int base = 0; base < wk.total; base += 32) {
+      const int j = base + lane;
+      int q = 0;
+      const float coef =
+          j < wk.total ? walk_sample(wk, j, x.idrow, loc, weight, x.g0,
+                                     x.qstride, P, div_p, x.hl, x.wl, q)
+                       : 0.f;
+      const int cnt = min(32, wk.total - base);
+      for (int k = 0; k < cnt; ++k) {
+        const float cf = __shfl_sync(kFull, coef, k);
+        const int qq = __shfl_sync(kFull, q, k);
+        if (d < D) acc = fmaf(cf, to_f32(dbase[qq * hd + d]), acc);
+      }
+    }
+    if (d < D) gout[d] = from_f32<V>(acc);
+  }
+}
+
+// Fills the per-level tables; returns the cells of all levels, or -1.
+int fill_cell_levels(const Levels& lv, int L, int group_levels, int ng,
+                     CellLevels* cl) {
+  int64_t cells = 0, tiles = 0;
+  for (int l = 0; l < L; ++l) {
+    cl->cell[l] = (int)cells;
+    cl->slot[l] = (int)cells + l;
+    cl->tile[l] = (int)tiles;
+    const int per = kWarps * (group_levels >> l & 1 ? ng : 1);
+    tiles += ((int64_t)lv.h[l] * lv.w[l] + per - 1) / per;
+    cells += (int64_t)(lv.h[l] + 1) * (lv.w[l] + 1);
+    if (cells > 0x7fffffffLL - kMaxLevels || tiles > 0x7fffffffLL) return -1;
+  }
+  cl->tile[L] = (int)tiles;
+  return (int)cells;
+}
+
+template <typename V, typename T>
+int launch_value(int bin_warps, int shared_table, int grouped,
+                 int group_levels, const void* loc, const void* weight,
+                 const void* dout, int* keys, int* ids, int* cell_start,
+                 int* table, void* gv, int N, int Q, int H, int D, int S,
+                 int L, int P, const Levels& lv, cudaStream_t stream) {
+  const T* lp = static_cast<const T*>(loc);
+  const T* wp = static_cast<const T*>(weight);
+  const int g = grouped ? deform::group_lanes(D, (int)sizeof(V)) : 0;
+  if (grouped && !g) return (int)cudaErrorInvalidValue;
+  CellLevels cl = {};
+  const int cells = fill_cell_levels(lv, L, grouped ? group_levels : 0,
+                                     g ? 32 / g : 1, &cl);
+  if (cells < 0) return (int)cudaErrorInvalidValue;
+  const int64_t nh = (int64_t)N * H;
+  if (nh * L > 0x7fffffffLL || nh * cl.tile[L] > 0x7fffffffLL)
+    return (int)cudaErrorInvalidConfiguration;
+  if (bin_warps < 1 || bin_warps > kMaxBinWarps)
+    return (int)cudaErrorInvalidValue;
+  const FastDiv div_p = fast_div(P);
+  const int per_nh = (int)(((int64_t)Q * L * P + kThreads - 1) / kThreads);
+  if (nh * per_nh > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  size_t smem = 0;
+  if (shared_table) {
+    int most = 0;
+    for (int l = 0; l < L; ++l)
+      most = max(most, (lv.h[l] + 1) * (lv.w[l] + 1));
+    smem = (size_t)(bin_warps + 1) * most * sizeof(int);
+    if (smem > (size_t)kMaxShared) return (int)cudaErrorInvalidValue;
+    cudaError_t e = cudaFuncSetAttribute(
+        bin_samples, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    table = nullptr;
+  } else if (table == nullptr) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (per_nh > 0) {
+    cell_keys<T><<<(unsigned)(nh * per_nh), kThreads, 0, stream>>>(
+        lp, keys, Q, H, L, P, per_nh, lv, cl, fast_div(L * P), fast_div(P));
+  }
+  bin_samples<<<(unsigned)(nh * L), bin_warps * 32, smem, stream>>>(
+      keys, ids, cell_start, table, Q, L, P, cells, lv, cl);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const unsigned blocks = (unsigned)(nh * cl.tile[L]);
+  const V* dp = static_cast<const V*>(dout);
+  V* out = static_cast<V*>(gv);
+  switch (g) {
+    case 0:
+      bwd_value_lanes<V, T><<<blocks, kThreads, 0, stream>>>(
+          lp, wp, dp, ids, cell_start, out, Q, H, D, S, L, P, cells, lv, cl,
+          div_p);
+      return 0;
+    case 4:
+      bwd_value_grouped<V, T, 4><<<blocks, kThreads, 0, stream>>>(
+          lp, wp, dp, ids, cell_start, out, Q, H, S, L, P, cells,
+          group_levels, lv, cl, div_p);
+      return 0;
+    case 8:
+      bwd_value_grouped<V, T, 8><<<blocks, kThreads, 0, stream>>>(
+          lp, wp, dp, ids, cell_start, out, Q, H, S, L, P, cells,
+          group_levels, lv, cl, div_p);
+      return 0;
+    case 16:
+      bwd_value_grouped<V, T, 16><<<blocks, kThreads, 0, stream>>>(
+          lp, wp, dp, ids, cell_start, out, Q, H, S, L, P, cells,
+          group_levels, lv, cl, div_p);
+      return 0;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// --------------------------------------------------------------------------
+// the location/weight gradient
 
 // d_w, d_loc_x / (w W_l), d_loc_y / (w H_l) from the four corner sums
 __device__ __forceinline__ void blend_grads(float fx, float fy,
@@ -198,7 +716,7 @@ bwd_loc_weight_kernel(const V* __restrict__ value, const T* __restrict__ loc,
                       const T* __restrict__ weight, const V* __restrict__ dout,
                       T* __restrict__ grad_loc, T* __restrict__ grad_weight,
                       int Q, int H, int D, int S, int L, int P,
-                      int64_t samples, Levels lv) {
+                      int64_t samples, const __grid_constant__ Levels lv) {
   const int lane = threadIdx.x & 31;
   const int64_t s = (int64_t)blockIdx.x * kWarps + (threadIdx.x >> 5);
   if (s >= samples) return;  // whole warps leave together
@@ -238,21 +756,6 @@ bwd_loc_weight_kernel(const V* __restrict__ value, const T* __restrict__ loc,
   }
 }
 
-// 16 bytes of V widened to fp32: 8 bf16 (shift or mask) or 4 fp32
-__device__ __forceinline__ void widen(const uint4& u, float (&f)[8]) {
-  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    f[2 * i] = __uint_as_float(w[i] << 16);
-    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
-}
-__device__ __forceinline__ void widen(const uint4& u, float (&f)[4]) {
-  f[0] = __uint_as_float(u.x);
-  f[1] = __uint_as_float(u.y);
-  f[2] = __uint_as_float(u.z);
-  f[3] = __uint_as_float(u.w);
-}
 
 template <int VW>
 __device__ __forceinline__ float dot16(const uint4& u, const float (&go)[VW]) {
@@ -265,25 +768,6 @@ __device__ __forceinline__ float dot16(const uint4& u, const float (&go)[VW]) {
 }
 
 constexpr int kQTile = 32;  // queries a CTA of the grouped body takes
-constexpr unsigned kFull = 0xffffffffu;
-
-// The corners of the sample lane ``src`` set up (its texel, and its level
-// width with the in-bounds bits), loaded as this lane's 16-byte vector of
-// each; zeros where out of bounds.
-template <typename V>
-__device__ __forceinline__ void load_corners(const V* vbase, int64_t row,
-                                             int texel, int packed, int src,
-                                             uint4 (&c)[4]) {
-  const int t = __shfl_sync(kFull, texel, src);
-  const int pk = __shfl_sync(kFull, packed, src);
-  const int wl = pk >> 4;
-  const int64_t off[4] = {t, t + 1, t + wl, t + wl + 1};
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    c[i] = pk >> i & 1 ? __ldg(reinterpret_cast<const uint4*>(
-                             vbase + off[i] * row))
-                       : make_uint4(0u, 0u, 0u, 0u);
-}
 
 // The "grouped" body: G lanes a sample, one 16-byte vector of each corner a
 // lane (D = G * 16 / sizeof(V)).  A CTA takes kQTile queries of one (n, h);
@@ -294,7 +778,7 @@ bwd_loc_weight_grouped(const V* __restrict__ value, const T* __restrict__ loc,
                        const T* __restrict__ weight, const V* __restrict__ dout,
                        T* __restrict__ grad_loc, T* __restrict__ grad_weight,
                        int Q, int H, int S, int L, int P, int q_tiles,
-                       Levels lv) {
+                       const __grid_constant__ Levels lv) {
   constexpr int VW = 16 / (int)sizeof(V);
   constexpr int D = G * VW;
   constexpr int NG = 32 / G;  // samples a warp holds at once
@@ -392,35 +876,6 @@ bwd_loc_weight_grouped(const V* __restrict__ value, const T* __restrict__ loc,
   }
 }
 
-int fill_levels(const int* level_hw, int L, int S, Levels* lv) {
-  int start = 0;
-  for (int l = 0; l < L; ++l) {
-    lv->h[l] = level_hw[2 * l];
-    lv->w[l] = level_hw[2 * l + 1];
-    lv->start[l] = start;
-    start += lv->h[l] * lv->w[l];
-  }
-  return start == S ? 0 : (int)cudaErrorInvalidValue;
-}
-
-template <typename V, typename T>
-void launch_value(const void* loc, const void* weight, const void* dout,
-                  float* gv, int Q, int H, int D, int S, int L, int P,
-                  int64_t total, const Levels& lv, cudaStream_t stream) {
-  const int64_t blocks = (total + kThreads - 1) / kThreads;
-  bwd_value_kernel<V, T><<<(unsigned)blocks, kThreads, 0, stream>>>(
-      static_cast<const T*>(loc), static_cast<const T*>(weight),
-      static_cast<const V*>(dout), gv, Q, H, D, S, L, P, total, lv);
-}
-
-// The lanes a sample takes in the grouped body: D * sizeof(V) / 16 where
-// that is 4, 8 or 16 whole vectors, else 0 (the warp body).
-int group_lanes(int D, int elem) {
-  if ((D * elem) % 16) return 0;
-  const int g = D * elem / 16;
-  return g == 4 || g == 8 || g == 16 ? g : 0;
-}
-
 template <typename V, typename T, int G>
 int launch_grouped(const void* value, const void* loc, const void* weight,
                    const void* dout, void* gl, void* gw, int N, int Q, int H,
@@ -442,7 +897,7 @@ int launch_loc_weight(int grouped, const void* value, const void* loc,
                       void* gw, int N, int Q, int H, int D, int S, int L,
                       int P, const Levels& lv, cudaStream_t stream) {
   if (grouped) {
-    switch (group_lanes(D, (int)sizeof(V))) {
+    switch (deform::group_lanes(D, (int)sizeof(V))) {
       case 4: return launch_grouped<V, T, 4>(value, loc, weight, dout, gl, gw,
                                              N, Q, H, S, L, P, lv, stream);
       case 8: return launch_grouped<V, T, 8>(value, loc, weight, dout, gl, gw,
@@ -473,37 +928,49 @@ int check_args(int L, int P, int D) {
 
 // dtype codes: 0 = float32, 1 = bfloat16 (value and dout share one; loc and
 // weight share the other).  level_hw: host array (h0, w0, h1, w1, ...).
-// grad_value: fp32 [N, S, H, D], zeroed.  Returns a cudaError_t code.
-extern "C" int mmi_ms_deform_attn_bwd_value(int device, int value_dtype,
-                                            int loc_dtype, const void* loc,
-                                            const void* weight,
-                                            const void* dout, float* grad_value,
-                                            int N, int S, int Q, int H, int D,
-                                            int L, int P, const int* level_hw,
-                                            void* stream) {
+// The plan (ops/ms_deform_attn_cuda.py::value_grad_plan): bin_warps, the
+// warps of a binning CTA; shared_table 1 = its [bin_warps + 1, cells_l]
+// table in shared memory (at most kMaxShared bytes), 0 = in ``table``,
+// int32 [N*H, bin_warps + 1, cells] (cells = sum over levels of (h + 1) *
+// (w + 1)); grouped 1 = D * itemsize 4, 8 or 16 whole 16-byte vectors,
+// dout 16-byte aligned (the caller checked), 0 = lanes along D;
+// group_levels: bit l set = a group a texel on level l (grouped only).
+// keys: int32 [N*H, L, Q*P], ids: int32 [N*H, Q*L*P], cell_start: int32
+// [N*H, cells + L], all scratch; grad_value [N, S, H, D] in the value's
+// dtype, every element written.  Returns a cudaError_t code.
+extern "C" int mmi_ms_deform_attn_bwd_value(
+    int device, int value_dtype, int loc_dtype, int bin_warps,
+    int shared_table, int grouped, int group_levels, const void* loc,
+    const void* weight, const void* dout, int* keys, int* ids,
+    int* cell_start, int* table, void* grad_value, int N, int S, int Q, int H,
+    int D, int L, int P, const int* level_hw, void* stream) {
   int err = check_args(L, P, D);
   if (err) return err;
   Levels lv = {};
-  if ((err = fill_levels(level_hw, L, S, &lv))) return err;
-  const int64_t total = (int64_t)N * Q * H * D;
-  if (total == 0) return 0;
-  if ((total + kThreads - 1) / kThreads > 0x7fffffffLL)
-    return (int)cudaErrorInvalidConfiguration;
+  if ((err = deform::fill_levels(level_hw, L, S, &lv))) return err;
+  if ((int64_t)Q * L * P > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  if (grouped != 0 && grouped != 1) return (int)cudaErrorInvalidValue;
+  if ((int64_t)N * H * S == 0) return 0;
   cudaError_t e = cudaSetDevice(device);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (value_dtype == 0 && loc_dtype == 0) {
-    launch_value<float, float>(loc, weight, dout, grad_value, Q, H, D, S, L, P,
-                               total, lv, s);
+    err = launch_value<float, float>(bin_warps, shared_table, grouped,
+                                     group_levels, loc, weight, dout, keys,
+                                     ids, cell_start, table, grad_value, N, Q,
+                                     H, D, S, L, P, lv, s);
   } else if (value_dtype == 1 && loc_dtype == 1) {
-    launch_value<__nv_bfloat16, __nv_bfloat16>(loc, weight, dout, grad_value,
-                                               Q, H, D, S, L, P, total, lv, s);
+    err = launch_value<__nv_bfloat16, __nv_bfloat16>(
+        bin_warps, shared_table, grouped, group_levels, loc, weight, dout, keys,
+        ids, cell_start, table, grad_value, N, Q, H, D, S, L, P, lv, s);
   } else if (value_dtype == 1 && loc_dtype == 0) {
-    launch_value<__nv_bfloat16, float>(loc, weight, dout, grad_value, Q, H, D,
-                                       S, L, P, total, lv, s);
+    err = launch_value<__nv_bfloat16, float>(
+        bin_warps, shared_table, grouped, group_levels, loc, weight, dout, keys,
+        ids, cell_start, table, grad_value, N, Q, H, D, S, L, P, lv, s);
   } else {
     return (int)cudaErrorInvalidValue;
   }
+  if (err) return err;
   return (int)cudaGetLastError();
 }
 
@@ -519,9 +986,9 @@ extern "C" int mmi_ms_deform_attn_bwd_loc_weight(
   int err = check_args(L, P, D);
   if (err) return err;
   Levels lv = {};
-  if ((err = fill_levels(level_hw, L, S, &lv))) return err;
+  if ((err = deform::fill_levels(level_hw, L, S, &lv))) return err;
   if (variant != 0 && variant != 1) return (int)cudaErrorInvalidValue;
-  if (variant == 1 && !group_lanes(D, value_dtype ? 2 : 4))
+  if (variant == 1 && !deform::group_lanes(D, value_dtype ? 2 : 4))
     return (int)cudaErrorInvalidValue;
   if ((int64_t)N * Q * H * L * P == 0) return 0;
   cudaError_t e = cudaSetDevice(device);

@@ -6,13 +6,17 @@ versions (counterpart of `mm_interleaved_tpu/ops/ms_deform_attn_pallas_v5.py`).
   launch the two backward kernels of ``csrc/ms_deform_attn_bwd.cu``.  Each
   runs on PyTorch's current stream, takes CUDA tensors only, raises on
   anything its kernel does not take, and counts its launches in
-  ``.launches`` (a launch that raises is not counted).  `launch_forward`
-  serves every forward of the same C signature: kernel 1 and the
-  benchmark's v1 and v4 kernels (`ms_deform_attn_v1`, `ms_deform_attn_v4`).
-  `loc_weight_variant` (a pure function of D and the dtype) picks the
-  location/weight gradient's body: "grouped" (a group of lanes a sample,
-  16-byte loads; a misaligned value or dOut is refused before launch) or
-  "warp" (any D).
+  ``.launches`` (one call a launch, whatever the kernels inside; a call
+  that raises is not counted).  `launch_forward` serves the benchmark's v1
+  and v4 forwards, which share one C signature (`ms_deform_attn_v1`,
+  `ms_deform_attn_v4`).
+* Pure functions of the shapes pick each kernel's body: `forward_variant`
+  ("grouped" or "channel"), `value_grad_plan` (where the value gradient's
+  binning keeps its cell table, and "grouped" or "lanes") and
+  `loc_weight_variant` ("grouped" or "warp").  All three take "grouped"
+  where D is 4, 8 or 16 whole 16-byte vectors (a group of lanes a sample
+  or a texel, 16-byte loads); there a misaligned input the body loads as
+  vectors is refused before any launch.
 * `MSDeformAttnFunction` is the differentiable op on the card: its forward
   launches the forward kernel, its backward the two backward kernels.  The
   bare forward wrapper refuses a call that autograd records.
@@ -24,13 +28,14 @@ versions (counterpart of `mm_interleaved_tpu/ops/ms_deform_attn_pallas_v5.py`).
 
 All take ``value [N, S, H, D]``, ``loc [N, Q, H, L, P, 2]`` (x, y) in
 [0, 1], ``w [N, Q, H, L, P]``; the forward returns ``[N, Q, H*D]`` in the
-value's dtype, the backward the gradients in their inputs' dtypes.
+value's dtype, the backward the gradients in their inputs' dtypes.  Every
+kernel sums in a fixed order, so each gives the same bits every run.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+from typing import NamedTuple, Sequence, Tuple
 
 import torch
 
@@ -142,6 +147,21 @@ def _check(name, value, level_shapes, sampling_locations, attention_weights,
     return N, S, Q, H, D, L, P
 
 
+_functions = {}
+
+
+def _c_function(library, name, argtypes):
+    """``csrc/<library>.cu``'s C entry ``name``, its argument types set once
+    (setting them costs microseconds of host time a call)."""
+    fn = _functions.get(name)
+    if fn is None:
+        fn = getattr(load_library(library), name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _functions[name] = fn
+    return fn
+
+
 def _level_array(level_shapes):
     return (ctypes.c_int * (2 * len(level_shapes)))(
         *[s for hw_ in level_shapes for s in hw_])
@@ -150,7 +170,7 @@ def _level_array(level_shapes):
 def launch_forward(name, library, value, level_shapes, sampling_locations,
                    attention_weights, check_dims=None):
     """Launch the forward kernel ``mmi_<library>_fwd`` of
-    ``csrc/<library>.cu`` (the C signature every deformable forward shares);
+    ``csrc/<library>.cu`` (the C signature of the v1 and v4 forwards);
     ``check_dims(D, P, dtype)`` raises on head and point counts the kernel
     does not take.  Returns ``[N, Q, H*D]`` in the value's dtype."""
     N, S, Q, H, D, L, P = _check(name, value, level_shapes,
@@ -158,10 +178,9 @@ def launch_forward(name, library, value, level_shapes, sampling_locations,
     forbid_grad(name, value, sampling_locations, attention_weights)
     if check_dims is not None:
         check_dims(D, P, value.dtype)
-    fn = getattr(load_library(library), f"mmi_{library}_fwd")
-    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4 \
-        + [ctypes.c_int] * 7 + [ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _c_function(library, f"mmi_{library}_fwd",
+                     [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4
+                     + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 2)
     out = torch.empty((N, Q, H * D), dtype=value.dtype, device=value.device)
     err = fn(
         value.device.index, _DTYPE_CODE[value.dtype],
@@ -174,32 +193,143 @@ def launch_forward(name, library, value, level_shapes, sampling_locations,
     return out
 
 
+def _group_lanes(D: int, dtype: torch.dtype) -> int:
+    """The lanes a sample (or a texel) takes in the grouped bodies: D's
+    16-byte vectors where they are 4, 8 or 16, else 0 (``group_lanes`` of
+    ``csrc/ms_deform_attn_common.cuh``)."""
+    nbytes = D * (torch.finfo(dtype).bits // 8)
+    g = nbytes // 16
+    return g if nbytes % 16 == 0 and g in (4, 8, 16) else 0
+
+
+def forward_variant(D: int, dtype: torch.dtype) -> str:
+    """The forward's body for a head width ``D`` of values in ``dtype``:
+    "grouped" where D is 4, 8 or 16 whole 16-byte vectors (a group of that
+    many lanes takes a sample), else "channel" (a thread a channel, any
+    D)."""
+    return "grouped" if _group_lanes(D, dtype) else "channel"
+
+
+# the dynamic shared memory a block of the value gradient's binning may take
+# on the H100 (227 KB, less 1 KB for its static tables)
+SHARED_BYTES = 232448 - 1024
+
+
+class ValueGradPlan(NamedTuple):
+    """How the value gradient runs a call.  ``cells``: the bins of an
+    (n, h)'s samples, (h + 1) * (w + 1) a level.  The binning takes one CTA
+    per (n, h, level) of ``bin_warps`` warps, each warp a contiguous run of
+    the level's samples and a row of the level's cell table: ``table``
+    "shared" (the [bin_warps + 1, cells_l] table in shared memory) or
+    "global" (in a device scratch, where no 4 warps' rows fit).  ``body``:
+    "grouped" (G lanes a sample, 16-byte loads of dOut) or "lanes" (lanes
+    along D, any D).  ``walks``, per level: "group" (a group of G lanes a
+    texel, where the walk of a texel's four cells is 32 samples or fewer on
+    average) or "warp" (a warp a texel)."""
+    cells: int
+    table: str
+    bin_warps: int
+    body: str
+    walks: Tuple[str, ...]
+
+
+def value_grad_plan(level_shapes: Sequence[Tuple[int, int]], Q: int, L: int,
+                    P: int, D: int, dtype: torch.dtype) -> ValueGradPlan:
+    """The value gradient's plan for a call (a pure function of the
+    shapes); raises where an (n, h)'s Q*L*P sample ids do not fit in
+    int32."""
+    if len(level_shapes) != L:
+        raise ValueError(f"{L} levels, level_shapes {level_shapes}")
+    if Q * L * P > 2 ** 31 - 1:
+        raise ValueError(f"value gradient: Q*L*P = {Q * L * P} sample ids "
+                         "of an (n, h) do not fit in int32")
+    per_level = [(h + 1) * (w + 1) for h, w in level_shapes]
+    fit = SHARED_BYTES // (4 * max(per_level)) - 1
+    table, warps = ("shared", min(32, fit)) if fit >= 4 else ("global", 8)
+    if not _group_lanes(D, dtype):
+        return ValueGradPlan(sum(per_level), table, warps, "lanes",
+                             ("warp",) * L)
+    walks = tuple("group" if Q * P <= 8 * c else "warp" for c in per_level)
+    return ValueGradPlan(sum(per_level), table, warps, "grouped", walks)
+
+
+def _refuse_misaligned(name, t, what, D, dtype):
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name}: {what} must start on a 16-byte boundary "
+                         f"at D = {D} ({dtype})")
+
+
 def _launch(value, level_shapes, sampling_locations, attention_weights):
-    """Launch the forward kernel; raises on input it does not take."""
-    return launch_forward("ms_deform_attn_cuda", "ms_deform_attn", value,
-                          level_shapes, sampling_locations, attention_weights)
+    """Launch the forward kernel; raises on input it does not take.  The
+    "grouped" body loads 16-byte vectors of the value: there a value off a
+    16-byte boundary is refused before any launch."""
+    name = "ms_deform_attn_cuda"
+    variant = (forward_variant(value.shape[-1], value.dtype)
+               if value.dtype in _DTYPE_CODE else "channel")
+    if variant == "grouped":
+        _refuse_misaligned(name, value, "value", value.shape[-1], value.dtype)
+    N, S, Q, H, D, L, P = _check(name, value, level_shapes,
+                                 sampling_locations, attention_weights)
+    forbid_grad(name, value, sampling_locations, attention_weights)
+    fn = _c_function("ms_deform_attn", "mmi_ms_deform_attn_fwd",
+                     [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4
+                     + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 2)
+    out = torch.empty((N, Q, H * D), dtype=value.dtype, device=value.device)
+    err = fn(value.device.index, _DTYPE_CODE[value.dtype],
+             _DTYPE_CODE[sampling_locations.dtype], int(variant == "grouped"),
+             value.data_ptr(), sampling_locations.data_ptr(),
+             attention_weights.data_ptr(), out.data_ptr(),
+             N, S, Q, H, D, L, P, _level_array(level_shapes),
+             stream_of(value))
+    raise_on_error(name, err)
+    return out
 
 
 def _launch_bwd_value(value, level_shapes, sampling_locations,
                       attention_weights, grad_out):
-    """Launch the value-gradient kernel: fp32 atomics into a zeroed buffer,
-    returned in the value's dtype."""
+    """Launch the value gradient (the samples' cells, their stable binning,
+    then the gather: three kernels, no float atomics); returns ``[N, S, H,
+    D]`` in the value's dtype.  The
+    "grouped" body loads 16-byte vectors of dOut: there a grad_out off a
+    16-byte boundary is refused before any launch, as are locations off a
+    boundary of two elements (both bodies load an (x, y) pair at once)."""
     name = "ms_deform_attn_bwd_value"
+    if (value.dtype in _DTYPE_CODE
+            and _group_lanes(value.shape[-1], value.dtype)):
+        _refuse_misaligned(name, grad_out, "grad_out", value.shape[-1],
+                           value.dtype)
+    if sampling_locations.data_ptr() % (2 * sampling_locations.element_size()):
+        raise ValueError(f"{name}: sampling_locations must start on a "
+                         "boundary of two elements (one (x, y) pair a load)")
     N, S, Q, H, D, L, P = _check(name, value, level_shapes,
                                  sampling_locations, attention_weights,
                                  grad_out)
-    fn = load_library("ms_deform_attn_bwd").mmi_ms_deform_attn_bwd_value
-    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4 \
-        + [ctypes.c_int] * 7 + [ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    grad = torch.zeros((N, S, H, D), dtype=torch.float32, device=value.device)
-    err = fn(value.device.index, _DTYPE_CODE[value.dtype],
-             _DTYPE_CODE[sampling_locations.dtype],
-             sampling_locations.data_ptr(), attention_weights.data_ptr(),
-             grad_out.data_ptr(), grad.data_ptr(), N, S, Q, H, D, L, P,
-             _level_array(level_shapes), stream_of(value))
+    plan = value_grad_plan(level_shapes, Q, L, P, D, value.dtype)
+    fn = _c_function("ms_deform_attn_bwd", "mmi_ms_deform_attn_bwd_value",
+                     [ctypes.c_int] * 7 + [ctypes.c_void_p] * 8
+                     + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 2)
+    dev = value.device
+    keys = torch.empty((N * H, L, Q * P), dtype=torch.int32, device=dev)
+    ids = torch.empty((N * H, Q * L * P), dtype=torch.int32, device=dev)
+    cell_start = torch.empty((N * H, plan.cells + L), dtype=torch.int32,
+                             device=dev)
+    table = (torch.empty((N * H, plan.bin_warps + 1, plan.cells),
+                         dtype=torch.int32, device=dev)
+             if plan.table == "global" else None)
+    grad = torch.empty((N, S, H, D), dtype=value.dtype, device=dev)
+    group_levels = sum(1 << l for l, w in enumerate(plan.walks)
+                       if w == "group")
+    err = fn(dev.index, _DTYPE_CODE[value.dtype],
+             _DTYPE_CODE[sampling_locations.dtype], plan.bin_warps,
+             int(plan.table == "shared"), int(plan.body == "grouped"),
+             group_levels, sampling_locations.data_ptr(),
+             attention_weights.data_ptr(), grad_out.data_ptr(),
+             keys.data_ptr(), ids.data_ptr(), cell_start.data_ptr(),
+             None if table is None else table.data_ptr(), grad.data_ptr(),
+             N, S, Q, H, D, L, P, _level_array(level_shapes),
+             stream_of(value))
     raise_on_error(name, err)
-    return grad.to(value.dtype)
+    return grad
 
 
 def loc_weight_variant(D: int, dtype: torch.dtype) -> str:
@@ -207,10 +337,7 @@ def loc_weight_variant(D: int, dtype: torch.dtype) -> str:
     ``dtype``: "grouped" where D is 4, 8 or 16 whole 16-byte vectors (a
     group of that many lanes takes a sample), else "warp" (a warp a sample,
     any D)."""
-    nbytes = D * (torch.finfo(dtype).bits // 8)
-    if nbytes % 16 == 0 and nbytes // 16 in (4, 8, 16):
-        return "grouped"
-    return "warp"
+    return "grouped" if _group_lanes(D, dtype) else "warp"
 
 
 def _launch_bwd_loc_weight(value, level_shapes, sampling_locations,
@@ -222,18 +349,16 @@ def _launch_bwd_loc_weight(value, level_shapes, sampling_locations,
     name = "ms_deform_attn_bwd_loc_weight"
     variant = (loc_weight_variant(value.shape[-1], value.dtype)
                if value.dtype in _DTYPE_CODE else "warp")
-    if variant == "grouped" and (value.data_ptr() % 16
-                                 or grad_out.data_ptr() % 16):
-        raise ValueError(f"{name}: value and grad_out must start on a "
-                         f"16-byte boundary at D = {value.shape[-1]} "
-                         f"({value.dtype})")
+    if variant == "grouped":
+        for what, t in (("value", value), ("grad_out", grad_out)):
+            _refuse_misaligned(name, t, what, value.shape[-1], value.dtype)
     N, S, Q, H, D, L, P = _check(name, value, level_shapes,
                                  sampling_locations, attention_weights,
                                  grad_out)
-    fn = load_library("ms_deform_attn_bwd").mmi_ms_deform_attn_bwd_loc_weight
-    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 6 \
-        + [ctypes.c_int] * 7 + [ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = _c_function("ms_deform_attn_bwd",
+                     "mmi_ms_deform_attn_bwd_loc_weight",
+                     [ctypes.c_int] * 4 + [ctypes.c_void_p] * 6
+                     + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 2)
     dev = value.device
     dt = sampling_locations.dtype
     d_loc = torch.empty((N, Q, H, L, P, 2), dtype=dt, device=dev)
