@@ -117,9 +117,33 @@ Phases, each of which raises (and exits nonzero) on failure:
    1e-3 in bf16; 1e-4 in fp32; d_loc away from the hat's kinks) at all four
    cases, in bf16 and fp32, the benchmark's own gradients equal to the
    kernels', beside the bounds of kernels 2 and 3 (the same function) and
-   the design's own operation count.
+   the design's own operation count;
+11. the training entry point (`mm_interleaved_tpu_torch.train.main`) on
+   ``build/smoke_train.yaml``: `configs/pretrain_synthetic.yaml` with the
+   flagship preset (``seq_len`` 256, 2 image slots a row), 2 rows a batch,
+   3 steps, no warm-up, from the synthetic data source through the data
+   layer: three finite step lines, frozen leaves bit-identical, every
+   trainable group moved, each kernel's launches equal to the count
+   derived from the config for the image slots of the pipeline's batches,
+   the final checkpoint written (size and write time logged) and deleted;
+   the data path's host ms a batch, timed alone; then the resume check at
+   the tiny preset: a run killed in step 3 and resumed from its step-2
+   checkpoint gives step 3's metrics, masters and moments bit for bit as
+   an uninterrupted run;
+12. the interleaved-turn benchmark (`mm_interleaved_tpu_torch.bench.run`)
+   at its defaults (base preset, B = 2, 32 tokens, 25 CFG steps, 3 timed
+   turns, decode at B = 8): its line printed, every value finite and
+   positive, both utilisation estimates under 1.05, every kernel's
+   launches equal to the count derived from the base config, over the run
+   and over the first timed turn, whose counts are read in a window of
+   their own;
+13. the training-step benchmark (`mm_interleaved_tpu_torch.bench_train.
+   run`), small and base sections, 2 timed steps each: finite, positive
+   fields, a measured base full step, every kernel of the step launched.
 
-Prints a ``{"kernels": [...]}`` line (all thirteen kernels), the
+Prints a ``{"kernels": [...]}`` line (all thirteen kernels, each with its
+launches in the measured bench turn and its mean launches a train-entry
+step), the
 ``nvidia-smi`` name/power line, and last ``{"ok": true, "device":
 {...}}``.  Needs one CUDA card and the
 repository checkout around it; imports no JAX.
@@ -132,17 +156,17 @@ import copy
 import dataclasses
 import json
 import shutil
-import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 
 # the port's timing helpers and the card's peak rates (this import fails,
 # and the run with it, outside the repository checkout or without torch)
 from mm_interleaved_tpu_torch.utils.timing import (
-    PEAK_BF16_FLOPS, PEAK_BYTES, PEAK_FP32_FLOPS, device_kernels, device_ms,
-    device_ms_by_kernel, queued_ms, time_ms)
+    PEAK_BF16_FLOPS, PEAK_BYTES, PEAK_FP32_FLOPS, card_line, device_kernels,
+    device_ms, device_ms_by_kernel, queued_ms, time_ms)
 from mm_interleaved_tpu_torch.utils.timing import RUNS as TIMING_RUNS
 from mm_interleaved_tpu_torch.utils.timing import nbytes as _nbytes
 
@@ -256,15 +280,6 @@ TRAIN_STEPS = 3
 
 def log(*a):
     print(*a, flush=True)
-
-
-def nvidia_smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
 
 
 def kmod(name):
@@ -2814,6 +2829,324 @@ def run_v5_bench_phase() -> list:
             for name in V4_BWD]
 
 
+# --------------------------------------------------------------------------
+# the entry points (phases 11-13)
+
+SMOKE_TRAIN_STEPS = 3
+# the kernels that every training step launches
+TRAIN_KERNELS = ("ms_deform_attn_fwd", "flash_attention_fwd", *GN, *BACKWARD)
+
+
+class Killed(Exception):
+    """Ends a run of the training entry point mid-step (phase 11)."""
+
+
+def smoke_train_config(name: str, model: dict, **training) -> str:
+    """``build/<name>.yaml``: `configs/pretrain_synthetic.yaml` with
+    ``model`` and the ``training`` keys given, 2 rows a batch."""
+    import yaml
+
+    from mm_interleaved_tpu_torch.ops.cuda_build import BUILD_DIR
+
+    with open("configs/pretrain_synthetic.yaml") as f:
+        cfg = yaml.safe_load(f)
+    cfg["model"] = model
+    cfg["training"].update(training)
+    cfg["data"]["per_device_batch_size"] = 2
+    path = BUILD_DIR.parent / f"{name}.yaml"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(yaml.safe_dump(cfg))
+    return str(path)
+
+
+def train_entry(config: str, out_dir: str, kill_at=None) -> dict:
+    """`train.main` on the card into ``out_dir``, killed before step
+    ``kill_at + 1`` when ``kill_at`` is given."""
+    from mm_interleaved_tpu_torch import train
+    from mm_interleaved_tpu_torch.engine.trainer import Trainer
+
+    step = Trainer.train_step
+
+    def killable(self, batch, draws=None):
+        if self.step == kill_at:
+            raise Killed
+        return step(self, batch, draws)
+
+    Trainer.train_step = killable
+    try:
+        return train.main(["--config", config, "--output_dir", out_dir,
+                           "--device", "cuda"])
+    finally:
+        Trainer.train_step = step
+
+
+def check_resume() -> dict:
+    """The tiny preset through the training entry point on the card: 3
+    steps uninterrupted; then a run killed in step 3, resumed from its
+    step-2 checkpoint.  Step 3's metrics, masters and moments must be the
+    uninterrupted run's, bit for bit."""
+    import torch
+
+    from mm_interleaved_tpu_torch.ops.cuda_build import BUILD_DIR
+
+    cfg = smoke_train_config("smoke_resume", {"preset": "tiny"},
+                             save_steps=2, max_steps=3)
+    root = BUILD_DIR.parent / "smoke_resume"
+    shutil.rmtree(root, ignore_errors=True)
+    a = train_entry(cfg, str(root / "a"))
+    try:
+        train_entry(cfg, str(root / "b"), kill_at=2)
+        raise AssertionError("the killed run did not stop")
+    except Killed:
+        pass
+    saved = sorted(p.name for p in (root / "b" / "checkpoints").iterdir())
+    if saved != ["step_2.pt"]:
+        raise AssertionError(f"killed run's checkpoints {saved}")
+    b = train_entry(cfg, str(root / "b"))
+    if [s for s, _ in b["logged"]] != [3]:
+        raise AssertionError(f"resumed run logged {b['logged']}")
+    m_a, m_b = a["logged"][-1][1], b["logged"][-1][1]
+    keys = ("loss", "grad_norm", "loss_txt", "loss_img")
+    same = {k: m_a[k] == m_b[k] for k in keys}
+    sa = torch.load(a["checkpoint"], weights_only=False)
+    sb = torch.load(b["checkpoint"], weights_only=False)
+    same["masters"] = all(torch.equal(x, sb["params"][n])
+                          for n, x in sa["params"].items())
+    same["moments"] = all(torch.equal(x, sb["opt_state"][k][n])
+                          for k in ("m", "v")
+                          for n, x in sa["opt_state"][k].items())
+    same["data_state"] = sa["data_state"] == sb["data_state"]
+    if not all(same.values()):
+        raise AssertionError(f"resumed step 3 differs: {same}; "
+                             f"{ {k: (m_a[k], m_b[k]) for k in keys} }")
+    shutil.rmtree(root, ignore_errors=True)
+    return dict(same=same, step3={k: m_a[k] for k in keys},
+                data_state=sa["data_state"])
+
+
+def run_train_entry() -> dict:
+    """Phase 11: `train.main` on the flagship (2 rows of 256 tokens, 2
+    image slots a row, 512 px targets) from the YAML, 3 steps with every
+    count at 0 just before it (the zero-initialised leaves perturbed as in
+    phase 8 when the fit starts); then `check_resume`.  Raises on any
+    failed check."""
+    import torch
+
+    from mm_interleaved_tpu_torch.data import native
+    from mm_interleaved_tpu_torch.data.pipeline import build_train_iterator
+    from mm_interleaved_tpu_torch.engine.trainer import Trainer
+    from mm_interleaved_tpu_torch.ops.cuda_build import BUILD_DIR
+    from mm_interleaved_tpu_torch.utils.config import (build_model_config,
+                                                       load_config)
+
+    t_phase = time.perf_counter()
+    model = {"preset": "flagship",
+             "overrides": {"seq_len": 256, "max_num_images": 2}}
+    config = smoke_train_config("smoke_train", model, warmup_steps=0,
+                                max_steps=SMOKE_TRAIN_STEPS)
+    cfg = load_config(config)
+    model_cfg = build_model_config(cfg["model"])
+    # the data path alone: the batches the run takes and their host time
+    it, _ = build_train_iterator(cfg["data"], model_cfg)
+    host_ms, images = [], []
+    for _ in range(SMOKE_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        batch = next(it)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        images.append(batch["image_tensors"].shape[0]
+                      * batch["image_tensors"].shape[1])
+    per_step = [expected_train_launches(model_cfg, n) for n in images]
+    expected = {k: sum(e[k] for e in per_step) for k in KERNELS}
+
+    snap = dict(step_ms=[])
+    fit, step = Trainer.fit, Trainer.train_step
+
+    def snapshot_fit(self, *a, **kw):
+        # as phase 8: the zero-initialised gates and offsets would leave
+        # the deformable branches without gradient; the masters follow
+        perturb_zero_inits(self.model, SEED + 1)
+        with torch.no_grad():
+            for p, x in zip(self.optimizer.params, self.optimizer.masters):
+                if x is not p.data:
+                    x.copy_(p.detach().float())
+        params = dict(self.model.named_parameters())
+        snap["frozen"] = {n: p.detach().to("cpu", copy=True)
+                          for n, p in params.items() if not p.requires_grad}
+        snap["start"] = [p.detach().to("cpu", copy=True)
+                         for p in self.optimizer.params]
+        torch.cuda.reset_peak_memory_stats()
+        return fit(self, *a, **kw)
+
+    def timed_step(self, batch, draws=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = step(self, batch, draws)
+        torch.cuda.synchronize()
+        snap["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        return m
+
+    out_dir = BUILD_DIR.parent / "smoke_train"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    free_gb = shutil.disk_usage(BUILD_DIR.parent).free / 1e9
+    Trainer.fit, Trainer.train_step = snapshot_fit, timed_step
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        res = train_entry(config, str(out_dir))
+    finally:
+        Trainer.fit, Trainer.train_step = fit, step
+    launches = read_counts()
+    run_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    trainer = res.pop("trainer")
+    opt = trainer.optimizer
+    logged = res["logged"]
+    if [s for s, _ in logged] != list(range(1, SMOKE_TRAIN_STEPS + 1)):
+        raise AssertionError(f"step lines {logged}")
+    for _, m in logged:
+        if not all(np.isfinite(v) for v in m.values()):
+            raise AssertionError(f"non-finite training metrics {m}")
+        if not m["loss_img"] > 0:  # the batches' images reach the decoder
+            raise AssertionError(f"no image loss: {m}")
+    if launches != expected:
+        raise AssertionError(f"train entry launches {launches} != "
+                             f"{expected} (images a step {images})")
+    params = dict(trainer.model.named_parameters())
+    for n, t in snap.pop("frozen").items():
+        if not torch.equal(params[n].detach(), t.to(params[n].device)):
+            raise AssertionError(f"frozen parameter {n} changed")
+    moved = {}
+    for lab, x, x0 in zip(opt.labels, opt.masters, snap.pop("start")):
+        d = float((x - x0.to(x.device).float()).abs().max())
+        moved[lab] = max(moved.get(lab, 0.0), d)
+    if not all(d > 0 for d in moved.values()):
+        raise AssertionError(f"a trainable group did not move: {moved}")
+    n_train = sum(x.numel() for x in opt.masters)
+    del trainer, opt, params
+    torch.cuda.empty_cache()
+    ckpt = Path(res["checkpoint"])
+    if ckpt.name != f"step_{SMOKE_TRAIN_STEPS}.pt" or not ckpt.exists():
+        raise AssertionError(f"final checkpoint {ckpt}")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    t_resume = time.perf_counter()
+    resume = check_resume()
+    return dict(logged=logged, step_ms=snap["step_ms"], launches=launches,
+                per_step=per_step, images=images, host_ms=host_ms,
+                native=native.is_available(), peak_gb=peak_gb,
+                trainable=n_train, moved=moved, run_s=run_s,
+                checkpoint_gb=res["checkpoint_bytes"] / 1e9, free_gb=free_gb,
+                save_s=res["save_s"], resume=resume,
+                resume_s=time.perf_counter() - t_resume,
+                wall_s=time.perf_counter() - t_phase)
+
+
+def bench_text_launches(cfg, n_decode: int) -> dict:
+    """Each kernel's launches in `bench.text_half` (the text slice's
+    derivation): the adapter's deformable calls and the LLM's MMFS layers
+    at the prefill and each later token; the visual tokenizer's mask-free
+    attention."""
+    adapter = cfg.visual.encoder
+    n_cross = cfg.llm.num_hidden_layers // cfg.llm.cross_attention_frequency
+    out = dict.fromkeys(KERNELS, 0)
+    out["ms_deform_attn_fwd"] = (2 * adapter.num_interactions
+                                 + adapter.extra_extractors
+                                 + n_cross * n_decode)
+    out["flash_attention_fwd"] = encoder_flash_calls(cfg)
+    return out
+
+
+def run_bench_turn() -> dict:
+    """Phase 12: `bench.run("cuda")` at its defaults with every count at 0
+    just before it: its line's values finite and positive, both
+    utilisation estimates under 1.05, and every kernel's launches equal to
+    the count derived from the base config for its warm-up and timed
+    turns and its throughput decodes.  One turn's launches are read in a
+    window of their own, the counts read just before the first timed
+    turn's `text_half` and just after its `image_half`, and must equal
+    the turn's derived count."""
+    import torch
+
+    from mm_interleaved_tpu_torch import bench
+
+    reps, B, n_decode, n_denoise = 3, 2, 32, 25
+    cfg = bench.PRESETS["base"]()
+    text = bench_text_launches(cfg, n_decode)
+    image = expected_image_launches(cfg, n_denoise, B)
+    derived = {k: text[k] + image[k] for k in KERNELS}
+    expected = {k: (1 + reps) * (derived[k] + text[k]) for k in KERNELS}
+    text_half, image_half = bench.text_half, bench.image_half
+    calls, window = {"text": 0, "image": 0}, {}
+
+    def windowed_text(*a, **kw):
+        calls["text"] += 1
+        if calls["text"] == 2:  # the first timed turn (after the warm-up)
+            window["before"] = read_counts()
+        return text_half(*a, **kw)
+
+    def windowed_image(*a, **kw):
+        out = image_half(*a, **kw)
+        calls["image"] += 1
+        if calls["image"] == 2:
+            window["after"] = read_counts()
+        return out
+
+    bench.text_half, bench.image_half = windowed_text, windowed_image
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        res = bench.run("cuda")
+    finally:
+        bench.text_half, bench.image_half = text_half, image_half
+    launches = read_counts()
+    wall_s = time.perf_counter() - t0
+    turn = {k: window["after"][k] - window["before"][k] for k in KERNELS}
+    bad = {k: v for k, v in res.items() if isinstance(v, (int, float))
+           and not (np.isfinite(v) and v > 0)}
+    if bad:
+        raise AssertionError(f"bench values not finite and positive: {bad}")
+    for k in ("decode_hbm_util_est", "decode_mfu_est"):
+        if not res[k] < 1.05:
+            raise AssertionError(f"bench {k} {res[k]} >= 1.05")
+    if launches != expected:
+        raise AssertionError(f"bench launches {launches} != {expected}")
+    if turn != derived:
+        raise AssertionError(f"one bench turn launched {turn} != {derived}")
+    for name in ("ms_deform_attn_fwd", "ms_deform_attn_mi_fwd",
+                 "flash_attention_fwd", *GN, "geglu_fwd"):
+        if turn[name] == 0:
+            raise AssertionError(f"{name} not on the bench turn")
+    torch.cuda.empty_cache()
+    return dict(line=res, turn=turn, launches=launches, wall_s=wall_s)
+
+
+def run_bench_train() -> dict:
+    """Phase 13: `bench_train.run("cuda")`, small and base sections, 2
+    timed steps each, with every count at 0 just before it: its values
+    finite and positive, a measured base full step, each kernel of the
+    training step launched."""
+    import os
+
+    import torch
+
+    from mm_interleaved_tpu_torch import bench_train
+
+    os.environ["BENCH_TRAIN_REPS"] = "2"
+    reset_counts()
+    t0 = time.perf_counter()
+    res = bench_train.run("cuda")
+    launches = read_counts()
+    wall_s = time.perf_counter() - t0
+    bad = {k: v for k, v in res.items() if isinstance(v, (int, float))
+           and not (np.isfinite(v) and v > 0)}
+    if bad or "base_full_step_ms" not in res:
+        raise AssertionError(f"bench_train values: {bad or res}")
+    missing = [k for k in TRAIN_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"bench_train launched no {missing}")
+    torch.cuda.empty_cache()
+    return dict(line=res, launches=launches, wall_s=wall_s)
+
+
 def main() -> int:
     import torch
 
@@ -2825,7 +3158,7 @@ def main() -> int:
     from mm_interleaved_tpu_torch.models.mm_interleaved import build_model
 
     # 1. environment
-    smi = nvidia_smi_line()
+    smi = card_line()
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
     log(f"device: {torch.cuda.get_device_name(0)} | {smi}")
@@ -2954,6 +3287,44 @@ def main() -> int:
     lines += run_bench_phase()
     # 10. the v4-against-v5 benchmark, forward and backward
     lines += run_v5_bench_phase()
+    # the captured inputs are compared and saved: free them for the
+    # entry points
+    cases.clear()
+    torch.cuda.empty_cache()
+
+    # 11. the training entry point on the flagship, then the resume check
+    te = run_train_entry()
+    log(f"train entry: flagship from the YAML, {te['images']} image slots "
+        f"a step, {SMOKE_TRAIN_STEPS} steps: "
+        f"{[round(x, 1) for x in te['step_ms']]} ms/step, peak memory "
+        f"{te['peak_gb']:.2f} GB, {te['trainable'] / 1e9:.3f} B trainable; "
+        f"data path {[round(x, 1) for x in te['host_ms']]} host ms a batch "
+        f"(native kernels: {te['native']}); losses "
+        f"{[m['loss'] for _, m in te['logged']]}, grad norms "
+        f"{[m['grad_norm'] for _, m in te['logged']]}; groups moved "
+        f"{json.dumps(te['moved'])}; launches {json.dumps(te['launches'])}")
+    log(f"train entry: final checkpoint {te['checkpoint_gb']:.3f} GB written "
+        f"in {te['save_s']:.1f} s ({te['free_gb']:.0f} GB free before the "
+        f"run; deleted); run {te['run_s']:.1f} s; tiny "
+        f"resume from step 2, step 3 the same bits: "
+        f"{json.dumps(te['resume'])} ({te['resume_s']:.1f} s); phase 11 "
+        f"{te['wall_s']:.1f} s")
+    # 12. the interleaved-turn benchmark at the base preset
+    bt = run_bench_turn()
+    log(f"bench: {json.dumps(bt['line'])}")
+    log(f"bench launches {json.dumps(bt['launches'])}, one timed turn "
+        f"(measured) {json.dumps(bt['turn'])}; phase 12 "
+        f"{bt['wall_s']:.1f} s")
+    # 13. the training-step benchmark, small and base
+    btr = run_bench_train()
+    log(f"bench_train: {json.dumps(btr['line'])}")
+    log(f"bench_train launches {json.dumps(btr['launches'])}; phase 13 "
+        f"{btr['wall_s']:.1f} s")
+    for line in lines:
+        line["bench_turn_launches"] = bt["turn"][line["name"]]
+        per_step = te["launches"][line["name"]] / SMOKE_TRAIN_STEPS
+        line["train_entry_step_launches"] = (
+            int(per_step) if per_step == int(per_step) else per_step)
     log(json.dumps({"kernels": lines}))
     log(smi)
     print(json.dumps({"ok": True, "device": {

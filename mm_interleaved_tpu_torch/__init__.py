@@ -9,6 +9,8 @@ plain PyTorch version on the CPU.  Importing the package builds nothing: kernels
 use.  Entry points: `generation.text.generate_texts`;
 `MMInterleaved.generate_image_inputs` then
 `generation.diffusion.generate_images`; `engine.trainer.Trainer`;
-`python -m mm_interleaved_tpu_torch.bench_deform_kernel`; and
-`python -m mm_interleaved_tpu_torch.bench_v5_kernel`.
+`python -m mm_interleaved_tpu_torch.train`, `.bench` and `.bench_train`
+(the counterparts of `train.py`, `bench.py` and `bench_train.py`, on the
+data layer of `data/`); `python -m mm_interleaved_tpu_torch.bench_deform_kernel`;
+and `python -m mm_interleaved_tpu_torch.bench_v5_kernel`.
 """

@@ -22,7 +22,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 from typing import Dict, Optional
 
 import numpy as np
@@ -31,6 +30,7 @@ import torch
 from .ops.ms_deform_attn import ms_deform_attn
 from .ops.ms_deform_attn_v1 import ms_deform_attn_v1
 from .ops.ms_deform_attn_v4 import ms_deform_attn_v4
+from .utils.timing import card_line
 
 CASES = {
     "unet": dict(B=4, Q=4096, shapes=((64, 64), (32, 32), (16, 16), (8, 8)),
@@ -120,13 +120,8 @@ def run(device="cuda", cases: Optional[Dict[str, dict]] = None) -> dict:
 def print_card() -> None:
     """One JSON line: the card's name and its ``nvidia-smi`` name and power
     limit, which every time printed after it belongs to."""
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
     print(json.dumps({"device": torch.cuda.get_device_name(),
-                      "nvidia_smi": smi}), flush=True)
+                      "nvidia_smi": card_line()}), flush=True)
 
 
 def main(argv=None) -> int:

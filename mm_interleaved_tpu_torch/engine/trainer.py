@@ -12,6 +12,12 @@
 * Randomness: each micro-batch draws its diffusion noise, timesteps and
   uncond drops from a `torch.Generator` seeded by ``(seed, step, i)``, the
   counterpart of ``fold_in(PRNGKey(seed), step)``; ``draws`` injects them.
+* Reproducibility: a step's forward and backward (`forward_backward`) run
+  with cuDNN's deterministic algorithms, so one state and one batch give
+  the same bits every run and a resumed run repeats the uninterrupted one
+  (the default algorithms of some convolution weight gradients, the tiny
+  preset's fp32 UNet's, sum in a varying order); the setting is restored
+  after them.
 * Checkpoints (`torch.save`, ``step_{n}.pt`` under ``checkpoint_dir``) hold
   the trainable parameters (fp32 masters), the optimizer state, the step,
   the numpy global RNG state and the data position ``{"epoch",
@@ -24,11 +30,12 @@ import dataclasses
 import os
 import time
 from pathlib import Path
-from typing import Any, Callable, Dict, Iterator, List, Optional
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..utils.device import to_device
 from .optim import AdamW, OptimConfig, freeze
 
 
@@ -83,13 +90,22 @@ class Trainer:
         return [{k: (v[i] if isinstance(v, torch.Tensor) else v)
                  for k, v in batch.items()} for i in range(n)]
 
-    def train_step(self, batch: Dict[str, Any],
-                   draws: Optional[List[Dict[str, torch.Tensor]]] = None
-                   ) -> Dict[str, float]:
-        """One optimizer step; returns the float metrics ``loss``,
-        ``grad_norm``, ``loss_txt`` and ``loss_img``.  ``draws`` (one dict
-        per micro-batch) injects ``vae_noise``, ``noise``, ``timesteps`` and
-        ``uncond_drop``."""
+    def forward_backward(self, batch: Dict[str, Any],
+                         draws: Optional[List[Dict[str, torch.Tensor]]] = None
+                         ) -> Tuple[List[torch.Tensor], float,
+                                    Dict[str, float]]:
+        """The forward and backward of every micro-batch of ``batch``, with
+        cuDNN's deterministic algorithms (restored after): the fp32
+        gradients of the trainable leaves, averaged over the micro-batches,
+        the mean loss and the mean ``loss_txt`` / ``loss_img``."""
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            return self._forward_backward(batch, draws)
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+
+    def _forward_backward(self, batch, draws):
         self.model.train()
         params = self.optimizer.params
         micro = self._micro_batches(batch)
@@ -113,7 +129,16 @@ class Trainer:
                     aux_sum[k] = aux_sum.get(k, 0.0) + float(out[k].detach())
         if len(micro) > 1:
             grads = [x.mul_(inv) for x in grads]
-        loss = loss_sum * inv
+        return grads, loss_sum * inv, {k: v * inv for k, v in aux_sum.items()}
+
+    def train_step(self, batch: Dict[str, Any],
+                   draws: Optional[List[Dict[str, torch.Tensor]]] = None
+                   ) -> Dict[str, float]:
+        """One optimizer step; returns the float metrics ``loss``,
+        ``grad_norm``, ``loss_txt`` and ``loss_img``.  ``draws`` (one dict
+        per micro-batch) injects ``vae_noise``, ``noise``, ``timesteps`` and
+        ``uncond_drop``."""
+        grads, loss, aux = self.forward_backward(batch, draws)
         sq = torch.zeros((), dtype=torch.float32, device=self.device)
         for x in grads:
             sq += x.pow(2).sum().to(sq.device)
@@ -124,23 +149,25 @@ class Trainer:
             self.optimizer.step(grads, grad_norm)
         self.step += 1
         metrics = {"loss": loss, "grad_norm": gnorm}
-        metrics.update({k: v * inv for k, v in aux_sum.items()})
+        metrics.update(aux)
         return metrics
 
     def fit(self, data_iter: Iterator[Dict[str, Any]],
             num_steps: Optional[int] = None,
             log_fn: Optional[Callable[[int, Dict[str, float]], None]] = None,
             ) -> None:
-        """Training loop over ``data_iter``, logging every ``log_every``
-        steps and at the end, saving every ``save_every``."""
+        """Training loop over ``data_iter`` (its batches moved to the
+        device as they are taken), logging every ``log_every`` steps and at
+        the end, saving every ``save_every``."""
         num_steps = num_steps or self.cfg.max_steps
         n = self.cfg.grad_accum_steps
         t0 = time.time()
         for i in range(num_steps):
             if n == 1:
-                batch = next(data_iter)
+                batch = to_device(next(data_iter), self.device)
             else:
-                micro = [next(data_iter) for _ in range(n)]
+                micro = [to_device(next(data_iter), self.device)
+                         for _ in range(n)]
                 batch = {k: (torch.stack([m[k] for m in micro])
                              if isinstance(micro[0][k], torch.Tensor)
                              else micro[0][k]) for k in micro[0]}

@@ -14,6 +14,8 @@ from __future__ import annotations
 
 from typing import Optional
 
+import subprocess
+
 import numpy as np
 import torch
 
@@ -21,6 +23,17 @@ RUNS = 25
 PEAK_BF16_FLOPS = 989e12  # dense tensor-core bf16, H100 SXM
 PEAK_FP32_FLOPS = 67e12  # fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12  # HBM3
+
+
+def card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` gives them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0]
 
 
 def nbytes(*ts) -> int:
