@@ -13,7 +13,8 @@ Phases, each of which raises (and exits nonzero) on failure:
    card (kernels) against the same weights on the CPU (plain versions):
    text logits along greedy tokens, then `generate_image_inputs` and 3
    DDPM steps of `generate_images` with the same injected latents and
-   noise, images within 1e-4;
+   noise, images within 1e-4; beam search (K = 3, stopping on <eos> or
+   <soi>) gives the CPU's tokens;
 4. the flagship preset with its image decoder (Vicuna-13B width and depth,
    CLIP ViT-L/14 + adapter, 12-layer Q-Former, the SD-2.1-base UNet with
    MMFS over four pyramid levels, the SD VAE, 512 px) in bf16 with seeded
@@ -139,11 +140,26 @@ Phases, each of which raises (and exits nonzero) on failure:
    their own;
 13. the training-step benchmark (`mm_interleaved_tpu_torch.bench_train.
    run`), small and base sections, 2 timed steps each: finite, positive
-   fields, a measured base full step, every kernel of the step launched.
+   fields, a measured base full step, every kernel of the step launched;
+14. the serving path at the flagship (its seeded weights built again, bf16):
+   (a) `generate_texts` with beam search on the phase 5 prompt at the
+   caption defaults (K = 5, 20 tokens, min 8) and the VQA defaults (K = 3,
+   10 tokens): tokens in vocabulary, two runs identical, kernel 1's
+   launches the derived count, ms/token and peak memory beside greedy's,
+   and K = 1 equal to phase 5's greedy tokens; (b) the inference entry
+   point (`mm_interleaved_tpu_torch.inference.main`) on
+   ``build/smoke_inference.yaml``, text -> image -> text over two synthetic
+   jpgs, its PNG at 512 px, each turn's wall and launches against the
+   derived counts; (c) the evaluation entry point
+   (`mm_interleaved_tpu_torch.evaluate.main`) on ``build/smoke_eval.yaml``:
+   captions (5 beams), VQA (3 beams), VisDial ranking, grounding, text to
+   image with CLIP-FID and storytelling on synthetic files, one finite
+   ``eval_metrics.jsonl`` row each, each route's launches the derived
+   count and its samples/s.
 
 Prints a ``{"kernels": [...]}`` line (all thirteen kernels, each with its
-launches in the measured bench turn and its mean launches a train-entry
-step), the
+launches in the measured bench turn, its mean launches a train-entry
+step and its launches over phase 14's counted runs), the
 ``nvidia-smi`` name/power line, and last ``{"ok": true, "device":
 {...}}``.  Needs one CUDA card and the
 repository checkout around it; imports no JAX.
@@ -578,6 +594,15 @@ def small_reference(cases) -> dict:
     if margin > 10 * err and not torch.equal(tok_gpu, tok_cpu):
         raise AssertionError(f"tiny greedy tokens differ: {tok_gpu} vs "
                              f"{tok_cpu}")
+    # beam search, K = 3, stopping on <eos> or <soi> after 2 tokens
+    beam = dataclasses.replace(gen, num_beams=3, min_new_tokens=2,
+                               eos_token_ids=(s.eos_token_id,
+                                              s.soi_token_id))
+    beam_cpu = generate_texts(cpu, ids, imgs, n_img, att, beam)
+    beam_gpu = generate_texts(gpu, *dev[:4], beam).cpu()
+    if not torch.equal(beam_gpu, beam_cpu):
+        raise AssertionError(f"tiny beam tokens (K=3) differ: {beam_gpu} "
+                             f"vs {beam_cpu}")
 
     # the image path: the same prompt, injected draws
     steps = 3
@@ -610,6 +635,7 @@ def small_reference(cases) -> dict:
         raise AssertionError(f"tiny card run missed a kernel: {counts}")
     return dict(logits_max_abs_err=err, logits_scale=scale,
                 top2_margin=margin, tokens_equal=torch.equal(tok_gpu, tok_cpu),
+                beam_tokens=beam_cpu.tolist(),
                 image_inputs_max_abs_err=inputs_err,
                 images_max_abs_err=img_err, launches=counts)
 
@@ -3147,6 +3173,350 @@ def run_bench_train() -> dict:
     return dict(line=res, launches=launches, wall_s=wall_s)
 
 
+# --------------------------------------------------------------------------
+# the serving path (phase 14)
+
+# the evaluator's caption and VQA defaults (`evaluate.REF_TASK_DEFAULTS`)
+CAPTION_BEAM = dict(max_new_tokens=20, min_new_tokens=8, num_beams=5,
+                    length_penalty=1.0)
+VQA_BEAM = dict(max_new_tokens=10, min_new_tokens=0, num_beams=3,
+                length_penalty=0.0)
+SERVE_STEPS = 25
+# the grounding route decodes 24 greedy tokens; `generate_scores` runs the
+# options in chunks of 4 rows; the synthetic VisDial rows have 4 options
+GROUNDING_TOKENS = 24
+SCORES_MINI_BS = 4
+VISDIAL_OPTIONS = 4
+
+
+def add_launches(*counts) -> dict:
+    return {k: sum(c[k] for c in counts) for k in KERNELS}
+
+
+def scale_launches(counts, n: int) -> dict:
+    return {k: n * v for k, v in counts.items()}
+
+
+def scores_launches(cfg, chunks: int) -> dict:
+    """`generate_scores` over ``chunks`` chunks: each encodes its images
+    (the adapter's deformable calls, the visual tokenizer's attention) and
+    runs the cache-free LLM forward (every MMFS layer, every layer's
+    mask-free attention)."""
+    adapter = cfg.visual.encoder
+    n_cross = cfg.llm.num_hidden_layers // cfg.llm.cross_attention_frequency
+    out = dict.fromkeys(KERNELS, 0)
+    out["ms_deform_attn_fwd"] = chunks * (2 * adapter.num_interactions
+                                          + adapter.extra_extractors
+                                          + n_cross)
+    out["flash_attention_fwd"] = chunks * (encoder_flash_calls(cfg)
+                                           + cfg.llm.num_hidden_layers)
+    return out
+
+
+def clip_feature_launches(cfg, calls: int) -> dict:
+    """``calls`` batches through `utils.fid.CLIPViTFeatures`: the ViT's
+    layers."""
+    out = dict.fromkeys(KERNELS, 0)
+    out["flash_attention_fwd"] = calls * cfg.visual.encoder.vit.num_hidden_layers
+    return out
+
+
+def timed(fn, *a, **kw):
+    """``(fn(*a, **kw), ms, launches)``, synchronised, the launches read in
+    a window of the call's own."""
+    import torch
+
+    torch.cuda.synchronize()
+    before = read_counts()
+    t0 = time.perf_counter()
+    out = fn(*a, **kw)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    after = read_counts()
+    return out, ms, {k: after[k] - before[k] for k in KERNELS}
+
+
+def run_serving_beam(model, greedy_tokens) -> dict:
+    """Phase 14a: `generate_texts` with beam search on the phase 5 prompt
+    (B = 2) at the caption defaults (K = 5, 20 tokens, min 8, alpha 1) and
+    the VQA defaults (K = 3, 10 tokens, alpha 0): tokens in vocabulary, two
+    runs identical, kernel 1's launches the derived count; ms/token beside
+    greedy's at the same settings (the 1-token run subtracted), peak memory
+    of each; then K = 1 beam search against phase 5's greedy tokens."""
+    import torch
+
+    from mm_interleaved_tpu_torch.generation.beam import beam_search
+    from mm_interleaved_tpu_torch.generation.text import (
+        TextGenerationConfig, generate_texts)
+
+    cfg = model.cfg
+    s = cfg.special
+    ids, images, n_img, att = prompt_inputs(cfg, "cuda")
+    out = {}
+    for name, kw in (("caption", CAPTION_BEAM), ("vqa", VQA_BEAM)):
+        gen = TextGenerationConfig(
+            eos_token_ids=(s.eos_token_id, s.soi_token_id),
+            pad_token_id=s.pad_token_id, **kw)
+        T = gen.max_new_tokens
+        res = {}
+        for mode, g in (("beam", gen),
+                        ("greedy", dataclasses.replace(gen, num_beams=1))):
+            generate_texts(model, ids, images, n_img, att,
+                           dataclasses.replace(g, max_new_tokens=2))
+            _, first_ms, _ = timed(generate_texts, model, ids, images, n_img,
+                                   att, dataclasses.replace(g,
+                                                            max_new_tokens=1))
+            torch.cuda.reset_peak_memory_stats()
+            tokens, ms, launches = timed(generate_texts, model, ids, images,
+                                         n_img, att, g)
+            res[mode] = dict(tokens=tokens, ms=ms, first_ms=first_ms,
+                             ms_per_token=(ms - first_ms) / (T - 1),
+                             peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                             launches=launches)
+        tokens = res["beam"]["tokens"]
+        again = generate_texts(model, ids, images, n_img, att, gen)
+        if tuple(tokens.shape) != (B, T):
+            raise AssertionError(f"{name} beam tokens {tuple(tokens.shape)}")
+        if not ((tokens >= 0) & (tokens < cfg.llm.vocab_size)).all():
+            raise AssertionError(f"{name} beam tokens out of vocabulary")
+        if not torch.equal(tokens, again):
+            raise AssertionError(f"two {name} beam runs differ")
+        want = bench_text_launches(cfg, T)
+        for mode in res:
+            if res[mode]["launches"] != want:
+                raise AssertionError(f"{name} {mode} launches "
+                                     f"{res[mode]['launches']} != {want}")
+        out[name] = dict(
+            num_beams=gen.num_beams, new_tokens=T,
+            tokens=tokens[:, :8].tolist(),
+            **{f"{m}_{k}": r[k] for m, r in res.items()
+               for k in ("ms", "first_ms", "ms_per_token", "peak_gb")},
+            launches=res["beam"]["launches"])
+    one = TextGenerationConfig(max_new_tokens=NEW_TOKENS, eos_token_ids=(),
+                               pad_token_id=s.pad_token_id)
+    with torch.inference_mode():
+        prep = model.prepare_mm_embeds(ids, images, n_img)
+    k1 = beam_search(model, prep["mm_embeds"], att, prep["mmfs_values"],
+                     prep["cross_attention_mask"], one)
+    if not torch.equal(k1, greedy_tokens):
+        raise AssertionError(f"K = 1 beam tokens differ from phase 5's "
+                             f"greedy: {k1[:, :8]} vs {greedy_tokens[:, :8]}")
+    out["k1_equals_greedy"] = True
+    return out
+
+
+@contextlib.contextmanager
+def recording(cls, names, calls):
+    """Each method ``names`` of ``cls`` timed (`timed`), appending ``(name,
+    ms, launches)`` to ``calls``; restored on exit."""
+    saved = {n: getattr(cls, n) for n in names}
+
+    def wrap(name, fn):
+        def method(self, *a, **kw):
+            result, ms, launches = timed(fn, self, *a, **kw)
+            calls.append((name, ms, launches))
+            return result
+        return method
+
+    for n, fn in saved.items():
+        setattr(cls, n, wrap(n, fn))
+    try:
+        yield
+    finally:
+        for n, fn in saved.items():
+            setattr(cls, n, fn)
+
+
+def run_serving_inference(model) -> dict:
+    """Phase 14b: `inference.main` on ``build/smoke_inference.yaml``
+    (`configs/inference.yaml` at the flagship, 3 turns, an image forced
+    after each text turn, 25 steps) over an annt.json of two synthetic
+    jpgs: a text, image, text run whose PNG decodes to the decoder's size;
+    each turn's wall and launches against the derived counts (a text turn:
+    the encoder, the prefill and ``max_new_tokens - 1`` decode steps; an
+    image turn: `expected_image_launches` for one row)."""
+    import torch
+    import yaml
+    from PIL import Image
+
+    from mm_interleaved_tpu_torch import inference
+    from mm_interleaved_tpu_torch.data.synthetic_eval import (
+        write_inference_assets)
+    from mm_interleaved_tpu_torch.ops.cuda_build import BUILD_DIR
+    from mm_interleaved_tpu_torch.parallel.inference import LocalGenerator
+
+    root = BUILD_DIR.parent / "smoke_inference"
+    shutil.rmtree(root, ignore_errors=True)
+    annt = write_inference_assets(str(root / "inputs"))
+    with open("configs/inference.yaml") as f:
+        config = yaml.safe_load(f)
+    config["model"] = {"preset": "flagship"}
+    config["inference"].update(num_iter=3, force_image_every_turn=True,
+                               num_inference_steps=SERVE_STEPS)
+    path = BUILD_DIR.parent / "smoke_inference.yaml"
+    path.write_text(yaml.safe_dump(config))
+    calls = []
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    with recording(LocalGenerator, ("generate_texts", "generate_image_inputs",
+                                    "denoise"), calls):
+        res = inference.main(["--config", str(path), "--annt_path", annt,
+                              "--image_root", str(root / "inputs"),
+                              "--output_dir", str(root / "out"),
+                              "--device", "cuda"], model=model)
+    wall_s = time.perf_counter() - t0
+    launches = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    cfg = model.cfg
+    text = bench_text_launches(cfg, config["inference"]["max_new_tokens"])
+    image = expected_image_launches(cfg, SERVE_STEPS, 1)
+    turns = []
+    for name, ms, counts in calls:
+        if name == "denoise":
+            turns[-1]["ms"] += ms
+            turns[-1]["launches"] = add_launches(turns[-1]["launches"],
+                                                 counts)
+        else:
+            turns.append(dict(kind="text" if name == "generate_texts"
+                              else "image", ms=ms, launches=counts))
+    if [t["kind"] for t in turns] != ["text", "image", "text"]:
+        raise AssertionError(f"inference turns {[t['kind'] for t in turns]}")
+    for t in turns:
+        want = text if t["kind"] == "text" else image
+        if t["launches"] != want:
+            raise AssertionError(f"inference {t['kind']} turn launched "
+                                 f"{t['launches']} != {want}")
+    if launches != add_launches(text, image, text):
+        raise AssertionError(f"inference launches {launches}")
+    if len(res["images"]) != 1 or len(res["results"][0]["texts"]) != 2:
+        raise AssertionError(f"inference results {res['results']}")
+    png = np.asarray(Image.open(res["images"][0]))
+    size = cfg.image_decoder.image_size
+    if png.shape != (size, size, 3):
+        raise AssertionError(f"inference PNG {png.shape}")
+    return dict(turns=[{"kind": t["kind"], "ms": t["ms"]} for t in turns],
+                texts=res["results"][0]["texts"], png_shape=list(png.shape),
+                launches=launches, text_turn=text, image_turn=image,
+                peak_gb=peak_gb, wall_s=wall_s)
+
+
+EVAL_ROUTES = ("evaluate_caption", "evaluate_vqa", "evaluate_ranking",
+               "evaluate_grounding", "evaluate_t2i", "evaluate_storytelling")
+
+
+def eval_route_launches(cfg) -> dict:
+    """Each route's launches on one batch of 2 rows (the synthetic files of
+    `data.synthetic_eval`): the caption and VQA beams, the ranking chunks,
+    grounding's greedy tokens; t2i's image inputs and denoise (one
+    candidate) and storytelling's two rounds, each image route's CLIP
+    features of its generated and its ground-truth images."""
+    image = expected_image_launches(cfg, SERVE_STEPS, B)
+    clip = clip_feature_launches(cfg, 2)
+    chunks = -(-B * VISDIAL_OPTIONS // SCORES_MINI_BS)
+    return {
+        "evaluate_caption": bench_text_launches(
+            cfg, CAPTION_BEAM["max_new_tokens"]),
+        "evaluate_vqa": bench_text_launches(cfg, VQA_BEAM["max_new_tokens"]),
+        "evaluate_ranking": scores_launches(cfg, chunks),
+        "evaluate_grounding": bench_text_launches(cfg, GROUNDING_TOKENS),
+        "evaluate_t2i": add_launches(image, clip),
+        "evaluate_storytelling": add_launches(scale_launches(image, 2), clip),
+    }
+
+
+def run_serving_eval(model) -> dict:
+    """Phase 14c: `evaluate.main` on ``build/smoke_eval.yaml``: the six
+    routes of `data.synthetic_eval` (COCO captions with 5 beams, VQA with
+    3, VisDial ranking over 4 options, grounding, COCO text to image at 25
+    steps with CLIP-FID, storytelling over two rounds) at the flagship, 2
+    rows a batch, one batch each: one finite ``eval_metrics.jsonl`` row a
+    route, each route's launches the derived count, its samples/s."""
+    import torch
+    import yaml
+
+    from mm_interleaved_tpu_torch import evaluate
+    from mm_interleaved_tpu_torch.data.synthetic_eval import write_eval_assets
+    from mm_interleaved_tpu_torch.engine.evaluator import Evaluator
+    from mm_interleaved_tpu_torch.ops.cuda_build import BUILD_DIR
+
+    root = BUILD_DIR.parent / "smoke_eval"
+    shutil.rmtree(root, ignore_errors=True)
+    val = write_eval_assets(str(root / "data"), n=B,
+                            n_options=VISDIAL_OPTIONS)
+    config = dict(output_dir=str(root / "out"), model={"preset": "flagship"},
+                  data=dict(tokenizer_path=None, val=val),
+                  evaluation=dict(batch_size=B, max_batches=1, clip_fid=True,
+                                  num_inference_steps=SERVE_STEPS))
+    path = BUILD_DIR.parent / "smoke_eval.yaml"
+    path.write_text(yaml.safe_dump(config))
+    calls = []
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    with recording(Evaluator, EVAL_ROUTES, calls):
+        results = evaluate.main(["--config", str(path), "--device", "cuda"],
+                                model=model)
+    wall_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    rows = [json.loads(x) for x in
+            (root / "out" / "eval_metrics.jsonl").read_text().splitlines()]
+    names = [s["dataset_name"] for s in val]
+    if [r["dataset"] for r in rows] != names or list(results) != names:
+        raise AssertionError(f"eval rows {[r['dataset'] for r in rows]}")
+    if [c[0] for c in calls] != list(EVAL_ROUTES):
+        raise AssertionError(f"eval routes {[c[0] for c in calls]}")
+    want = eval_route_launches(model.cfg)
+    routes = {}
+    for (route, ms, launches), row in zip(calls, rows):
+        nums = [v for v in row.values() if isinstance(v, (int, float))
+                and not isinstance(v, bool)]
+        if not all(np.isfinite(nums)):
+            raise AssertionError(f"non-finite eval row {row}")
+        if launches != want[route]:
+            raise AssertionError(f"{route} launched {launches} != "
+                                 f"{want[route]}")
+        n = row.get("num_samples", row.get("num_generated"))
+        if not n:
+            raise AssertionError(f"eval row without samples {row}")
+        routes[route] = dict(dataset=row["dataset"], ms=ms, samples=n,
+                             samples_per_s=n / (ms / 1e3),
+                             row={k: v for k, v in row.items()
+                                  if k not in ("dataset", "time",
+                                               "image_dir")})
+    return dict(routes=routes, launches=add_launches(*(c[2] for c in calls)),
+                peak_gb=peak_gb, wall_s=wall_s)
+
+
+def run_serving(greedy_tokens) -> dict:
+    """Phase 14: the flagship with its image decoder, bf16, seeded weights
+    (phase 4's: the same seed and config but for ``max_num_images``, which
+    shapes no weight), built again after the earlier phases freed theirs,
+    then 14a, 14b and 14c on that one build."""
+    import gc
+
+    import torch
+
+    from mm_interleaved_tpu_torch.configs import flagship_config
+    from mm_interleaved_tpu_torch.models.mm_interleaved import build_model
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = build_model(flagship_config(), "cuda", torch.bfloat16, seed=SEED)
+    perturb_zero_inits(model, SEED + 1)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    beam = run_serving_beam(model, greedy_tokens)
+    inf = run_serving_inference(model)
+    ev = run_serving_eval(model)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(build_s=build_s, beam=beam, inference=inf, eval=ev,
+                wall_s=time.perf_counter() - t0)
+
+
 def main() -> int:
     import torch
 
@@ -3320,7 +3690,42 @@ def main() -> int:
     log(f"bench_train: {json.dumps(btr['line'])}")
     log(f"bench_train launches {json.dumps(btr['launches'])}; phase 13 "
         f"{btr['wall_s']:.1f} s")
+    # 14. the serving path at the flagship: beam search, the inference
+    # entry point, the evaluation entry point
+    sv = run_serving(res["tokens"])
+    for name, r in sv["beam"].items():
+        if name == "k1_equals_greedy":
+            continue
+        log(f"beam {name}: K={r['num_beams']}, {r['new_tokens']} tokens, "
+            f"B={B}: {r['beam_ms_per_token']:.2f} ms/token (greedy "
+            f"{r['greedy_ms_per_token']:.2f}), first token "
+            f"{r['beam_first_ms']:.1f} ms (greedy {r['greedy_first_ms']:.1f}),"
+            f" peak memory {r['beam_peak_gb']:.2f} GB (greedy "
+            f"{r['greedy_peak_gb']:.2f}); launches {json.dumps(r['launches'])}"
+            f"; tokens[:, :8] {r['tokens']}")
+    log(f"beam K=1 equals phase 5's greedy tokens: "
+        f"{sv['beam']['k1_equals_greedy']}")
+    inf = sv["inference"]
+    log(f"inference entry: turns {json.dumps(inf['turns'])} (ms), texts "
+        f"{inf['texts']}, PNG {inf['png_shape']}, peak memory "
+        f"{inf['peak_gb']:.2f} GB, {inf['wall_s']:.1f} s; launches "
+        f"{json.dumps(inf['launches'])} (text turn "
+        f"{json.dumps(inf['text_turn'])}, image turn "
+        f"{json.dumps(inf['image_turn'])})")
+    for route, r in sv["eval"]["routes"].items():
+        log(f"eval {route} ({r['dataset']}): {r['samples']} samples in "
+            f"{r['ms']:.1f} ms, {r['samples_per_s']:.3f} samples/s; "
+            f"{json.dumps(r['row'])}")
+    log(f"eval entry: peak memory {sv['eval']['peak_gb']:.2f} GB, "
+        f"{sv['eval']['wall_s']:.1f} s; launches "
+        f"{json.dumps(sv['eval']['launches'])}; phase 14 "
+        f"{sv['wall_s']:.1f} s (flagship built in {sv['build_s']:.1f} s)")
+    serving = add_launches(
+        *(r["launches"] for k, r in sv["beam"].items()
+          if k != "k1_equals_greedy"),
+        inf["launches"], sv["eval"]["launches"])
     for line in lines:
+        line["serving_launches"] = serving[line["name"]]
         line["bench_turn_launches"] = bt["turn"][line["name"]]
         per_step = te["launches"][line["name"]] / SMOKE_TRAIN_STEPS
         line["train_entry_step_launches"] = (

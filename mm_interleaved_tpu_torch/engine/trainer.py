@@ -20,7 +20,8 @@
   after them.
 * Checkpoints (`torch.save`, ``step_{n}.pt`` under ``checkpoint_dir``) hold
   the trainable parameters (fp32 masters), the optimizer state, the step,
-  the numpy global RNG state and the data position ``{"epoch",
+  the seed (that of the frozen weights, in the entry point), the numpy
+  global RNG state and the data position ``{"epoch",
   "offset"}``; `restore` resumes from the newest.
 """
 
@@ -155,10 +156,14 @@ class Trainer:
     def fit(self, data_iter: Iterator[Dict[str, Any]],
             num_steps: Optional[int] = None,
             log_fn: Optional[Callable[[int, Dict[str, float]], None]] = None,
+            eval_fn: Optional[Callable[["Trainer"], Dict[str, float]]] = None,
+            eval_every: int = 0,
             ) -> None:
         """Training loop over ``data_iter`` (its batches moved to the
         device as they are taken), logging every ``log_every`` steps and at
-        the end, saving every ``save_every``."""
+        the end, saving every ``save_every``.  ``eval_fn(trainer)`` runs
+        every ``eval_every`` steps (the reference's evaluate-during-training,
+        lmm_trainer.py:1174); its metrics are logged as ``eval/<name>``."""
         num_steps = num_steps or self.cfg.max_steps
         n = self.cfg.grad_accum_steps
         t0 = time.time()
@@ -176,6 +181,12 @@ class Trainer:
                            or i == num_steps - 1):
                 metrics["steps_per_sec"] = (i + 1) / (time.time() - t0)
                 log_fn(self.step, metrics)
+            if eval_fn is not None and eval_every \
+                    and self.step % eval_every == 0:
+                eval_metrics = eval_fn(self)
+                if log_fn and eval_metrics:
+                    log_fn(self.step, {f"eval/{k}": v
+                                       for k, v in eval_metrics.items()})
             self.maybe_save(data_state=(data_iter.state()
                                         if hasattr(data_iter, "state")
                                         else None))
@@ -191,6 +202,7 @@ class Trainer:
                            if isinstance(v, dict) else v)
                        for k, v in opt.state_dict().items()},
             step=self.step,
+            seed=self.cfg.seed,
             host_rng=np.random.get_state(),
             data_state=dict(data_state or {"epoch": 0, "offset": 0}),
         )

@@ -7,8 +7,8 @@ number of decode steps (counterpart of `mm_interleaved_tpu/generation/text.py`).
     tokens, padded with ``pad_token_id`` after the first stop token;
   * greedy or temperature/nucleus sampling (with a `torch.Generator`), the
     repetition penalty on generated tokens only, and the eos mask before
-    ``min_new_tokens``.  Beam search (and its config fields) is not ported
-    yet.
+    ``min_new_tokens``; ``num_beams > 1`` routes to the beam search of
+    :mod:`.beam`.
 """
 
 from __future__ import annotations
@@ -19,6 +19,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..models.llama import KVCache
+from .beam import beam_search
 
 
 @dataclasses.dataclass(frozen=True)
@@ -29,6 +30,13 @@ class TextGenerationConfig:
     top_p: float = 0.9
     temperature: float = 1.0
     repetition_penalty: float = 1.0
+    num_beams: int = 1
+    length_penalty: float = 1.0
+    # transformers 4.31 (the reference's pinned version) divides a finished
+    # hypothesis' score by its length *excluding* the stopping eos;
+    # transformers >= 4.49 divides by the length *including* it.  The
+    # default reproduces the reference.
+    lp_includes_eos: bool = False
     eos_token_ids: Tuple[int, ...] = (2,)
     pad_token_id: int = 0
 
@@ -145,6 +153,11 @@ def generate_texts(
     if attention_mask is None:
         attention_mask = (text_ids != model.cfg.special.pad_token_id).int()
     prep = model.prepare_mm_embeds(text_ids, image_tensors, num_image_per_seq)
+    if cfg.num_beams > 1:
+        return beam_search(
+            model, prep["mm_embeds"], attention_mask, prep["mmfs_values"],
+            prep["cross_attention_mask"], cfg,
+        )
     return generate_tokens(
         model, prep["mm_embeds"], attention_mask, prep["mmfs_values"],
         prep["cross_attention_mask"], cfg, generator,

@@ -4,7 +4,8 @@ of `mm_interleaved_tpu/models/llama.py`).
   * every ``cross_attention_frequency``-th layer (idx % freq == 0) gains a
     tanh-gated MMFS block, its gate initialised at zero;
   * a preallocated `KVCache` with a ``valid`` mask and a ``length`` counter,
-    written in place (the JAX cache is functional);
+    written in place (the JAX cache is functional); beam search tiles it
+    along batch and reorders it into a second buffer;
   * fp32 softmax attention, GQA, and left-padded positions.
 
 The stack is one unrolled list of layers; the JAX ``scan_layers`` layout
@@ -98,6 +99,27 @@ class KVCache:
                               device=device),
             length=0,
         )
+
+    def tile(self, k: int) -> "KVCache":
+        """Each batch row repeated ``k`` times in place (``[B] -> [B*k]``,
+        row ``b`` at ``b*k .. b*k+k-1``): the prefill's cache for ``k``
+        beams."""
+        return KVCache(
+            k=self.k.repeat_interleave(k, dim=1),
+            v=self.v.repeat_interleave(k, dim=1),
+            valid=self.valid.repeat_interleave(k, dim=0),
+            length=self.length,
+        )
+
+    def reorder(self, beam_idx: torch.Tensor, out: "KVCache") -> "KVCache":
+        """Rows gathered along batch (the `_reorder_cache` of beam search)
+        into ``out``'s buffers (same shapes), so that a beam step allocates
+        nothing: the caller swaps the two caches."""
+        torch.index_select(self.k, 1, beam_idx, out=out.k)
+        torch.index_select(self.v, 1, beam_idx, out=out.v)
+        torch.index_select(self.valid, 0, beam_idx, out=out.valid)
+        out.length = self.length
+        return out
 
 
 class RMSNorm(nn.Module):

@@ -1,0 +1,46 @@
+"""The PyTorch port imports no JAX: every module of `mm_interleaved_tpu_torch`
+(the entry points included) and `chip_smoke.py` import in a fresh process
+where ``jax`` and ``mm_interleaved_tpu`` are blocked, as on the machine with
+the card, which has no JAX.  ``nltk`` is blocked too (that machine has none):
+the metrics, METEOR's stemmer included, run without it."""
+
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+SCRIPT = r"""
+import importlib, pkgutil, sys
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "nltk",
+           "mm_interleaved_tpu")
+for name in BLOCKED:
+    sys.modules[name] = None  # any import of them raises ImportError
+import mm_interleaved_tpu_torch as pkg
+names = sorted(m.name for m in pkgutil.walk_packages(pkg.__path__,
+                                                     pkg.__name__ + "."))
+for name in names:
+    importlib.import_module(name)
+importlib.import_module("chip_smoke")
+from mm_interleaved_tpu_torch.utils import metrics
+assert metrics.meteor(["two dogs running"], [["a dog runs"]]) > 0
+loaded = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED
+                and sys.modules[m] is not None)
+assert not loaded, loaded
+print(" ".join(names))
+"""
+
+
+def test_port_imports_without_jax():
+    """Every module imports; none of them loads JAX, the JAX package or
+    nltk; METEOR runs."""
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", SCRIPT], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    imported = set(out.stdout.split())
+    for name in ("inference", "evaluate", "inference_loop", "train", "bench",
+                 "generation.beam", "generation.scores", "engine.evaluator",
+                 "parallel.inference", "utils.fid", "utils.metrics",
+                 "utils.checkpoint", "utils.logging", "data.datasets"):
+        assert f"mm_interleaved_tpu_torch.{name}" in imported, name
