@@ -155,11 +155,30 @@ Phases, each of which raises (and exits nonzero) on failure:
    captions (5 beams), VQA (3 beams), VisDial ranking, grounding, text to
    image with CLIP-FID and storytelling on synthetic files, one finite
    ``eval_metrics.jsonl`` row each, each route's launches the derived
-   count and its samples/s.
+   count and its samples/s;
+15. weights from files, at the flagship's widths with 4 LLM layers (one
+   MMFS layer): (a) a released-format checkpoint (the converter's keys and
+   shapes, the fixed buffers it skips), seeded bf16 in two safetensors
+   shards, converted by ``python -m mm_interleaved_tpu_torch.convert_checkpoint
+   --ref-checkpoint`` on the card (its GB/s and peak host RSS), every port
+   parameter equal to its transformed source tensor, loaded by
+   `load_model`, then phase 5's text slice and a 5-step CFG denoise of
+   phase 6 on it, their launches the derived counts; (b) the tower mode on
+   HF-named LLaMA shards, a CLIP vision directory and a diffusers unet/ +
+   vae/ pair: every converted tensor equal to its source, the padded
+   embedding rows the mean embedding, the TextDecoder's heads as built;
+   (c) `train.main` with ``load_from`` the tower output, one step: at its
+   start the masters and the weights the file's, the moments zero, its
+   launches the derived count; (d) the CLIP text tower at ViT-L/14's text
+   width (fp32, 16 captions of 77 tokens) and the projected vision tower:
+   kernel 5 at the causal text site against its plain version, both
+   towers' features against the CPU's, the rerank's picks the CPU's; (e)
+   InceptionV3 at 299 px against the CPU.
 
 Prints a ``{"kernels": [...]}`` line (all thirteen kernels, each with its
 launches in the measured bench turn, its mean launches a train-entry
-step and its launches over phase 14's counted runs), the
+step, its launches over phase 14's counted runs and over phase 15's; the
+flash forward with its CLIP-text site), the
 ``nvidia-smi`` name/power line, and last ``{"ok": true, "device":
 {...}}``.  Needs one CUDA card and the
 repository checkout around it; imports no JAX.
@@ -1434,8 +1453,9 @@ def sdpa_call(args, kw, transposed=False):
                                                   scale=kw.get("scale"))
 
 
-def compare_kernel(name, sites_cases) -> dict:
-    """The kernel against its plain version on each captured call, in bf16
+def compare_kernel(name, sites_cases, sites=None) -> dict:
+    """The kernel against its plain version on each captured call (of
+    ``sites``, by default every site the path must have), in bf16
     and fp32, both timed; the bound of each call from its inputs.  The
     kernels of `DEVICE_TIMED` are also read as device time and back to
     back; GEGLU beside the unfused path of the C = 1280 blocks
@@ -1448,8 +1468,8 @@ def compare_kernel(name, sites_cases) -> dict:
     mod = kmod(name)
     kernel = getattr(mod, KERNELS[name]["kernel"])
     plain = getattr(mod, KERNELS[name]["plain"])
-    sites = []
-    for site in WANT_SITES[name]:
+    recs = []
+    for site in sites or WANT_SITES[name]:
         args, kw = sites_cases[site]
         rec = dict(site=site, shapes=[list(a.shape) for a in args
                                       if isinstance(a, torch.Tensor)])
@@ -1512,10 +1532,10 @@ def compare_kernel(name, sites_cases) -> dict:
                             + json.dumps(dict(exp_ceiling_ms=flops / (
                                 4 * a[0].shape[-1]) / PEAK_EXPS * 1e3)))
             del got, want
-        sites.append(rec)
+        recs.append(rec)
         log(f"kernel vs plain, {name} {site}: {json.dumps(rec)}")
         torch.cuda.empty_cache()
-    return sites
+    return recs
 
 
 def work_deform_bwd_value(args, kw, out):
@@ -3517,6 +3537,556 @@ def run_serving(greedy_tokens) -> dict:
                 wall_s=time.perf_counter() - t0)
 
 
+# weights from files (phase 15)
+
+# the LLM's depth in phase 15: 4 layers, layer 0 the MMFS layer (the
+# flagship has 40); every other width and depth is the flagship's
+WEIGHT_LAYERS = 4
+WEIGHT_TOKENS = 8
+WEIGHT_STEPS = 5
+WEIGHT_SHARDS = 2
+CLIP_CAPTIONS = 16
+CLIP_CANDIDATES = 2
+INCEPTION_IMAGES = 8
+
+
+def weights_model_section() -> dict:
+    return {"preset": "flagship",
+            "overrides": {"seq_len": PROMPT_LEN, "max_num_images": N_IMG,
+                          "llm": {"num_hidden_layers": WEIGHT_LAYERS}}}
+
+
+def seeded_tensors(specs, seed: int):
+    """``make(key)`` for `write_safetensors`: each tensor of ``specs``
+    (``{key: (shape, dtype)}``) drawn on the card, in the order asked,
+    from one seeded generator: fan-in scaled normal matrices and kernels,
+    1-D norm weights near 1, other 1-D tensors small."""
+    import torch
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+
+    def make(key):
+        shape, dt = specs[key]
+        x = torch.randn(shape, generator=g, device="cuda")
+        if len(shape) >= 2:
+            x *= float(np.prod(shape[1:])) ** -0.5
+        elif "norm" in key.lower() and key.endswith("weight"):
+            x = 1.0 + 0.05 * x
+        else:
+            x *= 0.05
+        return x.to(dt).cpu()
+
+    return make
+
+
+def write_source(out_dir, specs, seed: int, shards: int = 1,
+                 name: str = "model") -> dict:
+    """``specs`` as seeded safetensors shards under ``out_dir``: bytes
+    and seconds."""
+    import torch
+
+    from mm_interleaved_tpu_torch.utils.state_dict_io import write_sharded
+
+    t0 = time.perf_counter()
+    files = write_sharded(str(out_dir), [(k, s, d) for k, (s, d)
+                                         in specs.items()],
+                          seeded_tensors(specs, seed), shards, name)
+    torch.cuda.synchronize()
+    return dict(files=len(files), bytes=sum(Path(f).stat().st_size
+                                            for f in files),
+                write_s=time.perf_counter() - t0)
+
+
+def run_converter(*args) -> dict:
+    """``python -m mm_interleaved_tpu_torch.convert_checkpoint`` in a
+    process of its own (its peak host RSS its own), on the card; its JSON
+    line, and its wall seconds from the start of the process."""
+    import subprocess
+
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "mm_interleaved_tpu_torch.convert_checkpoint",
+         *args, "--dtype", "bfloat16", "--device", "cuda"],
+        capture_output=True, text=True, timeout=900)
+    if out.returncode != 0:
+        raise AssertionError(f"convert_checkpoint {args} exited "
+                             f"{out.returncode}: {out.stderr[-3000:]}")
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    res["process_s"] = time.perf_counter() - t0
+    return res
+
+
+def check_converted(path, parts) -> dict:
+    """Every tensor the maps of ``parts`` (``(source, map)``) fill equals,
+    in the file at ``path``, its source tensor transformed on the card
+    (`torch.equal`)."""
+    import torch
+
+    from mm_interleaved_tpu_torch.utils.checkpoint import read_full_checkpoint
+    from mm_interleaved_tpu_torch.utils.name_map import convert_entry
+
+    t0 = time.perf_counter()
+    params = read_full_checkpoint(str(path))["params"]
+    bad, n = [], 0
+    for sd, nmap in parts:
+        for name, e in nmap.items():
+            got = params[name].to("cuda")
+            # (an entry with no source, the TextDecoder's new head, is
+            # made on the host)
+            want = convert_entry(e, sd, "cuda").to("cuda", got.dtype)
+            n += 1
+            if not torch.equal(got, want):
+                bad.append(name)
+    if bad:
+        raise AssertionError(f"{len(bad)} converted tensors differ from "
+                             f"their sources: {bad[:8]}")
+    return dict(checked=n, params=len(params),
+                check_s=time.perf_counter() - t0)
+
+
+def weights_slices(model) -> dict:
+    """Phase 5's text slice (``WEIGHT_TOKENS`` greedy tokens) and a
+    ``WEIGHT_STEPS``-step CFG denoise of phase 6 on the loaded model: finite
+    outputs of the expected shapes, each run's launches the derived
+    count."""
+    import torch
+
+    from mm_interleaved_tpu_torch.generation.diffusion import generate_images
+    from mm_interleaved_tpu_torch.generation.text import (
+        TextGenerationConfig, generate_texts)
+
+    cfg = model.cfg
+    ids, images, n_img, att = prompt_inputs(cfg, "cuda")
+    gen = TextGenerationConfig(max_new_tokens=WEIGHT_TOKENS, eos_token_ids=(),
+                               pad_token_id=cfg.special.pad_token_id)
+    tokens, text_ms, text_launches = timed(generate_texts, model, ids, images,
+                                           n_img, att, gen)
+    want = bench_text_launches(cfg, WEIGHT_TOKENS)
+    if text_launches != want:
+        raise AssertionError(f"text slice launches {text_launches} != {want}")
+    if tuple(tokens.shape) != (B, WEIGHT_TOKENS) or not (
+            (tokens >= 0) & (tokens < cfg.llm.vocab_size)).all():
+        raise AssertionError(f"text slice tokens {tokens}")
+
+    def image_run():
+        g = torch.Generator(device="cuda")
+        g.manual_seed(SEED + 7)
+        inp = model.generate_image_inputs(ids, images, n_img, att)
+        rows = torch.arange(B * cfg.max_num_images, device="cuda")
+        rows = rows[(rows % cfg.max_num_images) < N_IMG]
+        return generate_images(model, *(x[rows] for x in inp),
+                               num_inference_steps=WEIGHT_STEPS,
+                               guidance_scale=GUIDANCE, generator=g)
+
+    out, image_ms, image_launches = timed(image_run)
+    want = expected_image_launches(cfg, WEIGHT_STEPS, B * N_IMG)
+    if image_launches != want:
+        raise AssertionError(f"denoise launches {image_launches} != {want}")
+    size = cfg.image_decoder.image_size
+    if tuple(out.shape) != (B * N_IMG, size, size, 3) or not bool(
+            torch.isfinite(out).all()) or float(out.min()) < 0 or float(
+            out.max()) > 1:
+        raise AssertionError(f"denoise images {tuple(out.shape)}")
+    return dict(tokens=tokens[:, :8].tolist(), text_ms=text_ms,
+                image_ms=image_ms, image_mean=float(out.mean()),
+                launches=add_launches(text_launches, image_launches))
+
+
+def run_released_mode(root, section, config) -> dict:
+    """Phase 15a: a reference-format checkpoint of the cut flagship (the
+    name map's keys and shapes and the fixed buffers it skips), seeded bf16
+    in ``WEIGHT_SHARDS`` safetensors shards; the converter on the card;
+    every port parameter against its source; `load_model`; the text slice
+    and the denoise on it."""
+    import gc
+
+    import torch
+
+    from mm_interleaved_tpu_torch.models.mm_interleaved import MMInterleaved
+    from mm_interleaved_tpu_torch.utils import convert_ref
+    from mm_interleaved_tpu_torch.utils.checkpoint import load_model
+    from mm_interleaved_tpu_torch.utils.config import build_model_config
+    from mm_interleaved_tpu_torch.utils.name_map import source_specs
+    from mm_interleaved_tpu_torch.utils.state_dict_io import (
+        load_torch_state_dict)
+
+    cfg = build_model_config(section)
+    with torch.device("meta"):
+        skeleton = MMInterleaved(cfg)
+    shapes = {n: tuple(p.shape) for n, p in skeleton.named_parameters()}
+    nmap = convert_ref.convert_mm_interleaved(cfg, shapes.__contains__)
+    if set(nmap) != set(shapes):
+        raise AssertionError("the released-model map does not fill the model")
+    specs = {k: (s, torch.bfloat16)
+             for k, s in source_specs(nmap, shapes).items()}
+    # the fixed buffers a released checkpoint holds, which the map skips
+    specs["visual_tokenizer.pos_embed"] = ((1, 256, 4096), torch.bfloat16)
+    specs["visual_tokenizer.clip_mean"] = ((1, 1, 1, 3), torch.float32)
+    specs["visual_tokenizer.clip_std"] = ((1, 1, 1, 3), torch.float32)
+    specs["image_decoder.decoder.mmfs_module.mmfs_down_blocks.0.pos_embed"] \
+        = ((1, 4096, 1024), torch.bfloat16)
+    src = write_source(root / "released", specs, SEED + 11, WEIGHT_SHARDS)
+    out = root / "released.pt"
+    conv = run_converter("--config", config, "--ref-checkpoint",
+                         str(root / "released"), "--out", str(out))
+    sd = load_torch_state_dict(str(root / "released"))
+    check = check_converted(out, [(sd, nmap)])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = load_model(cfg, "cuda", str(out))
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    reset_counts()
+    slices = weights_slices(model)
+    del model, sd
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(root / "released", ignore_errors=True)
+    out.unlink()
+    return dict(source=src, convert=conv, check=check, load_s=load_s,
+                slices=slices, model_params=sum(
+                    int(np.prod(s)) for s in shapes.values()))
+
+
+def run_tower_mode(root, section, config) -> dict:
+    """Phase 15b: HF-named LLaMA shards (the cut depth, 32,000 rows and an
+    ``lm_head``; an old checkpoint's rotary buffer beside them), a CLIP
+    vision directory (ViT-L/14, its post layernorm beside it) and a
+    diffusers unet/ + vae/ pair (SD-2.1), seeded bf16, each holding the
+    keys of the converter's tower maps; the tower mode on the card; every
+    converted tensor against its source, the padded embedding rows against
+    the mean embedding, the TextDecoder's heads as built from ``lm_head``.
+    The output stays for the warm start."""
+    import argparse
+
+    import torch
+
+    from mm_interleaved_tpu_torch import convert_checkpoint as cc
+    from mm_interleaved_tpu_torch.models.mm_interleaved import MMInterleaved
+    from mm_interleaved_tpu_torch.utils.checkpoint import read_full_checkpoint
+    from mm_interleaved_tpu_torch.utils.config import build_model_config
+    from mm_interleaved_tpu_torch.utils.name_map import source_specs
+
+    cfg = build_model_config(section)
+    with torch.device("meta"):
+        skeleton = MMInterleaved(cfg)
+    shapes = {n: tuple(p.shape) for n, p in skeleton.named_parameters()}
+    bf = torch.bfloat16
+    orig = cfg.orig_vocab_size
+    vit = cfg.visual.encoder.vit.hidden_size
+
+    def specs(nmap, **extra):
+        out = {k: (s, bf) for k, s in source_specs(nmap, shapes).items()}
+        out.update(extra)
+        return out
+
+    sd_maps = cc.sd_maps(cfg, shapes)
+    written = [
+        write_source(root / "llm", specs(
+            cc.llm_map(cfg, lm_head_rows=orig),
+            **{"model.layers.0.self_attn.rotary_emb.inv_freq":
+               ((cfg.llm.head_dim // 2,), torch.float32)}),
+            SEED + 12, WEIGHT_SHARDS),
+        write_source(root / "clip", specs(
+            cc.clip_map(cfg),
+            **{f"vision_model.post_layernorm.{leaf}": ((vit,), bf)
+               for leaf in ("weight", "bias")}), SEED + 13),
+        *(write_source(root / "sd" / sub, specs(nmap), SEED + 14 + i,
+                       name="diffusion_pytorch_model")
+          for i, (sub, nmap) in enumerate(sd_maps.items()))]
+    out = root / "towers.pt"
+    dirs = dict(llm=str(root / "llm"), clip=str(root / "clip"),
+                sd=str(root / "sd"))
+    conv = run_converter("--config", config, "--llm", dirs["llm"], "--clip",
+                         dirs["clip"], "--sd", dirs["sd"], "--seed", str(SEED),
+                         "--out", str(out))
+    parts = cc.tower_parts(argparse.Namespace(ref_checkpoint=None, **dirs),
+                           cfg, shapes)
+    check = check_converted(out, [(sd, nmap) for sd, nmap, _ in parts])
+    params = read_full_checkpoint(str(out))["params"]
+    src = parts[0][0]
+    emb = params["mm_decoder.embed_tokens.weight"].to("cuda").double()
+    mean = src["model.embed_tokens.weight"].to("cuda").double().mean(0)
+    pad_err = float((emb[orig:] - mean).abs().max())
+    pad_tol = _ulps(float(mean.abs().max()))  # the one bf16 rounding
+    if not pad_err <= pad_tol:
+        raise AssertionError(f"padded embedding rows {pad_err} from the "
+                             f"mean > {pad_tol}")
+    head_w = params["text_decoder.head.weight"].to("cuda")
+    head_b = params["text_decoder.head.bias"]
+    new_w, new_b = (params[f"text_decoder.head_new.{k}"]
+                    for k in ("weight", "bias"))
+    heads = dict(
+        rows=torch.equal(head_w[:orig], src["lm_head.weight"].to("cuda")),
+        new_rows_zero=not bool(head_w[orig:].any()),
+        bias=bool((head_b[:orig] == 0).all() and (head_b[orig:] == -100).all()),
+        head_new=not bool(new_w.any()) and bool((new_b == 95).all()))
+    if not all(heads.values()):
+        raise AssertionError(f"TextDecoder heads: {heads}")
+    del params, parts, src
+    for d in dirs.values():
+        shutil.rmtree(d, ignore_errors=True)
+    return dict(source=dict(bytes=sum(w["bytes"] for w in written),
+                            write_s=sum(w["write_s"] for w in written),
+                            files=sum(w["files"] for w in written)),
+                convert=conv, check=check, pad_err=pad_err, pad_tol=pad_tol,
+                heads=heads)
+
+
+def run_warm_start(section, ckpt) -> dict:
+    """Phase 15c: `train.main` with ``training.load_from`` the tower
+    output, one step on the cut flagship (2 rows of 256 tokens): at the
+    step's start the update count 0, the masters and the weights the file's,
+    the moments zero; the step's launches the derived count (kernels 1, 2,
+    3, 5, 5b and 6 among them); its metrics finite."""
+    import torch
+
+    from mm_interleaved_tpu_torch.engine.trainer import Trainer
+    from mm_interleaved_tpu_torch.ops.cuda_build import BUILD_DIR
+    from mm_interleaved_tpu_torch.utils.checkpoint import read_full_checkpoint
+    from mm_interleaved_tpu_torch.utils.config import (build_model_config,
+                                                       load_config)
+
+    config = smoke_train_config("smoke_warm_start", section, warmup_steps=0,
+                                max_steps=1, load_from=str(ckpt))
+    model_cfg = build_model_config(load_config(config)["model"])
+    state = read_full_checkpoint(str(ckpt))["params"]
+    seen = {}
+    step = Trainer.train_step
+
+    def first_step(self, batch, draws=None):
+        if not seen:
+            opt = self.optimizer
+            seen["count"] = opt.count
+            seen["masters"] = all(
+                torch.equal(x, state[n].to(x.device, torch.float32))
+                for n, x in zip(opt.names, opt.masters))
+            seen["weights"] = all(
+                torch.equal(p.detach(), state[n].to(p.device, p.dtype))
+                for n, p in self.model.named_parameters())
+            seen["moments_zero"] = not any(bool(m.any()) or bool(v.any())
+                                           for m, v in zip(opt.m, opt.v))
+            x = batch["image_tensors"]
+            seen["images"] = int(x.shape[0] * x.shape[1])
+        return step(self, batch, draws)
+
+    out_dir = BUILD_DIR.parent / "smoke_warm_start"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    unsaved = out_dir / "not_saved"
+    save = Trainer.maybe_save
+
+    def no_save(self, data_state=None, force=False):
+        # phase 11 writes and checks the flagship's final checkpoint; this
+        # one would be 13.7 GB more of the same
+        unsaved.parent.mkdir(parents=True, exist_ok=True)
+        unsaved.touch()
+        return unsaved
+
+    Trainer.train_step, Trainer.maybe_save = first_step, no_save
+    reset_counts()
+    t0 = time.perf_counter()
+    try:
+        res = train_entry(config, str(out_dir))
+    finally:
+        Trainer.train_step, Trainer.maybe_save = step, save
+    launches = read_counts()
+    run_s = time.perf_counter() - t0
+    del res["trainer"], state
+    shutil.rmtree(out_dir, ignore_errors=True)
+    if not (seen.get("count") == 0 and seen["masters"] and seen["weights"]
+            and seen["moments_zero"]):
+        raise AssertionError(f"warm start at count 0: {seen}")
+    (s, m), = res["logged"]
+    if s != 1 or not all(np.isfinite(v) for v in m.values()):
+        raise AssertionError(f"warm-start step {res['logged']}")
+    want = expected_train_launches(model_cfg, seen["images"])
+    if launches != want:
+        raise AssertionError(f"warm-start launches {launches} != {want}")
+    if not all(launches[k] > 0 for k in TRAIN_KERNELS):
+        raise AssertionError(f"a training kernel did not launch: {launches}")
+    return dict(seen=seen, metrics=m, launches=launches, run_s=run_s)
+
+
+def seeded_module(module, seed: int):
+    """``module`` (built on the meta device) on the card with seeded
+    values: fan-in scaled matrices and kernels, norm weights near 1, every
+    other tensor (biases, embeddings, batch-norm statistics) small, the
+    running variances in [0.5, 1.5]."""
+    import torch
+
+    module = module.to_empty(device="cuda")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    with torch.no_grad():
+        for name, t in module.state_dict(keep_vars=True).items():
+            if not t.is_floating_point():
+                t.zero_()
+                continue
+            x = torch.randn(t.shape, generator=g, device="cuda")
+            if name.endswith("running_var"):
+                x = 0.5 + torch.rand(t.shape, generator=g, device="cuda")
+            elif t.ndim >= 2:
+                x *= float(np.prod(t.shape[1:])) ** -0.5
+            elif "norm" in name or name.endswith("bn.weight"):
+                x = 1.0 + 0.05 * x
+            else:
+                x *= 0.05
+            t.copy_(x)
+    return module.eval()
+
+
+def run_clip_towers() -> dict:
+    """Phase 15d: the CLIP text tower at ViT-L/14's text width (768 wide,
+    12 layers of 12 heads, 77 tokens) and the projected vision tower
+    (ViT-L/14, 224 px), seeded, fp32, on the card: ``CLIP_CAPTIONS``
+    captions' ids (end-of-text at varying places, one row without), kernel
+    5 at the text tower's causal site against its plain version (phase 7's
+    tolerances), the text features and the projected features of
+    ``CLIP_CANDIDATES`` images a caption against the CPU's plain path
+    within 1e-4 of their scale, the rerank's picks the CPU's."""
+    import copy
+
+    import torch
+
+    from mm_interleaved_tpu_torch.models.clip_text import (
+        CLIPTextConfig, CLIPTextModel, CLIPVisionTower)
+    from mm_interleaved_tpu_torch.models.vit import ViTConfig
+    from mm_interleaved_tpu_torch.utils.fid import (CLIPViTFeatures,
+                                                    make_clip_rerank_fn)
+
+    text_cfg = CLIPTextConfig(hidden_size=768, intermediate_size=3072,
+                              num_hidden_layers=12, num_attention_heads=12,
+                              projection_dim=768)
+    with torch.device("meta"):
+        text = CLIPTextModel(text_cfg)
+        vision = CLIPVisionTower(ViTConfig(), text_cfg.projection_dim)
+    text = seeded_module(text, SEED + 21)
+    vision = seeded_module(vision, SEED + 22)
+    rng = np.random.RandomState(SEED + 23)
+    T, eos = text_cfg.max_position_embeddings, text_cfg.eos_token_id
+    ids = rng.randint(0, eos - 1, size=(CLIP_CAPTIONS, T))
+    ids[:, 0] = eos - 1  # <|startoftext|>
+    for i, n in enumerate(rng.randint(3, T, size=CLIP_CAPTIONS - 1)):
+        ids[i, n:] = eos  # the caption's end, then the padding
+    ids = torch.from_numpy(ids).cuda()
+    cases = {}
+    with torch.inference_mode():
+        with capture(["flash_attention_fwd"], cases, site="clip_text"):
+            text(ids)
+        (_, feats), text_call_ms, launches = timed(text, ids)
+        text_ms = time_ms(lambda: text(ids))
+        text_cpu = copy.deepcopy(text).cpu()
+        _, feats_cpu = text_cpu(ids.cpu())
+    if launches["flash_attention_fwd"] != text_cfg.num_hidden_layers:
+        raise AssertionError(f"CLIP text tower launches {launches}")
+    site, = compare_kernel("flash_attention_fwd",
+                           cases["flash_attention_fwd"], sites=["clip_text"])
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 24)
+    n_img = CLIP_CAPTIONS * CLIP_CANDIDATES
+    images = torch.rand((n_img, 224, 224, 3), generator=g, device="cuda")
+    image_fn = CLIPViTFeatures(vision, projected=True)
+    reset_counts()
+    img, image_ms, vision_launches = timed(image_fn, images.cpu().numpy())
+    img_cpu = CLIPViTFeatures(copy.deepcopy(vision).cpu(), projected=True)(
+        images.cpu().numpy())
+    errs = {}
+    for tag, got, want in (("text", feats.float().cpu(), feats_cpu),
+                           ("image", torch.from_numpy(img),
+                            torch.from_numpy(img_cpu))):
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max())
+        errs[tag] = dict(max_abs_err=err, scale=scale)
+        if not err <= 1e-4 * scale:
+            raise AssertionError(f"CLIP {tag} features: card vs CPU {err} > "
+                                 f"1e-4 x {scale}")
+    captions = list(range(CLIP_CAPTIONS))
+    picks = make_clip_rerank_fn(lambda _: img, lambda _: feats.float().cpu()
+                                .numpy())(images.cpu().numpy(), captions)
+    picks_cpu = make_clip_rerank_fn(lambda _: img_cpu,
+                                    lambda _: feats_cpu.numpy())(
+        images.cpu().numpy(), captions)
+    if not np.array_equal(picks, picks_cpu):
+        raise AssertionError(f"rerank picks {picks} != the CPU's {picks_cpu}")
+    del text_cpu
+    return dict(site=site, errors=errs, picks=picks.tolist(),
+                text_ms=text_ms, text_call_ms=text_call_ms,
+                image_ms=image_ms, images=n_img,
+                launches=add_launches(launches, vision_launches))
+
+
+def run_inception() -> dict:
+    """Phase 15e: InceptionV3 at 299 px, seeded, fp32, on the card against
+    the CPU within 1e-3 of the features' scale (the same sums in cuDNN's
+    and the CPU's orders over 94 convolutions with batch norm); ms per
+    image over a batch of ``INCEPTION_IMAGES``."""
+    import copy
+
+    import torch
+
+    from mm_interleaved_tpu_torch.utils.inception_v3 import (
+        InceptionV3Features)
+
+    with torch.device("meta"):
+        model = InceptionV3Features()
+    model = seeded_module(model, SEED + 31)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 32)
+    x = torch.rand((INCEPTION_IMAGES, 299, 299, 3), generator=g,
+                   device="cuda")
+    with torch.inference_mode():
+        got = model(x)
+        want = copy.deepcopy(model).cpu()(x.cpu())
+        ms = time_ms(lambda: model(x))
+    err = float((got.cpu() - want).abs().max())
+    scale = float(want.abs().max())
+    if tuple(got.shape) != (INCEPTION_IMAGES, 2048) or not err <= 1e-3 * scale:
+        raise AssertionError(f"InceptionV3 card vs CPU {err} (scale "
+                             f"{scale}), shape {tuple(got.shape)}")
+    return dict(max_abs_err=err, scale=scale,
+                ms_per_image=ms / INCEPTION_IMAGES, batch_ms=ms)
+
+
+def run_weights_phase() -> dict:
+    """Phase 15: weights from files on the card: the released-model mode,
+    the tower mode, the warm start, the CLIP towers, InceptionV3.  Raises on
+    any failed check."""
+    import gc
+
+    import torch
+    import yaml
+
+    from mm_interleaved_tpu_torch.ops.cuda_build import BUILD_DIR
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = BUILD_DIR.parent / "smoke_weights"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    section = weights_model_section()
+    config = root / "model.yaml"
+    config.write_text(yaml.safe_dump({"model": section}))
+    done = {}
+    for name, fn, a in (
+            ("released", run_released_mode, (root, section, str(config))),
+            ("towers", run_tower_mode, (root, section, str(config))),
+            ("warm", run_warm_start, (section, root / "towers.pt")),
+            ("clip", run_clip_towers, ()),
+            ("inception", run_inception, ())):
+        t1 = time.perf_counter()
+        done[name] = fn(*a)
+        log(f"phase 15 {name}: {time.perf_counter() - t1:.1f} s")
+    released, towers, warm, clip, inception = done.values()
+    shutil.rmtree(root, ignore_errors=True)
+    return dict(released=released, towers=towers, warm=warm, clip=clip,
+                inception=inception,
+                launches=add_launches(released["slices"]["launches"],
+                                      warm["launches"], clip["launches"]),
+                wall_s=time.perf_counter() - t0)
+
+
 def main() -> int:
     import torch
 
@@ -3724,7 +4294,51 @@ def main() -> int:
         *(r["launches"] for k, r in sv["beam"].items()
           if k != "k1_equals_greedy"),
         inf["launches"], sv["eval"]["launches"])
+    # 15. weights from files: the converter in both modes, load_model, the
+    # warm start, the CLIP towers of the rerank, InceptionV3
+    wt = run_weights_phase()
+    rel, tow, warm = wt["released"], wt["towers"], wt["warm"]
+    for mode, r in (("released-model", rel), ("tower", tow)):
+        c = r["convert"]
+        log(f"convert ({mode} mode, flagship widths, {WEIGHT_LAYERS} LLM "
+            f"layers): source {r['source']['bytes'] / 1e9:.3f} GB in "
+            f"{r['source']['files']} safetensors files (written in "
+            f"{r['source']['write_s']:.1f} s); {c['converted']} tensors, "
+            f"{c['source_bytes'] / 1e9:.3f} GB streamed in "
+            f"{c['stream_s']:.2f} s ({c['stream_gb_per_s']:.3f} GB/s), "
+            f"output {c['out_bytes'] / 1e9:.3f} GB saved in "
+            f"{c['save_s']:.2f} s, process {c['process_s']:.1f} s, peak host "
+            f"RSS {c['peak_rss_gb']:.3f} GB ({c['rss_built_gb']:.3f} GB after "
+            f"the build); every tensor equal to its "
+            f"source ({r['check']['checked']} checked in "
+            f"{r['check']['check_s']:.1f} s) | {smi}")
+    log(f"load_model of the released-model output: {rel['load_s']:.2f} s "
+        f"({rel['model_params'] / 1e9:.3f} B params) | {smi}; text slice "
+        f"({WEIGHT_TOKENS} tokens) {rel['slices']['text_ms']:.1f} ms, "
+        f"denoise ({WEIGHT_STEPS} CFG steps, {B * N_IMG} images) "
+        f"{rel['slices']['image_ms']:.1f} ms, launches "
+        f"{json.dumps(rel['slices']['launches'])}; tokens[:, :8] "
+        f"{rel['slices']['tokens']}")
+    log(f"tower mode: padded embedding rows {tow['pad_err']} from the mean "
+        f"(tolerance {tow['pad_tol']}), TextDecoder heads "
+        f"{json.dumps(tow['heads'])}")
+    log(f"warm start (train.main, load_from the tower output, 1 step): "
+        f"{json.dumps(warm['seen'])}, metrics {json.dumps(warm['metrics'])}, "
+        f"launches {json.dumps(warm['launches'])}, run {warm['run_s']:.1f} s")
+    clip = wt["clip"]
+    log(f"CLIP text tower (768 wide, 12 layers, 77 tokens, fp32): "
+        f"{clip['text_ms']:.3f} ms per {CLIP_CAPTIONS} captions | {smi}; "
+        f"projected image features of {clip['images']} images "
+        f"{clip['image_ms']:.1f} ms; card vs CPU {json.dumps(clip['errors'])}"
+        f"; rerank picks {clip['picks']} (the CPU's)")
+    inc = wt["inception"]
+    log(f"InceptionV3 (299 px, fp32): {inc['ms_per_image']:.3f} ms per image "
+        f"({INCEPTION_IMAGES} a batch) | {smi}; card vs CPU "
+        f"{inc['max_abs_err']} at scale {inc['scale']}; phase 15 "
+        f"{wt['wall_s']:.1f} s")
+    line_of["flash_attention_fwd"]["clip_text_site"] = clip["site"]
     for line in lines:
+        line["weights_launches"] = wt["launches"][line["name"]]
         line["serving_launches"] = serving[line["name"]]
         line["bench_turn_launches"] = bt["turn"][line["name"]]
         per_step = te["launches"][line["name"]] / SMOKE_TRAIN_STEPS

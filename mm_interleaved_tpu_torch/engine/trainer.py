@@ -233,6 +233,18 @@ class Trainer:
             old.unlink()
         return path
 
+    @torch.no_grad()
+    def warm_start(self, params: Dict[str, torch.Tensor]) -> None:
+        """Every weight of the model from ``params`` (a full checkpoint's;
+        strict: names and shapes), the fp32 masters from the same values
+        (not from the model's copies in its dtype); the moments and the
+        update count stay as they are, fresh at step 0."""
+        self.model.load_state_dict(params, strict=True)
+        opt = self.optimizer
+        for name, master, p in zip(opt.names, opt.masters, opt.params):
+            if master is not p.data:
+                master.copy_(params[name])
+
     def restore(self, data_iter=None) -> bool:
         """Resume from the newest checkpoint: the trainable parameters, the
         optimizer state, the step, the numpy RNG and, when ``data_iter`` has

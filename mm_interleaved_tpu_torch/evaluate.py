@@ -14,12 +14,19 @@ the model's own CLIP ViT.
 Datasets: ``coco_caption``, ``vqa``, ``vizwiz_vqa``, ``image_text_jsonl``,
 ``visdial``, ``grounding`` and ``story``.  The benchmark sets of
 `datasets_bench.py` (nocaps, flickr30k, image2paragraph, lncoco, vist,
-pororo, flintstones, ade20k) and the CLIP text rerank
-(``evaluation.clip_text_path``) are ROADMAP.md §1 item 4b and refused; so
-are a ``mesh:`` over more than one device (item 6), ``quantize`` (item 7)
-and an orbax checkpoint (item 5).  Without ``clip_text_path`` the rerank
-keeps candidate 0, as the JAX entry does.  Runs on the card; ``--device
-cpu`` runs on the CPU.
+pororo, flintstones, ade20k) are ROADMAP.md §1 item 4b and refused; so are
+a ``mesh:`` over more than one device (item 6), ``quantize`` (item 7) and
+an orbax checkpoint (``--checkpoint`` takes the port's own checkpoints:
+``python -m mm_interleaved_tpu_torch.convert_checkpoint`` writes one from
+the released weights).
+
+The t2i rerank (a stanza's ``rerank_by_clip`` with ``num_candidates > 1``)
+reads ``evaluation.clip_text_path``, an HF CLIP directory: both its towers
+(`models.clip_text.load_clip`), the image side projected as HF's
+``get_image_features`` so the two sides share one space, and its
+tokenizer (transformers' ``CLIPTokenizer``, imported at use).  Without
+``clip_text_path`` the rerank keeps candidate 0, as the JAX entry does.
+Runs on the card; ``--device cpu`` runs on the CPU.
 """
 
 from __future__ import annotations
@@ -170,6 +177,50 @@ def build_eval_dataset(ds_cfg, model_cfg, tokenizer):
     return ds, coll, mode
 
 
+def clip_feature_fns(path: str, device):
+    """``(image_fn, text_fn)`` of the HF CLIP directory ``path`` for the
+    t2i rerank: the projected image features of its vision tower and the
+    text features of its text tower, both in fp32 on ``device``
+    (counterpart of `evaluate.py:279-325`, whose image side this replaces:
+    see ROADMAP.md §3)."""
+    try:
+        from transformers import CLIPTokenizer
+    except ImportError as e:
+        raise ImportError("evaluation.clip_text_path: the CLIP tokenizer "
+                          "comes from the transformers package, which is "
+                          "not installed") from e
+    import json
+    import os
+
+    import numpy as np
+    import torch
+
+    from .models.clip_text import load_clip
+    from .utils.fid import CLIPViTFeatures
+    from .utils.state_dict_io import load_torch_state_dict
+
+    heads = (None, None)
+    conf = os.path.join(path, "config.json")
+    if os.path.isfile(conf):
+        with open(conf) as f:
+            c = json.load(f)
+        heads = tuple((c.get(k) or {}).get("num_attention_heads")
+                      for k in ("text_config", "vision_config"))
+    tok = CLIPTokenizer.from_pretrained(path)
+    text, vision = load_clip(load_torch_state_dict(path), device, heads=heads,
+                             eos_token_id=tok.eos_token_id)
+
+    @torch.inference_mode()
+    def text_features(captions) -> np.ndarray:
+        ids = tok(list(captions), padding="max_length", truncation=True,
+                  max_length=text.cfg.max_position_embeddings,
+                  return_tensors="np")["input_ids"]
+        _, feats = text(torch.from_numpy(ids).long().to(device))
+        return feats.float().cpu().numpy()
+
+    return CLIPViTFeatures(vision, projected=True), text_features
+
+
 def main(argv=None, model=None) -> Dict[str, Any]:
     """Run the evaluation entry point; returns each route's result by
     dataset name.  ``model`` reuses a model built from the config's
@@ -193,10 +244,6 @@ def main(argv=None, model=None) -> Dict[str, Any]:
     output_dir = args.output_dir or cfg.get("output_dir", "OUTPUT/eval")
     ev_cfg = cfg.get("evaluation", {}) or {}
     check_runtime(cfg.get("mesh"), ev_cfg.get("quantize"))
-    if ev_cfg.get("clip_text_path"):
-        raise NotImplementedError(
-            "evaluation.clip_text_path: the CLIP text tower of the t2i "
-            "rerank is not ported yet (ROADMAP.md §1 item 4b)")
     device = resolve_device(args.device)
     model_cfg = build_model_config(cfg["model"])
     val = (cfg.get("data", {}) or {}).get("val", []) or []
@@ -232,6 +279,7 @@ def main(argv=None, model=None) -> Dict[str, Any]:
 
         feature_fn = CLIPViTFeatures(model.visual_tokenizer.encoder)
 
+    rerank_fn = None  # built at the first stanza that reranks
     results = {}
     for ds_cfg, (ds, coll, mode) in zip(val, built):
         evaluator.cfg = resolve_eval_config(
@@ -245,10 +293,19 @@ def main(argv=None, model=None) -> Dict[str, Any]:
         elif mode == "generate_vqa":
             result = evaluator.evaluate_vqa(batches, dataset_name=name)
         elif mode == "generate_images":
-            # the CLIP rerank needs the CLIP text tower (refused above):
-            # without it the first candidate is kept, as in the JAX entry
+            # without a CLIP directory the first candidate is kept, as in
+            # the JAX entry
+            rerank = None
+            if ds_cfg.get("rerank_by_clip") and ev_cfg.get("clip_text_path"):
+                if rerank_fn is None:
+                    from .utils.fid import make_clip_rerank_fn
+
+                    rerank_fn = make_clip_rerank_fn(*clip_feature_fns(
+                        ev_cfg["clip_text_path"], device))
+                rerank = rerank_fn
             result = evaluator.evaluate_t2i(
-                batches, dataset_name=name, feature_fn=feature_fn)
+                batches, dataset_name=name, feature_fn=feature_fn,
+                rerank_fn=rerank)
         elif mode == "generate_scores":
             result = evaluator.evaluate_ranking(batches, dataset_name=name)
         elif mode == "generate_grounding":

@@ -8,11 +8,13 @@
 Loads annt.json, runs the text/image turns of `inference_loop` on each
 sample, writes each generated image as ``sample{i}_img{j}.png`` and the
 texts to ``eval_results_<time>.json``.  The model is the seeded one of the
-config (or a checkpoint of the port's `Trainer`, `utils.checkpoint`).
+config, or ``--checkpoint``: a full checkpoint (``python -m
+mm_interleaved_tpu_torch.convert_checkpoint`` writes one from the released
+weights) or a checkpoint of the port's `Trainer` (`utils.checkpoint`).
 
 Runs on the card; ``--device cpu`` runs on the CPU.  A ``mesh:`` over more
 than one device (ROADMAP.md §1 item 6), ``inference.quantize`` (item 7)
-and an orbax checkpoint (item 5) are refused.
+and an orbax checkpoint directory are refused.
 """
 
 from __future__ import annotations

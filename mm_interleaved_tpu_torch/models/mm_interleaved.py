@@ -288,6 +288,16 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> None:
             m.init_weights(g)
 
 
+def allocate_model(cfg: MMInterleavedConfig, device,
+                   dtype: Optional[torch.dtype] = None) -> MMInterleaved:
+    """The model with uninitialised storage on ``device`` in ``dtype``
+    (default: the LLM's compute dtype), for weights loaded in full."""
+    with torch.device("meta"):
+        model = MMInterleaved(cfg)
+    model = model.to(dtype=dtype or cfg.llm.compute_dtype)
+    return model.to_empty(device=device)
+
+
 def build_model(cfg: MMInterleavedConfig, device, dtype: Optional[torch.dtype] = None,
                 seed: int = 0, optim=None) -> MMInterleaved:
     """The model with seeded random weights, made directly on ``device`` in
@@ -299,10 +309,7 @@ def build_model(cfg: MMInterleavedConfig, device, dtype: Optional[torch.dtype] =
     model is in train mode.  Every leaf stays in ``dtype``, the compute
     dtype; `engine.optim.AdamW` keeps the fp32 masters of the trainable
     ones."""
-    with torch.device("meta"):
-        model = MMInterleaved(cfg)
-    model = model.to(dtype=dtype or cfg.llm.compute_dtype)
-    model = model.to_empty(device=device)
+    model = allocate_model(cfg, device, dtype)
     g = torch.Generator(device=device)
     g.manual_seed(seed)
     init_weights(model, g)

@@ -85,9 +85,12 @@ class ViTEmbeddings(nn.Module):
 
 
 class ViTLayer(nn.Module):
-    def __init__(self, config: ViTConfig):
+    """A pre-LN transformer block; ``causal`` for the CLIP text tower."""
+
+    def __init__(self, config: ViTConfig, causal: bool = False):
         super().__init__()
         self.config = config
+        self.causal = causal
         c = config.hidden_size
         eps = config.layer_norm_eps
         self.layer_norm1 = nn.LayerNorm(c, eps=eps)
@@ -108,7 +111,8 @@ class ViTLayer(nn.Module):
         q = self.q_proj(h).view(B, T, nh, hd)
         k = self.k_proj(h).view(B, T, nh, hd)
         v = self.v_proj(h).view(B, T, nh, hd)
-        attn = dot_product_attention(q, k, v).reshape(B, T, C)
+        attn = dot_product_attention(q, k, v, causal=self.causal)
+        attn = attn.reshape(B, T, C)
         x = x + self.out_proj(attn)
         h = self.fc2(self.act(self.fc1(self.layer_norm2(x))))
         return x + h

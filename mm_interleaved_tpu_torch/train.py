@@ -10,7 +10,13 @@ optimizer config from ``training:``, the model in its training form
 ``<output_dir>/checkpoints`` (the trainable masters, the optimizer, the step
 and the data position; the frozen weights are rebuilt from the same seed);
 train the remaining steps, printing ``step N: loss=... grad_norm=...``
-lines; save a final checkpoint.
+lines; save a final checkpoint.  With ``--load_from`` (or
+``training.load_from``), a full checkpoint of the port (``python -m
+mm_interleaved_tpu_torch.convert_checkpoint``: the released model, or the
+towers assembled for a pretrain), the run starts from its weights, as
+`train.py:101-117` does: only when no checkpoint of the run exists (step
+0; a resume wins), every weight from the file, the fp32 masters from the
+same values, the optimizer's moments fresh.
 
 Batches stay numpy in the data layer.  `data.pipeline.prefetch` makes them
 two ahead in a background thread and reports as its position the one after
@@ -22,9 +28,8 @@ takes it.
 
 Runs on the card; ``--device cpu`` runs on the CPU.  It refuses what the
 port cannot do yet rather than ignore it: a mesh of more than one device
-and ``distributed.initialize`` (multi-GPU sharding, ROADMAP.md §1 item 6),
-and ``--load_from`` / ``training.load_from`` (the checkpoint converters,
-item 5).  Errors propagate: a failed run exits nonzero.
+and ``distributed.initialize`` (multi-GPU sharding, ROADMAP.md §1 item 6).
+Errors propagate: a failed run exits nonzero.
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ from .data.pipeline import build_train_iterator, prefetch
 from .engine.optim import OptimConfig
 from .engine.trainer import Trainer, TrainerConfig
 from .models.mm_interleaved import build_model
+from .utils.checkpoint import read_full_checkpoint
 from .utils.config import build_model_config, dump_config, load_config
 from .utils.device import resolve_device
 
@@ -56,7 +62,7 @@ def optim_config(tr: Dict[str, Any], max_steps: Optional[int]) -> OptimConfig:
     )
 
 
-def check_supported(cfg: Dict[str, Any], load_from: Optional[str]) -> None:
+def check_supported(cfg: Dict[str, Any]) -> None:
     """Refuse the settings the port does not implement yet."""
     mesh = cfg.get("mesh", {}) or {}
     axes = {k: mesh.get(k, d) for k, d in (("data", -1), ("fsdp", 1),
@@ -69,10 +75,6 @@ def check_supported(cfg: Dict[str, Any], load_from: Optional[str]) -> None:
         raise NotImplementedError(
             "distributed.initialize: the port runs one process (multi-GPU "
             "sharding is ROADMAP.md §1 item 6)")
-    if load_from:
-        raise NotImplementedError(
-            f"load_from {load_from!r}: the port has no checkpoint converters "
-            "yet (ROADMAP.md §1 item 5)")
 
 
 def print_parameter_counts(model) -> None:
@@ -99,12 +101,13 @@ def main(argv=None) -> Dict[str, Any]:
     ap.add_argument("--max_steps", type=int, default=None)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--load_from", default=None,
-                    help="refused: the port has no checkpoint converters yet")
+                    help="a full checkpoint to start from at step 0")
     args = ap.parse_args(argv)
 
     cfg = load_config(args.config)
     tr = cfg.get("training", {}) or {}
-    check_supported(cfg, args.load_from or tr.get("load_from"))
+    check_supported(cfg)
+    load_from = args.load_from or tr.get("load_from")
     device = resolve_device(args.device)
     output_dir = args.output_dir or cfg.get("output_dir", "OUTPUT/run")
     os.makedirs(output_dir, exist_ok=True)
@@ -129,6 +132,9 @@ def main(argv=None) -> Dict[str, Any]:
     if trainer.restore(data_iter):
         print(f"resumed at step {trainer.step}, data position "
               f"{data_iter.state()}", flush=True)
+    elif load_from:
+        trainer.warm_start(read_full_checkpoint(load_from)["params"])
+        print(f"warm-started params from {load_from}", flush=True)
     batches = prefetch(data_iter, size=2)
     logged = []
 

@@ -1,48 +1,103 @@
 """The model for the inference and evaluation entry points (counterpart of
-`mm_interleaved_tpu/utils/checkpoint.py`).
+`mm_interleaved_tpu/utils/checkpoint.py`), and the port's full checkpoint.
 
-Without a checkpoint: the seeded model of `build_model`.  With one: a
-checkpoint of the port's `Trainer` (``step_{n}.pt``), whose trainable fp32
-masters are loaded over the frozen weights rebuilt from the seed it was
-trained at (its ``seed``, else ``seed``).  The JAX package's orbax
-directories and converted HF weights are refused: the converters are
-ROADMAP.md §1 item 5.
+`load_model` gives, without a checkpoint, the seeded model of
+`build_model`; with one, either
+
+  * a full checkpoint (`save_full_checkpoint`, what
+    ``python -m mm_interleaved_tpu_torch.convert_checkpoint`` writes): every
+    weight of the model, loaded strictly (names and shapes) into the
+    model's dtype, one tensor at a time from the memory-mapped file; or
+  * a checkpoint of the port's `Trainer` (``step_{n}.pt``), whose trainable
+    fp32 masters are loaded over the frozen weights rebuilt from the seed it
+    was trained at (its ``seed``, else ``seed``).
+
+The two are told apart by the full checkpoint's ``format`` entry.  The JAX
+package's orbax directories are refused: the port converts the released
+torch weights itself.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Optional
+import zipfile
+from typing import Any, Dict, Optional
 
 import torch
 
-from ..models.mm_interleaved import build_model
+from ..models.mm_interleaved import allocate_model, build_model
+
+FULL_FORMAT = "mm_interleaved_tpu_torch/full-checkpoint/1"
+
+
+def save_full_checkpoint(model, path: str, **meta: Any) -> int:
+    """Every parameter of ``model`` in its own dtype, with ``format``,
+    ``dtype`` and ``meta``, to ``path`` (written through a temporary file);
+    returns its size.  Tensors on the card are copied to the host one at a
+    time as they are written."""
+    params = {n: p.detach() for n, p in model.named_parameters()}
+    dtypes = sorted({str(p.dtype).replace("torch.", "") for p in params.values()})
+    tmp = path + ".tmp"
+    torch.save(dict(format=FULL_FORMAT, dtype=",".join(dtypes), params=params,
+                    **meta), tmp)
+    os.replace(tmp, path)
+    return os.path.getsize(path)
+
+
+def _refuse_directory(path: str) -> None:
+    if os.path.isdir(path):
+        raise NotImplementedError(
+            f"checkpoint {path!r} is a directory (an orbax checkpoint of the "
+            "JAX package): convert the released torch weights with python -m "
+            "mm_interleaved_tpu_torch.convert_checkpoint")
+
+
+def read_checkpoint(path: str) -> Dict[str, Any]:
+    """A checkpoint of the port (a `torch.save` zip), its tensors
+    memory-mapped."""
+    _refuse_directory(path)
+    if not os.path.isfile(path):
+        raise FileNotFoundError(f"no checkpoint at {path!r}")
+    if not zipfile.is_zipfile(path):
+        raise ValueError(f"{path!r} is not a checkpoint of the port (not a "
+                         "torch.save file)")
+    return torch.load(path, map_location="cpu", mmap=True, weights_only=False)
+
+
+def read_full_checkpoint(path: str) -> Dict[str, Any]:
+    """A full checkpoint (`save_full_checkpoint`); anything else raises."""
+    state = read_checkpoint(path)
+    if not isinstance(state, dict) or state.get("format") != FULL_FORMAT:
+        raise ValueError(
+            f"{path!r} is not a full checkpoint of the port (python -m "
+            "mm_interleaved_tpu_torch.convert_checkpoint writes one)")
+    return state
 
 
 def load_model(model_cfg, device, checkpoint: Optional[str] = None,
                seed: int = 0, dtype: Optional[torch.dtype] = None):
     """The model in eval mode on ``device`` (``dtype``: the LLM's compute
     dtype by default)."""
-    state = None
-    if checkpoint:
-        if os.path.isdir(checkpoint):
-            raise NotImplementedError(
-                f"checkpoint {checkpoint!r} is a directory (an orbax "
-                "checkpoint of the JAX package); the port reads its own "
-                "Trainer checkpoints only, the converters are ROADMAP.md §1 "
-                "item 5")
-        state = torch.load(checkpoint, map_location="cpu", weights_only=False)
-        seed = int(state.get("seed", seed))
-    model = build_model(model_cfg, device, dtype, seed=seed)
-    if state is not None:
-        params = dict(model.named_parameters())
-        missing = set(state["params"]) - set(params)
-        if missing:
-            raise KeyError(f"checkpoint leaves the model lacks: "
-                           f"{sorted(missing)[:5]}")
-        with torch.no_grad():
-            for name, x in state["params"].items():
-                params[name].copy_(x)
+    if not checkpoint:
+        return build_model(model_cfg, device, dtype, seed=seed).eval()
+    state = read_checkpoint(checkpoint)
+    if isinstance(state, dict) and state.get("format") == FULL_FORMAT:
+        model = allocate_model(model_cfg, device, dtype)
+        model.load_state_dict(state["params"], strict=True)
+        return model.eval()
+    if not (isinstance(state, dict) and "opt_state" in state):
+        raise ValueError(f"{checkpoint!r} is neither a full checkpoint nor a "
+                         "Trainer checkpoint of the port")
+    model = build_model(model_cfg, device, dtype,
+                        seed=int(state.get("seed", seed)))
+    params = dict(model.named_parameters())
+    missing = set(state["params"]) - set(params)
+    if missing:
+        raise KeyError(f"checkpoint leaves the model lacks: "
+                       f"{sorted(missing)[:5]}")
+    with torch.no_grad():
+        for name, x in state["params"].items():
+            params[name].copy_(x)
     return model.eval()
 
 

@@ -3,11 +3,13 @@
 
 The reference's `utils/fid_score.py:251-275` math (mu/sigma feature
 statistics + Frechet distance via the matrix sqrt of sigma1 @ sigma2),
-copied.  The feature extractor is `CLIPViTFeatures`: the cls token of the
-model's own CLIP ViT (the visual tokenizer's encoder, its weights shared),
-the "CLIP-FID" variant, also used for the CLIP image-image similarity
-(reference `utils/clip_sim_score.py:22`).  The InceptionV3 extractor waits
-for ROADMAP.md §1 item 4b.
+copied.  The evaluation entry's feature extractor is `CLIPViTFeatures`:
+the cls token of the model's own CLIP ViT (the visual tokenizer's encoder,
+its weights shared), the "CLIP-FID" variant, also used for the CLIP
+image-image similarity (reference `utils/clip_sim_score.py:22`); with
+``projected=True`` over a `models.clip_text.CLIPVisionTower`, the image
+side of the text-image rerank.  `utils.inception_v3` gives the pool3
+features of the standard FID.
 """
 
 from __future__ import annotations
@@ -57,23 +59,29 @@ def fid_from_features(real: np.ndarray, fake: np.ndarray) -> float:
 
 
 class CLIPViTFeatures:
-    """cls-token features of the CLIP ViT inside the visual tokenizer's
-    encoder (its embeddings, pre-layernorm and layers, shared with the
-    model), for CLIP-FID and the CLIP image-image similarity.  Attention
-    runs through the port's flash kernel on the card.  The projected
-    features of the JAX class (``projected=True``, for a text-image
-    rerank) need CLIP weights the model does not hold: they come with the
-    CLIP text tower (ROADMAP.md §1 item 4b)."""
+    """cls-token features of a CLIP ViT (its embeddings, pre-layernorm and
+    layers): the visual tokenizer's encoder, shared with the model, for
+    CLIP-FID and the CLIP image-image similarity; or, with ``projected``, a
+    `models.clip_text.CLIPVisionTower` whose ``post_layernorm`` and
+    ``visual_projection`` take the cls token into the space of the CLIP
+    text features (HF ``CLIPModel.get_image_features``), for the
+    text-image rerank.  Attention runs through the port's flash kernel on
+    the card."""
 
-    def __init__(self, encoder, batch_size: int = 32, image_size: int = None):
+    def __init__(self, encoder, batch_size: int = 32, image_size: int = None,
+                 projected: bool = False):
+        if projected and not hasattr(encoder, "project"):
+            raise ValueError("projected features need a CLIPVisionTower "
+                             "(post_layernorm and visual_projection)")
         self.encoder = encoder
         self.batch_size = batch_size
-        self.image_size = image_size or encoder.cfg.vit.image_size
+        self.projected = projected
+        self.image_size = image_size or encoder.embeddings.config.image_size
 
     @torch.inference_mode()
     def features(self, images: torch.Tensor) -> torch.Tensor:
         """``[N, S, S, 3]`` in [0, 1] at the ViT's resolution -> the cls
-        features ``[N, D]`` in fp32."""
+        (or projected) features ``[N, D]`` in fp32."""
         from ..models.visual_tokenizer import CLIP_MEAN, CLIP_STD
 
         enc = self.encoder
@@ -83,7 +91,8 @@ class CLIPViTFeatures:
         h = enc.pre_layrnorm(enc.embeddings((images - mean) / std))
         for layer in enc.layers:
             h = layer(h)
-        return h[:, 0].float()
+        h = h[:, 0]
+        return (enc.project(h) if self.projected else h).float()
 
     def __call__(self, images: np.ndarray) -> np.ndarray:
         """images: [N, H, W, 3] in [0,1] -> [N, D]; resizes to the ViT's

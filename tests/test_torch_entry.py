@@ -271,21 +271,25 @@ def test_train_step_runs_with_deterministic_cudnn(pipeline_step):
 @pytest.mark.parametrize("case", ["mesh", "distributed", "load_from",
                                   "no_cuda"])
 def test_train_main_refuses_what_the_port_lacks(case, tmp_path, monkeypatch):
-    """A multi-device mesh, ``distributed.initialize`` and ``--load_from``
-    raise with the ROADMAP item that brings them; without CUDA and without
-    ``--device cpu`` nothing runs on the CPU."""
+    """A multi-device mesh and ``distributed.initialize`` raise with the
+    ROADMAP item that brings them; a ``--load_from`` that is not a
+    checkpoint is refused; without CUDA and without ``--device cpu``
+    nothing runs on the CPU."""
     sections = {"mesh": {"mesh": {"fsdp": 2}},
                 "distributed": {"distributed": {"initialize": True}}}
     argv = ["--config", write_config(tmp_path, **sections.get(case, {})),
             "--output_dir", str(tmp_path / "out")]
+    err, match = NotImplementedError, "ROADMAP.md"
     if case == "load_from":
+        (tmp_path / "ckpt").write_text("not a checkpoint")
         argv += ["--load_from", str(tmp_path / "ckpt"), "--device", "cpu"]
+        err, match = ValueError, "not a checkpoint"
     elif case == "no_cuda":
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        err, match = RuntimeError, "--device cpu"
     else:
         argv += ["--device", "cpu"]
-    err = RuntimeError if case == "no_cuda" else NotImplementedError
-    with pytest.raises(err, match="ROADMAP.md|--device cpu"):
+    with pytest.raises(err, match=match):
         train.main(argv)
     assert not (tmp_path / "out" / "checkpoints").exists()
 

@@ -433,7 +433,7 @@ def test_refusals_raise_and_name_the_roadmap_item(assets, tmp_path):
     with pytest.raises(NotImplementedError, match="item 7"):
         build_generation_runtime(model, None, quantize="int8")
     (tmp_path / "orbax").mkdir()
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(NotImplementedError, match="convert_checkpoint"):
         load_model(model.cfg, "cpu", str(tmp_path / "orbax"))
     for bench in ("nocaps", "vist", "ade20k"):
         with pytest.raises(NotImplementedError, match="item 4b"):
@@ -461,7 +461,11 @@ def test_refusals_raise_and_name_the_roadmap_item(assets, tmp_path):
                      "item 7", *cpu)
         if not torch.cuda.is_available():
             entry_raises(mod, base, "no CUDA device")
-    entry_raises(evaluate, dict(base, evaluation={
-        "clip_text_path": "clip"}), "item 4b", *cpu)
+    # the CLIP rerank's directory is accepted (read when a t2i stanza
+    # reranks)
+    path = tmp_path / "clip.yaml"
+    path.write_text(yaml.safe_dump(dict(base, evaluation={
+        "clip_text_path": str(tmp_path / "clip")})))
+    assert evaluate.main(["--config", str(path), *cpu]) == {}
     entry_raises(evaluate, dict(base, data=dict(
         tokenizer_path=None, val=[{"type": "lncoco"}])), "item 4b", *cpu)
