@@ -191,7 +191,9 @@ class RssSampler:
     sampled every ``period`` seconds by a thread while the ``with`` block
     runs; ``peak`` is the largest sample.  (``getrusage``'s peak does not
     serve: a process started by ``fork`` from a large one keeps the
-    parent's resident set as its peak through ``exec``.)"""
+    parent's resident set as its peak through ``exec``; nor does
+    ``VmHWM``, the exact peak, which some sandboxed kernels leave out of
+    ``/proc/self/status`` while they report ``VmRSS``.)"""
 
     def __init__(self, period: float = 0.005):
         self.period = period

@@ -20,9 +20,12 @@
   after them.
 * Checkpoints (`torch.save`, ``step_{n}.pt`` under ``checkpoint_dir``) hold
   the trainable parameters (fp32 masters), the optimizer state, the step,
-  the seed (that of the frozen weights, in the entry point), the numpy
-  global RNG state and the data position ``{"epoch",
-  "offset"}``; `restore` resumes from the newest.
+  the seed (that of the frozen weights, in the entry point), the record of
+  the full checkpoint the run was warm-started from (``load_from``: its
+  path, size and id; None for a seeded start), the numpy global RNG state
+  and the data position ``{"epoch", "offset"}``; `restore` resumes from
+  the newest, every weight first from the recorded full checkpoint when
+  there is one.
 """
 
 from __future__ import annotations
@@ -36,6 +39,8 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..utils.checkpoint import (full_checkpoint_record, read_full_checkpoint,
+                                read_recorded_full)
 from ..utils.device import to_device
 from .optim import AdamW, OptimConfig, freeze
 
@@ -68,6 +73,8 @@ class Trainer:
                  if p.requires_grad]
         self.optimizer = AdamW(named, cfg.optim)
         self.step = 0
+        # the full checkpoint of `warm_start` (`full_checkpoint_record`)
+        self.load_from: Optional[Dict[str, Any]] = None
 
     def generator(self, i: int = 0) -> torch.Generator:
         """The generator of micro-batch ``i`` of the current step."""
@@ -203,6 +210,7 @@ class Trainer:
                        for k, v in opt.state_dict().items()},
             step=self.step,
             seed=self.cfg.seed,
+            load_from=self.load_from,
             host_rng=np.random.get_state(),
             data_state=dict(data_state or {"epoch": 0, "offset": 0}),
         )
@@ -234,26 +242,38 @@ class Trainer:
         return path
 
     @torch.no_grad()
-    def warm_start(self, params: Dict[str, torch.Tensor]) -> None:
-        """Every weight of the model from ``params`` (a full checkpoint's;
-        strict: names and shapes), the fp32 masters from the same values
+    def warm_start(self, path: str) -> None:
+        """Every weight of the model from the full checkpoint at ``path``
+        (strict: names and shapes), the fp32 masters from the same values
         (not from the model's copies in its dtype); the moments and the
-        update count stay as they are, fresh at step 0."""
+        update count stay as they are, fresh at step 0.  The file is
+        recorded in the checkpoints: a resume rebuilds the frozen weights
+        from it."""
+        state = read_full_checkpoint(path)
+        params = state["params"]
         self.model.load_state_dict(params, strict=True)
+        self.load_from = full_checkpoint_record(path, state)
         opt = self.optimizer
         for name, master, p in zip(opt.names, opt.masters, opt.params):
             if master is not p.data:
                 master.copy_(params[name])
 
     def restore(self, data_iter=None) -> bool:
-        """Resume from the newest checkpoint: the trainable parameters, the
-        optimizer state, the step, the numpy RNG and, when ``data_iter`` has
-        ``restore``, the data position.  Returns whether one was found."""
+        """Resume from the newest checkpoint: every weight from the full
+        checkpoint the run was warm-started from (when it was), then the
+        trainable parameters, the optimizer state, the step, the numpy RNG
+        and, when ``data_iter`` has ``restore``, the data position.
+        Returns whether one was found."""
         found = self._checkpoints()
         if not found:
             return False
         state = torch.load(found[-1], map_location=self.device,
                            weights_only=False)
+        self.load_from = state.get("load_from")
+        if self.load_from:
+            with torch.no_grad():
+                self.model.load_state_dict(
+                    read_recorded_full(self.load_from)["params"], strict=True)
         self.optimizer.load_state_dict(state["opt_state"], state["params"])
         self.step = int(state["step"])
         np.random.set_state(state["host_rng"])

@@ -8,7 +8,8 @@ optimizer config from ``training:``, the model in its training form
 (seeded weights, ``training.seed``), the `Trainer`, and
 `data.pipeline.build_train_iterator`; resume from the newest checkpoint of
 ``<output_dir>/checkpoints`` (the trainable masters, the optimizer, the step
-and the data position; the frozen weights are rebuilt from the same seed);
+and the data position; the frozen weights are rebuilt from the same seed,
+or read again from the full checkpoint of the warm start below);
 train the remaining steps, printing ``step N: loss=... grad_norm=...``
 lines; save a final checkpoint.  With ``--load_from`` (or
 ``training.load_from``), a full checkpoint of the port (``python -m
@@ -43,7 +44,6 @@ from .data.pipeline import build_train_iterator, prefetch
 from .engine.optim import OptimConfig
 from .engine.trainer import Trainer, TrainerConfig
 from .models.mm_interleaved import build_model
-from .utils.checkpoint import read_full_checkpoint
 from .utils.config import build_model_config, dump_config, load_config
 from .utils.device import resolve_device
 
@@ -133,7 +133,7 @@ def main(argv=None) -> Dict[str, Any]:
         print(f"resumed at step {trainer.step}, data position "
               f"{data_iter.state()}", flush=True)
     elif load_from:
-        trainer.warm_start(read_full_checkpoint(load_from)["params"])
+        trainer.warm_start(load_from)
         print(f"warm-started params from {load_from}", flush=True)
     batches = prefetch(data_iter, size=2)
     logged = []

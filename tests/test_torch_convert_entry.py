@@ -4,7 +4,9 @@ its output read by every entry point: `load_model` (every weight equal to
 its converted source tensor, in fp32 and bf16), ``inference --checkpoint``,
 ``evaluate --checkpoint`` and ``train --load_from`` (a warm start at step 0
 only: the model's weights and the fp32 masters equal the file's, the
-moments fresh; a resumed run does not start over from it)."""
+moments fresh; a resumed run does not start over from it, and it and
+`load_model` of its checkpoints take the frozen weights from the file
+again, refusing a file that is gone or is another)."""
 
 import os
 
@@ -23,7 +25,8 @@ from mm_interleaved_tpu_torch.models.mm_interleaved import build_model
 from mm_interleaved_tpu_torch.utils import convert_ref
 from mm_interleaved_tpu_torch.utils.checkpoint import (FULL_FORMAT,
                                                        load_model,
-                                                       read_full_checkpoint)
+                                                       read_full_checkpoint,
+                                                       save_full_checkpoint)
 from mm_interleaved_tpu_torch.utils.name_map import convert_entry
 from mm_interleaved_tpu_torch.utils.state_dict_io import load_torch_state_dict
 
@@ -142,10 +145,33 @@ def test_tower_mode_then_warm_start(tmp_path, monkeypatch, capsys):
     for n, p in weights.items():
         assert torch.equal(p, params[n]), n
     seen.clear()
-    train.main(argv + ["--max_steps", "4"])
+    res = train.main(argv + ["--max_steps", "4"])
     text = capsys.readouterr().out
     assert "resumed at step 3" in text and "warm-started" not in text
     assert seen[0][0] == 3
+    # the resume and load_model of a checkpoint of the run take every frozen
+    # weight from the file (not from training.seed), the trainable ones
+    # from the checkpoint's masters
+    frozen = {n for n, p in res["trainer"].model.named_parameters()
+              if not p.requires_grad}
+    assert "mm_decoder.layers.3.mlp.up_proj.weight" in frozen
+    for n in frozen:
+        assert torch.equal(seen[0][2][n], params[n]), n
+    step3 = os.path.join(run, "checkpoints", "step_3.pt")
+    masters = torch.load(step3, weights_only=False)["params"]
+    model = load_model(CFG, "cpu", step3, dtype=torch.float32)
+    for n, p in model.named_parameters():
+        want = params[n] if n in frozen else masters[n]
+        assert torch.equal(p.detach(), want), n
+    # a file that is gone or is another is refused
+    os.replace(out, out + ".moved")
+    with pytest.raises(FileNotFoundError, match="warm-started from"):
+        load_model(CFG, "cpu", step3)
+    with pytest.raises(FileNotFoundError, match="warm-started from"):
+        train.main(argv + ["--max_steps", "5"])
+    save_full_checkpoint(model, out)
+    with pytest.raises(ValueError, match="not the full checkpoint"):
+        load_model(CFG, "cpu", step3)
 
 
 def test_refusals(tmp_path):
