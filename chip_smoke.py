@@ -173,12 +173,37 @@ Phases, each of which raises (and exits nonzero) on failure:
    width (fp32, 16 captions of 77 tokens) and the projected vision tower:
    kernel 5 at the causal text site against its plain version, both
    towers' features against the CPU's, the rerank's picks the CPU's; (e)
-   InceptionV3 at 299 px against the CPU.
+   InceptionV3 at 299 px against the CPU;
+16. int8 weight-only decode, the benchmark datasets and RICES: (a) the
+   tiny preset, fp32, quantized on the CPU and copied to the card: logits
+   along the greedy tokens within 1e-4, the same tokens, the int8 kernel's
+   launches derived; (b) the flagship of phase 4 quantized in place
+   (`ops.quant.quantize_llm_weights`: the LLM's q/k/v/o, gate/up/down and
+   both heads), the peak counter reset after, then phase 5's text slice
+   (two runs identical), a K = 3 beam (two runs identical) and a 5-step
+   CFG denoise of phase 6: every kernel's launches, the int8 kernel's
+   among them, the derived counts; the peak beside phase 5's, at least 11
+   GB lower; (d) `evaluate.main` at the flagship over the eight
+   `datasets_bench` types on synthetic files in their official layouts
+   (VIST twice: storytelling and captioning), one batch of 2 each, 25
+   steps: one finite row a route, each route's launches the derived count,
+   its samples/s; `Evaluator.evaluate_segm2img` with the nearest-palette
+   segmenter (a finite mIoU); the nocaps route with ``evaluation.quantize:
+   int8``; (c) the int8 kernel against its plain version at every captured
+   shape (the prefill, decode at M = 2, 6 and 10, the prefix forward, the
+   heads) and at M = 8, in bf16 and fp32, within its derived elementwise
+   bound and bit-identical over two runs, timed beside its bound and
+   `F.linear` on the dequantized weight (cuBLAS), then at `INT8_EDGES` (K
+   not a multiple of 16, N off the tiles, M = 1 and 17, bias present and
+   absent, a misaligned view refused); (e) RICES over 16 seeded images with
+   a seeded ViT-L/14 in fp32: features within 1e-4 of their scale of the
+   CPU's, the CPU's picks.
 
-Prints a ``{"kernels": [...]}`` line (all thirteen kernels, each with its
+Prints a ``{"kernels": [...]}`` line (all fourteen kernels, each with its
 launches in the measured bench turn, its mean launches a train-entry
-step, its launches over phase 14's counted runs and over phase 15's; the
-flash forward with its CLIP-text site), the
+step, its launches over phase 14's counted runs, over phase 15's and over
+phase 16's; the flash forward with its CLIP-text site, the int8 kernel
+with its edge cases), the
 ``nvidia-smi`` name/power line, and last ``{"ok": true, "device":
 {...}}``.  Needs one CUDA card and the
 repository checkout around it; imports no JAX.
@@ -285,6 +310,12 @@ KERNELS = {
         source="ms_deform_attn_v4_bwd.cu",
         replaces="mm_interleaved_tpu/ops/ms_deform_attn_pallas_v4.py:215 "
                  "_kernel_v4_bwd_dslab"),
+    "int8_linear": dict(
+        module="quant", kernel="int8_linear_cuda", plain="int8_linear_plain",
+        source="int8_linear.cu",
+        replaces="mm_interleaved_tpu/ops/quant.py:85 QDense (no Pallas "
+                 "kernel: the XLA fusion of the int8 convert and scale into "
+                 "the dot's operand read)"),
 }
 # the forward kernels of the inference phases and the backward kernels of
 # the training phase
@@ -296,6 +327,8 @@ FORWARD = ("ms_deform_attn_fwd", "ms_deform_attn_mi_fwd",
 GN = ("group_norm_moments", "group_norm_apply")
 BACKWARD = ("ms_deform_attn_bwd_value", "ms_deform_attn_bwd_loc_weight",
             "flash_attention_bwd")
+# the int8 weight-only kernel of the quantized LLM (phase 16)
+QUANT = ("int8_linear",)
 # the benchmark's kernels (phase 9), by their formulation's name there
 BENCH = {"ms_deform_attn_v1_fwd": "v1", "ms_deform_attn_v4_fwd": "v4"}
 # the v4 backward kernels (phase 10), and the calls of the v4-against-v5
@@ -1037,7 +1070,7 @@ def expected_image_launches(cfg, steps: int, rows: int) -> dict:
         "geglu_fwd": geglu_blocks * steps,
         # inference records no graph: no backward kernel runs; the
         # benchmark's kernels serve the benchmark alone
-        **{name: 0 for name in (*BACKWARD, *BENCH, *V4_BWD)},
+        **{name: 0 for name in (*BACKWARD, *BENCH, *V4_BWD, *QUANT)},
     }
 
 
@@ -1084,7 +1117,7 @@ def expected_train_launches(cfg, images: int) -> dict:
         "ms_deform_attn_bwd_value": deform,
         "ms_deform_attn_bwd_loc_weight": deform,
         "flash_attention_bwd": flash,
-        **{name: 0 for name in (*BENCH, *V4_BWD)},
+        **{name: 0 for name in (*BENCH, *V4_BWD, *QUANT)},
     }
 
 
@@ -3234,11 +3267,11 @@ def scores_launches(cfg, chunks: int) -> dict:
     return out
 
 
-def clip_feature_launches(cfg, calls: int) -> dict:
-    """``calls`` batches through `utils.fid.CLIPViTFeatures`: the ViT's
-    layers."""
+def clip_feature_launches(vit_cfg, calls: int) -> dict:
+    """``calls`` batches through `utils.fid.CLIPViTFeatures` of a ViT of
+    ``vit_cfg``: its layers' mask-free attention."""
     out = dict.fromkeys(KERNELS, 0)
-    out["flash_attention_fwd"] = calls * cfg.visual.encoder.vit.num_hidden_layers
+    out["flash_attention_fwd"] = calls * vit_cfg.num_hidden_layers
     return out
 
 
@@ -3433,7 +3466,7 @@ def eval_route_launches(cfg) -> dict:
     candidate) and storytelling's two rounds, each image route's CLIP
     features of its generated and its ground-truth images."""
     image = expected_image_launches(cfg, SERVE_STEPS, B)
-    clip = clip_feature_launches(cfg, 2)
+    clip = clip_feature_launches(cfg.visual.encoder.vit, 2)
     chunks = -(-B * VISDIAL_OPTIONS // SCORES_MINI_BS)
     return {
         "evaluate_caption": bench_text_launches(
@@ -4111,6 +4144,643 @@ def run_weights_phase() -> dict:
                 wall_s=time.perf_counter() - t0)
 
 
+# --------------------------------------------------------------------------
+# int8 weight-only decode and the benchmark datasets (phase 16)
+
+QUANT_STEPS = 5
+QUANT_BEAM = VQA_BEAM
+# the decode rows phase 16c adds to the captured sites (B = 2 greedy, K = 3
+# x B = 2 and K = 5 x B = 2 beams are captured): the bench's decode at B = 8
+INT8_DECODE_ROWS = (8,)
+# name: (M, N, K, bias): the bodies' edges
+INT8_EDGES = {
+    "k_not_16_gemv": (3, 96, 200, True),
+    "k_not_16_tiled": (40, 70, 200, True),
+    "n_ragged_gemv": (2, 5000, 5120, False),
+    "n_ragged_tiled": (100, 130, 512, True),
+    "m1": (1, 5120, 5120, False),
+    "m1_head": (1, 32002, 5120, True),
+    "m17": (17, 256, 512, False),
+}
+RICES_SUPPORT = 16
+RICES_QUERIES = 4
+RICES_K = 3
+BENCH_ROUTES = ("evaluate_caption", "evaluate_t2i", "evaluate_storytelling",
+                "evaluate_segm2img")
+
+
+def int8_launches(cfg, text_forwards: int, prefix_forwards: int = 0) -> int:
+    """The int8 kernel's launches: the LLM's seven projections a layer in
+    every forward, and the two heads in each forward that makes logits
+    (the text forwards; the cache-free prefix forward of
+    `generate_image_inputs` stops at the hidden states)."""
+    per = 7 * cfg.llm.num_hidden_layers
+    return text_forwards * (per + 2) + prefix_forwards * per
+
+
+def with_int8(counts, n: int) -> dict:
+    out = dict(counts)
+    out["int8_linear"] = n
+    return out
+
+
+def work_int8(x, q, bias=None):
+    """Bytes: x, the codes, the scales, the bias and the output once each;
+    operations: 2 M N K at the peak rate of x's dtype."""
+    import torch
+
+    M, K = x.shape
+    N = q.shape[0]
+    nbytes = (_nbytes(x, q) + 4 * N + M * N * x.element_size()
+              + (_nbytes(bias) if bias is not None else 0))
+    rate = PEAK_BF16_FLOPS if x.dtype == torch.bfloat16 else PEAK_FP32_FLOPS
+    return 2 * M * N * K, nbytes, rate
+
+
+def int8_tolerance(x, q, scale, bias, got, want):
+    """The elementwise bound of kernel against plain: both dequantize the
+    weight with the same rounding, so they differ in the order of two fp32
+    sums of the same products (at most K 2^-23 sum_k |x||w| apart) and in
+    the roundings to the output dtype after them (the sum, then the bias
+    add: at most 2 u (|got| + |want| + |bias|), u = 2^-7 in bf16, 2^-23 in
+    fp32, a generous count of the ulps involved)."""
+    import torch
+
+    from mm_interleaved_tpu_torch.ops.quant import dequantize_int8
+
+    K = x.shape[1]
+    w = dequantize_int8(q, scale, x.dtype).float().abs()
+    sums = x.float().abs() @ w.t()
+    u = 2.0 ** -7 if x.dtype == torch.bfloat16 else 2.0 ** -23
+    mag = got.float().abs() + want.float().abs()
+    if bias is not None:
+        mag = mag + bias.float().abs()
+    return K * 2.0 ** -23 * sums + 2 * u * mag
+
+
+def int8_plain_exact(x, q, scale, bias):
+    """The plain version with cuBLAS's reductions in fp32 (no split-K in
+    bf16), as the bound assumes."""
+    import torch
+
+    from mm_interleaved_tpu_torch.ops.quant import int8_linear_plain
+
+    flag = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        return int8_linear_plain(x, q, scale, bias)
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            flag
+
+
+def check_int8(x, q, scale, bias, rec, tag, fails) -> None:
+    """One call against the plain version within `int8_tolerance`, and two
+    runs bit-identical."""
+    import torch
+
+    from mm_interleaved_tpu_torch.ops.quant import int8_linear_cuda
+
+    got = int8_linear_cuda(x, q, scale, bias)
+    again = int8_linear_cuda(x, q, scale, bias)
+    want = int8_plain_exact(x, q, scale, bias)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs()
+    tol = int8_tolerance(x, q, scale, bias, got, want)
+    rec[f"max_abs_err_{tag}"] = float(err.max())
+    rec[f"worst_err_over_tol_{tag}"] = float((err / tol).max())
+    rec[f"bit_identical_{tag}"] = torch.equal(got, again)
+    if not bool((err <= tol).all()):
+        fails.append(f"{rec['site']} {tag}: error {float(err.max())} over "
+                     f"the bound (worst ratio "
+                     f"{rec[f'worst_err_over_tol_{tag}']})")
+    if not rec[f"bit_identical_{tag}"]:
+        fails.append(f"{rec['site']} {tag}: two runs differ")
+
+
+def compare_int8(sites) -> list:
+    """Phase 16c: the int8 kernel against its plain version at each site
+    (``name -> (x, q, scale, bias)``, bf16 as captured and in fp32), both
+    timed (CUDA events, median of 25), beside the bound of the call and
+    `F.linear` on the dequantized weight in the same dtype (cuBLAS over
+    the same product's unquantized weight: the library's time); in bf16
+    the kernel and `F.linear` also as device time under `torch.profiler`
+    and as the mean of 25 calls enqueued back to back."""
+    import torch
+    import torch.nn.functional as F
+
+    from mm_interleaved_tpu_torch.ops.quant import (
+        dequantize_int8, int8_linear_body, int8_linear_cuda)
+
+    recs, fails = [], []
+    for site, (x, q, scale, bias) in sites.items():
+        rec = dict(site=site, M=x.shape[0], N=q.shape[0], K=q.shape[1],
+                   bias=bias is not None)
+        for dt, tag in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+            a = (x.to(dt), q, scale, None if bias is None else bias.to(dt))
+            rec[f"body_{tag}"] = int8_linear_body(a[0].shape[0], dt)
+            with torch.inference_mode():
+                check_int8(*a, rec, tag, fails)
+                rec[f"ms_{tag}"] = time_ms(lambda: int8_linear_cuda(*a))
+                rec[f"plain_ms_{tag}"] = time_ms(lambda: int8_plain_exact(*a))
+                w = dequantize_int8(q, scale, dt)
+                rec[f"library_ms_{tag}"] = time_ms(
+                    lambda: F.linear(a[0], w, a[3]))
+                del w
+                flops, nbytes, rate = work_int8(a[0], q, a[3])
+                ops_ms, bytes_ms = _bound(flops, nbytes, rate)
+                if tag == "bf16":
+                    rec.update(ops_ms=ops_ms, bytes_ms=bytes_ms,
+                               bound_ms=max(ops_ms, bytes_ms),
+                               bound_by=("operations" if ops_ms > bytes_ms
+                                         else "bytes"),
+                               flops=flops, bytes=nbytes,
+                               library_ms=rec["library_ms_bf16"])
+                    # the device's own time (the events above carry the
+                    # host's cost of each call at the small sites)
+                    w = dequantize_int8(q, scale, dt)
+                    for key, fn in (
+                            ("", lambda: int8_linear_cuda(*a)),
+                            ("library_", lambda: F.linear(a[0], w, a[3]))):
+                        rec[f"{key}device_ms"] = device_ms(fn)
+                        rec[f"{key}queued_ms"] = queued_ms(fn)
+                    del w
+                else:
+                    rec["bound_ms_fp32"] = max(ops_ms, bytes_ms)
+        recs.append(rec)
+        log(f"kernel vs plain, int8_linear {site}: {json.dumps(rec)}")
+    if fails:
+        raise AssertionError("int8_linear: " + "; ".join(fails))
+    return recs
+
+
+def check_int8_edges() -> list:
+    """`INT8_EDGES` in bf16 and fp32 (seeded): the body `int8_linear_body`
+    gives, within `int8_tolerance` of the plain version, two runs
+    bit-identical; a misaligned x refused before any launch where K % 16
+    == 0."""
+    import torch
+
+    from mm_interleaved_tpu_torch.ops.quant import (
+        int8_linear_body, int8_linear_cuda, int8_linear_vec, quantize_int8)
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 31)
+    recs, fails = [], []
+    for name, (M, N, K, has_bias) in INT8_EDGES.items():
+        q, scale = quantize_int8(torch.randn(N, K, generator=g,
+                                             device="cuda"))
+        x = torch.randn(M, K, generator=g, device="cuda")
+        bias = torch.randn(N, generator=g, device="cuda") if has_bias \
+            else None
+        rec = dict(site=name, M=M, N=N, K=K, bias=has_bias)
+        for dt, tag in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+            a = (x.to(dt), q, scale, None if bias is None else bias.to(dt))
+            rec[f"body_{tag}"] = int8_linear_body(M, dt)
+            with torch.inference_mode():
+                check_int8(*a, rec, tag, fails)
+                if int8_linear_vec(K):
+                    _refuses_misaligned(f"int8 {name} {tag}",
+                                        int8_linear_cuda, a, 0, rec, fails)
+        recs.append(rec)
+    log(f"int8_linear edge cases: {json.dumps(recs)}")
+    if fails:
+        raise AssertionError("int8_linear edges: " + "; ".join(fails))
+    return recs
+
+
+@contextlib.contextmanager
+def int8_capture(sites, tag: str, max_rows=None):
+    """Keep the first inputs of each (M, N, K) call of the int8 kernel's
+    wrapper (of at most ``max_rows`` rows) as the site
+    ``<tag>_M<M>_N<N>_K<K>`` (the weights by reference: they are the
+    model's)."""
+    from mm_interleaved_tpu_torch.ops.quant import int8_linear_cuda
+
+    # the counted wrapper stays in place (its launches still count); its
+    # launch function is wrapped
+    launch = int8_linear_cuda._launch
+
+    def wrapped(x, q, scale, bias=None):
+        key = f"{tag}_M{x.shape[0]}_N{q.shape[0]}_K{q.shape[1]}"
+        if key not in sites and (max_rows is None
+                                 or x.shape[0] <= max_rows):
+            sites[key] = (x.clone(), q, scale, bias)
+        return launch(x, q, scale, bias)
+
+    int8_linear_cuda._launch = wrapped
+    try:
+        yield sites
+    finally:
+        int8_linear_cuda._launch = launch
+
+
+def run_quant_tiny() -> dict:
+    """Phase 16a: the tiny preset, fp32, quantized on the CPU and copied
+    to the card (the same int8 weights): the logits along the CPU's greedy
+    tokens within 1e-4 of their scale, the card's greedy tokens the CPU's,
+    the int8 kernel's launches the derived count."""
+    import torch
+
+    from mm_interleaved_tpu_torch.configs import tiny_config
+    from mm_interleaved_tpu_torch.generation.text import (
+        TextGenerationConfig, generate_texts)
+    from mm_interleaved_tpu_torch.models.mm_interleaved import build_model
+    from mm_interleaved_tpu_torch.ops.quant import quantize_llm_weights
+
+    cfg = tiny_config(with_image_decoder=False)
+    s = cfg.special
+    cpu = build_model(cfg, "cpu", torch.float32, seed=SEED)
+    perturb_zero_inits(cpu, SEED + 1)
+    names = quantize_llm_weights(cpu)
+    gpu = copy.deepcopy(cpu).cuda()
+    rng = np.random.RandomState(SEED + 3)
+    row = [s.bos_token_id, 5, s.soi_token_id] + [s.image_token_id] * \
+        cfg.num_img_token + [7, 8, s.soi_token_id] + \
+        [s.image_token_id] * cfg.num_img_token + [9]
+    ids = torch.tensor([row, [s.pad_token_id] + row[:-1]])
+    att = (ids != s.pad_token_id).int()
+    imgs = torch.from_numpy(
+        rng.rand(2, cfg.max_num_images, 56, 56, 3).astype(np.float32))
+    n_img = torch.tensor([2, 2])
+    T = 8
+    gen = TextGenerationConfig(max_new_tokens=T, eos_token_ids=(),
+                               pad_token_id=s.pad_token_id)
+    tok_cpu = generate_texts(cpu, ids, imgs, n_img, att, gen)
+    want = teacher_forced_logits(cpu, ids, imgs, n_img, att, tok_cpu)
+    dev = [t.cuda() for t in (ids, imgs, n_img, att, tok_cpu)]
+    got, _, launches = timed(teacher_forced_logits, gpu, *dev)
+    got = got.cpu()
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    if not err <= 1e-4 * max(scale, 1.0):
+        raise AssertionError(f"tiny int8 fp32 logits card vs CPU: {err} "
+                             f"(scale {scale})")
+    if launches["int8_linear"] != int8_launches(cfg, T):
+        raise AssertionError(f"tiny int8 launches {launches['int8_linear']} "
+                             f"!= {int8_launches(cfg, T)}")
+    tok_gpu = generate_texts(gpu, *dev[:4], gen).cpu()
+    top2 = want.topk(2, dim=-1).values
+    margin = float((top2[..., 0] - top2[..., 1]).min())
+    if not torch.equal(tok_gpu, tok_cpu):
+        raise AssertionError(f"tiny int8 greedy tokens differ: {tok_gpu} vs "
+                             f"{tok_cpu} (top-2 margin {margin})")
+    return dict(quantized=len(names), logits_max_abs_err=err,
+                logits_scale=scale, top2_margin=margin,
+                tokens=tok_cpu.tolist(), launches=launches["int8_linear"])
+
+
+def llm_proj_bytes(model) -> int:
+    """The bytes of the LLM's projection layers as they stand (weights,
+    scales, biases)."""
+    from mm_interleaved_tpu_torch.ops.quant import is_quant_name
+
+    return sum(t.numel() * t.element_size()
+               for n, m in model.named_modules() if is_quant_name(n)
+               for t in (*m.parameters(), *m.buffers()))
+
+
+def run_quant_flagship(greedy_tokens, bf16_peak_gb: float,
+                       bf16_decode_ms: float, sites) -> dict:
+    """Phase 16b: the flagship of phase 4 (seeded bf16, full width and
+    depth, its image decoder) quantized in place, the peak counter reset
+    after, then phase 5's text slice (32 greedy tokens, two runs
+    identical), a K = 3 beam (two runs identical) and a 5-step CFG denoise
+    of phase 6 (the quantized prefix forward): every kernel's launches the
+    count derived from the config, the int8 kernel's among them; the
+    peak beside phase 5's, at least 11 GB lower.  The int8 kernel's
+    inputs are kept at each distinct call for 16c."""
+    import gc
+
+    import torch
+
+    from mm_interleaved_tpu_torch.configs import flagship_config
+    from mm_interleaved_tpu_torch.generation.diffusion import generate_images
+    from mm_interleaved_tpu_torch.generation.text import (
+        TextGenerationConfig, generate_texts)
+    from mm_interleaved_tpu_torch.models.mm_interleaved import build_model
+    from mm_interleaved_tpu_torch.ops.quant import quantize_llm_weights
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    model = build_model(flagship_config(max_num_images=N_IMG), "cuda",
+                        torch.bfloat16, seed=SEED)
+    perturb_zero_inits(model, SEED + 1)
+    cfg = model.cfg
+    bf16_bytes = llm_proj_bytes(model)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    names = quantize_llm_weights(model)
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t1
+    int8_bytes = llm_proj_bytes(model)
+    gc.collect()
+    torch.cuda.empty_cache()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    ids, images, n_img, att = prompt_inputs(cfg, "cuda")
+    s = cfg.special
+    gen = TextGenerationConfig(max_new_tokens=NEW_TOKENS, eos_token_ids=(),
+                               pad_token_id=s.pad_token_id)
+    with int8_capture(sites, "text"):
+        generate_texts(model, ids, images, n_img, att,
+                       dataclasses.replace(gen, max_new_tokens=2))
+    _, first_ms, _ = timed(generate_texts, model, ids, images, n_img, att,
+                           dataclasses.replace(gen, max_new_tokens=1))
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    tokens, gen_ms, text_launches = timed(generate_texts, model, ids, images,
+                                          n_img, att, gen)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    again = generate_texts(model, ids, images, n_img, att, gen)
+    want = with_int8(bench_text_launches(cfg, NEW_TOKENS),
+                     int8_launches(cfg, NEW_TOKENS))
+    if text_launches != want:
+        raise AssertionError(f"int8 text slice launches {text_launches} != "
+                             f"{want}")
+    if tuple(tokens.shape) != (B, NEW_TOKENS) or not (
+            (tokens >= 0) & (tokens < cfg.llm.vocab_size)).all():
+        raise AssertionError(f"int8 text slice tokens {tokens}")
+    if not torch.equal(tokens, again):
+        raise AssertionError("two int8 greedy runs differ")
+    if not peak_gb <= bf16_peak_gb - 11.0:
+        raise AssertionError(f"int8 text slice peak {peak_gb:.2f} GB is not "
+                             f"11 GB below bf16's {bf16_peak_gb:.2f} GB")
+
+    beam = TextGenerationConfig(
+        eos_token_ids=(s.eos_token_id, s.soi_token_id),
+        pad_token_id=s.pad_token_id, **QUANT_BEAM)
+    with int8_capture(sites, "beam", max_rows=16):
+        btok, beam_ms, beam_launches = timed(generate_texts, model, ids,
+                                             images, n_img, att, beam)
+    bagain = generate_texts(model, ids, images, n_img, att, beam)
+    T = beam.max_new_tokens
+    want = with_int8(bench_text_launches(cfg, T), int8_launches(cfg, T))
+    if beam_launches != want:
+        raise AssertionError(f"int8 beam launches {beam_launches} != {want}")
+    if not torch.equal(btok, bagain):
+        raise AssertionError("two int8 beam runs differ")
+
+    def image_run():
+        g = torch.Generator(device="cuda")
+        g.manual_seed(SEED + 7)
+        inp = model.generate_image_inputs(ids, images, n_img, att)
+        return generate_images(model, *inp, num_inference_steps=QUANT_STEPS,
+                               guidance_scale=GUIDANCE, generator=g)
+
+    with int8_capture(sites, "prefix"):
+        out, image_ms, image_launches = timed(image_run)
+    want = with_int8(expected_image_launches(cfg, QUANT_STEPS, B * N_IMG),
+                     int8_launches(cfg, 0, 1))
+    if image_launches != want:
+        raise AssertionError(f"int8 denoise launches {image_launches} != "
+                             f"{want}")
+    size = cfg.image_decoder.image_size
+    if tuple(out.shape) != (B * N_IMG, size, size, 3) or not bool(
+            torch.isfinite(out).all()) or float(out.min()) < 0 or float(
+            out.max()) > 1:
+        raise AssertionError(f"int8 denoise images {tuple(out.shape)}")
+    # the decode rows of the bench (B = 8) and of the caption beam (K = 5
+    # x B = 2) on each distinct weight
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 32)
+    for key, (x, q, scale, bias) in list(sites.items()):
+        if not key.startswith("text_M2_"):
+            continue
+        for M in INT8_DECODE_ROWS:
+            sites[key.replace("text_M2_", f"decode_M{M}_")] = (
+                torch.randn(M, x.shape[1], generator=g, device="cuda",
+                            dtype=x.dtype), q, scale, bias)
+    decode_ms = (gen_ms - first_ms) / (NEW_TOKENS - 1)
+    res = dict(
+        build_s=t1 - t0, quantize_s=quant_s, quantized=len(names),
+        llm_bf16_gb=bf16_bytes / 1e9, llm_int8_gb=int8_bytes / 1e9,
+        held_gb=held_gb, peak_gb=peak_gb, bf16_peak_gb=bf16_peak_gb,
+        first_ms=first_ms, decode_ms=decode_ms,
+        bf16_decode_ms=bf16_decode_ms,
+        decode_bound_ms=int8_bytes / PEAK_BYTES * 1e3,
+        tokens=tokens[:, :8].tolist(),
+        tokens_equal_bf16=float((tokens == greedy_tokens).float().mean()),
+        beam_ms=beam_ms, beam_tokens=btok[:, :8].tolist(),
+        image_ms=image_ms, image_mean=float(out.mean()),
+        launches=add_launches(text_launches, beam_launches, image_launches))
+    del model, out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def bench_route_launches(cfg) -> dict:
+    """Each benchmark route's launches on one batch of 2 rows: the caption
+    beams (K = 5, 20 tokens); text to image (one candidate) and
+    storytelling (one target round) with the CLIP features of their
+    generated and ground-truth images; segmentation to image (no
+    segmenter: no features)."""
+    image = expected_image_launches(cfg, SERVE_STEPS, B)
+    clip = clip_feature_launches(cfg.visual.encoder.vit, 2)
+    return {
+        "evaluate_caption": bench_text_launches(
+            cfg, CAPTION_BEAM["max_new_tokens"]),
+        "evaluate_t2i": add_launches(image, clip),
+        "evaluate_storytelling": add_launches(image, clip),
+        "evaluate_segm2img": image,
+    }
+
+
+def run_bench_eval(sites) -> dict:
+    """Phase 16d: `evaluate.main` at the flagship (seeded bf16) on the nine
+    stanzas of `write_bench_assets` (the eight `datasets_bench` types, VIST
+    twice), one batch of 2 each, 25 steps, CLIP-FID on: one finite row a
+    route, each route's launches the derived count, its samples/s; the
+    ade20k row without mIoU (the entry passes no segmenter, as JAX's);
+    then `Evaluator.evaluate_segm2img` on the ade20k batches with the
+    nearest-palette segmenter (a finite mIoU); then the nocaps route again
+    with ``evaluation.quantize: int8`` (its decode rows kept for 16c)."""
+    import gc
+
+    import torch
+    import yaml
+
+    from mm_interleaved_tpu_torch import evaluate
+    from mm_interleaved_tpu_torch.configs import flagship_config
+    from mm_interleaved_tpu_torch.data.datasets import iterate_dataset
+    from mm_interleaved_tpu_torch.data.datasets_extra import (
+        ade20k_palette, rgb_to_segm)
+    from mm_interleaved_tpu_torch.data.synthetic_eval import (
+        write_bench_assets)
+    from mm_interleaved_tpu_torch.data.tokenizer import load_tokenizer
+    from mm_interleaved_tpu_torch.engine.evaluator import (EvalConfig,
+                                                           Evaluator)
+    from mm_interleaved_tpu_torch.models.mm_interleaved import build_model
+    from mm_interleaved_tpu_torch.ops.cuda_build import BUILD_DIR
+
+    t_phase = time.perf_counter()
+    root = BUILD_DIR.parent / "smoke_bench_eval"
+    shutil.rmtree(root, ignore_errors=True)
+    val = write_bench_assets(str(root / "data"), n=B)
+    model = build_model(flagship_config(), "cuda", torch.bfloat16, seed=SEED)
+    perturb_zero_inits(model, SEED + 1)
+    cfg = model.cfg
+
+    def run(stanzas, out, **extra):
+        config = dict(output_dir=str(root / out),
+                      model={"preset": "flagship"},
+                      data=dict(tokenizer_path=None, val=stanzas),
+                      evaluation=dict(batch_size=B, max_batches=1,
+                                      clip_fid=True,
+                                      num_inference_steps=SERVE_STEPS,
+                                      **extra))
+        path = root / f"{out}.yaml"
+        path.write_text(yaml.safe_dump(config))
+        calls = []
+        with recording(Evaluator, BENCH_ROUTES, calls):
+            results = evaluate.main(["--config", str(path), "--device",
+                                     "cuda"], model=model)
+        rows = [json.loads(x) for x in
+                (root / out / "eval_metrics.jsonl").read_text().splitlines()]
+        return results, rows, calls
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    results, rows, calls = run(val, "out")
+    wall_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    names = [s["dataset_name"] for s in val]
+    if [r["dataset"] for r in rows] != names or list(results) != names:
+        raise AssertionError(f"bench eval rows {[r['dataset'] for r in rows]}")
+    want = bench_route_launches(cfg)
+    routes = {}
+    for (route, ms, launches), row in zip(calls, rows):
+        nums = [v for v in row.values() if isinstance(v, (int, float))
+                and not isinstance(v, bool)]
+        if not all(np.isfinite(nums)):
+            raise AssertionError(f"non-finite bench eval row {row}")
+        if launches != want[route]:
+            raise AssertionError(f"{row['dataset']} ({route}) launched "
+                                 f"{launches} != {want[route]}")
+        n = row.get("num_samples", row.get("num_generated"))
+        if n != B:
+            raise AssertionError(f"bench eval row without its samples {row}")
+        routes[row["dataset"]] = dict(
+            route=route, ms=ms, samples=n, samples_per_s=n / (ms / 1e3),
+            row={k: v for k, v in row.items()
+                 if k not in ("dataset", "time", "image_dir")})
+    if "miou" in rows[-1] or rows[-1]["dataset"] != "synthetic_ade20k":
+        raise AssertionError(f"ade20k row {rows[-1]}")
+    launches = add_launches(*(c[2] for c in calls))
+
+    # segmentation to image with a segmenter: the generated image's nearest
+    # palette colours (1-indexed classes)
+    ade = val[-1]
+    tok = load_tokenizer(None, vocab_size=cfg.llm.vocab_size,
+                         special=cfg.special)
+    ds, coll, mode = evaluate.build_eval_dataset(ade, cfg, tok)
+    from PIL import Image
+
+    gt = {i: np.asarray(Image.open(ds.gt_id_to_path(i)))
+          for i in range(len(ds))}
+    pal = ade20k_palette()
+    ev = Evaluator(model, tok, EvalConfig(
+        batch_size=B, num_inference_steps=SERVE_STEPS, max_batches=1,
+        output_dir=str(root / "segm")))
+    segm, segm_ms, segm_launches = timed(
+        ev.evaluate_segm2img, iterate_dataset(ds, B, coll), gt,
+        segment_fn=lambda im: rgb_to_segm(im, pal) + 1)
+    if segm_launches != want["evaluate_segm2img"] or not np.isfinite(
+            segm.get("miou", np.nan)) or segm["num_generated"] != B:
+        raise AssertionError(f"segm2img with a segmenter: {segm}, launches "
+                             f"{segm_launches}")
+
+    # the nocaps route with the LLM quantized by the entry's runtime
+    with int8_capture(sites, "caption", max_rows=16):
+        qresults, qrows, qcalls = run(val[:1], "out_int8", quantize="int8")
+    (route, qms, qlaunches), = qcalls
+    want_q = with_int8(want["evaluate_caption"], int8_launches(
+        cfg, CAPTION_BEAM["max_new_tokens"]))
+    if qlaunches != want_q or qrows[0]["num_samples"] != B:
+        raise AssertionError(f"int8 caption route {qrows[0]}, launches "
+                             f"{qlaunches} != {want_q}")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(routes=routes, launches=add_launches(launches, segm_launches,
+                                                     qlaunches),
+                peak_gb=peak_gb, wall_s=wall_s,
+                segm=dict(row=segm, ms=segm_ms),
+                int8_caption=dict(ms=qms, row=qrows[0],
+                                  samples_per_s=B / (qms / 1e3),
+                                  bf16_ms=routes["synthetic_nocaps"]["ms"]),
+                phase_s=time.perf_counter() - t_phase)
+
+
+def run_rices() -> dict:
+    """Phase 16e: RICES over a seeded support set of ``RICES_SUPPORT``
+    images at 224 px with `CLIPViTFeatures` of a seeded CLIP ViT-L/14
+    (fp32; the unprojected cls feature, as the evaluation entry's) on the
+    card, ``RICES_QUERIES`` queries, top ``RICES_K``: the
+    support and query features within 1e-4 of their scale of the CPU's
+    (phase 15's tolerance), the same picks; the kernel 5 launches of the
+    window the derived count."""
+    import copy
+
+    import torch
+
+    from mm_interleaved_tpu_torch.data.rices import RICES
+    from mm_interleaved_tpu_torch.models.clip_text import CLIPVisionTower
+    from mm_interleaved_tpu_torch.models.vit import ViTConfig
+    from mm_interleaved_tpu_torch.utils.fid import CLIPViTFeatures
+
+    vcfg = ViTConfig()
+    with torch.device("meta"):
+        vit = CLIPVisionTower(vcfg, 768)
+    vit = seeded_module(vit, SEED + 41)
+    rng = np.random.RandomState(SEED + 42)
+    support = [(rng.rand(224, 224, 3).astype(np.float32), f"caption {i}", i)
+               for i in range(RICES_SUPPORT)]
+    queries = rng.rand(RICES_QUERIES, 224, 224, 3).astype(np.float32)
+    reset_counts()
+    (rices, picks), ms, launches = timed(
+        lambda: (lambda r: (r, r.find(queries, RICES_K)))(
+            RICES(support, CLIPViTFeatures(vit))))
+    want = clip_feature_launches(vcfg, 2)
+    if launches != want:
+        raise AssertionError(f"RICES launches {launches} != {want}")
+    cpu = RICES(support, CLIPViTFeatures(copy.deepcopy(vit).cpu()))
+    picks_cpu = cpu.find(queries, RICES_K)
+    scale = float(np.abs(cpu.features).max())
+    err = float(np.abs(rices.features - cpu.features).max())
+    if not err <= 1e-4 * scale:
+        raise AssertionError(f"RICES features card vs CPU {err} > 1e-4 x "
+                             f"{scale}")
+    if picks != picks_cpu:
+        raise AssertionError(f"RICES picks {picks} != the CPU's {picks_cpu}")
+    return dict(picks=picks, max_abs_err=err, scale=scale, ms=ms,
+                launches=launches)
+
+
+
+def run_quant_phase(greedy_tokens, bf16_peak_gb: float,
+                    bf16_decode_ms: float) -> dict:
+    """Phase 16: (a) the tiny preset quantized, card against CPU; (b) the
+    quantized flagship's text slice, beam and denoise; (d) the benchmark
+    datasets through the evaluation entry, segmentation to image with a
+    segmenter, a caption route quantized; (c) the int8 kernel against its
+    plain version at every captured site and at the edges; (e) RICES."""
+    t0 = time.perf_counter()
+    tiny = run_quant_tiny()
+    sites = {}
+    flag = run_quant_flagship(greedy_tokens, bf16_peak_gb, bf16_decode_ms,
+                              sites)
+    bench_eval = run_bench_eval(sites)
+    recs = compare_int8(sites)
+    edges = check_int8_edges()
+    rices = run_rices()
+    return dict(tiny=tiny, flagship=flag, bench_eval=bench_eval,
+                sites=recs, edges=edges, rices=rices,
+                wall_s=time.perf_counter() - t0)
+
+
 def main() -> int:
     import torch
 
@@ -4361,8 +5031,44 @@ def main() -> int:
         f"{inc['max_abs_err']} at scale {inc['scale']} (limit 1e-5 of it; "
         f"with cuDNN's TF32 convolutions {inc['tf32_max_abs_err']}); phase 15 "
         f"{wt['wall_s']:.1f} s")
+    # 16. int8 weight-only decode, the benchmark datasets, RICES
+    qp = run_quant_phase(res["tokens"], res["peak_gb"], res["decode_ms"])
+    t16, f16 = qp["tiny"], qp["flagship"]
+    log(f"int8 tiny (fp32, card vs CPU, {t16['quantized']} layers): logits "
+        f"{t16['logits_max_abs_err']} at scale {t16['logits_scale']} (limit "
+        f"1e-4 of it), greedy tokens the CPU's (top-2 margin "
+        f"{t16['top2_margin']}), {t16['launches']} int8 launches")
+    log(f"int8 flagship: {f16['quantized']} layers quantized in "
+        f"{f16['quantize_s']:.2f} s, LLM projections {f16['llm_bf16_gb']:.3f} "
+        f"-> {f16['llm_int8_gb']:.3f} GB, held {f16['held_gb']:.2f} GB | "
+        f"{smi}; text slice peak {f16['peak_gb']:.2f} GB (bf16, phase 5: "
+        f"{f16['bf16_peak_gb']:.2f} GB), first token {f16['first_ms']:.1f} "
+        f"ms, decode {f16['decode_ms']:.2f} ms/token (bf16, phase 5: "
+        f"{f16['bf16_decode_ms']:.2f}; the int8 weights' bound "
+        f"{f16['decode_bound_ms']:.3f} ms/token), tokens equal to bf16's at "
+        f"{f16['tokens_equal_bf16']:.3f} of positions; beam K=3 "
+        f"{f16['beam_ms']:.1f} ms; denoise ({QUANT_STEPS} CFG steps) "
+        f"{f16['image_ms']:.1f} ms; launches {json.dumps(f16['launches'])}")
+    be = qp["bench_eval"]
+    for name, r in be["routes"].items():
+        log(f"bench eval {name} ({r['route']}): {r['samples']} samples in "
+            f"{r['ms']:.1f} ms, {r['samples_per_s']:.3f} samples/s; "
+            f"{json.dumps(r['row'])}")
+    log(f"bench eval: peak memory {be['peak_gb']:.2f} GB, {be['wall_s']:.1f} "
+        f"s; segm2img with the palette segmenter {json.dumps(be['segm'])}; "
+        f"nocaps with quantize int8 {json.dumps(be['int8_caption'])}; "
+        f"launches {json.dumps(be['launches'])}")
+    log(f"RICES ({RICES_SUPPORT} support images, {RICES_QUERIES} queries, "
+        f"top {RICES_K}, ViT-L/14 fp32): {json.dumps(qp['rices'])}")
+    log(f"phase 16 {qp['wall_s']:.1f} s")
+    int8_line = kernel_line("int8_linear", qp["sites"],
+                            f16["launches"]["int8_linear"])
+    int8_line["edge_cases"] = qp["edges"]
+    lines.append(int8_line)
+    quant_launches = add_launches(f16["launches"], be["launches"])
     line_of["flash_attention_fwd"]["clip_text_site"] = clip["site"]
     for line in lines:
+        line["quant_launches"] = quant_launches[line["name"]]
         line["weights_launches"] = wt["launches"][line["name"]]
         line["serving_launches"] = serving[line["name"]]
         line["bench_turn_launches"] = bt["turn"][line["name"]]

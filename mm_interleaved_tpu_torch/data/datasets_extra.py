@@ -4,9 +4,7 @@ Re-designs of the reference classes: `visdial_dense.py:1-128`
 (VisDialDenseDataset), `vist.py:8-196` (VISTDataset), `pororo.py` /
 `flintstones.py` (story sets), `grounding_datasets.py:1-565`
 (RefCOCO-style), `sft_datasets.py:1-97` (LLaVADataset +
-WeightedConcatDataset).  The ADE20k segmentation-to-image helpers read
-`datasets_bench.py`, an evaluation module: they come with the evaluation
-slice.
+WeightedConcatDataset), `ade20k.py:9-225` (segmentation-to-image).
 
 The port's copy of `mm_interleaved_tpu/data/datasets_extra.py` (the port
 imports nothing of the JAX package).
@@ -229,3 +227,29 @@ class WeightedConcatDataset:
         di = int(rng.choice(len(self.datasets), p=self.probs))
         ds = self.datasets[di]
         return ds[int(rng.randint(len(ds)))]
+
+
+# ADE20k palette-based segmentation-to-image (reference ade20k.py:9-225,
+# segm_eval.py:9-70): segmentation maps render to palette colours; generated
+# images map back to the nearest palette class for mIoU.
+
+def ade20k_palette(num_classes: int = 150) -> np.ndarray:
+    """The official ADE20k colour palette (reference ade20k.py:178-204):
+    first ``num_classes`` class colours, skipping the row-0 unlabeled
+    entry. [num_classes, 3] uint8."""
+    from .datasets_bench import ade20k_official_palette
+
+    return ade20k_official_palette()[1 : num_classes + 1]
+
+
+def segm_to_rgb(segm: np.ndarray, palette: np.ndarray) -> np.ndarray:
+    """[H, W] class ids -> [H, W, 3] float in [0,1]."""
+    return palette[np.clip(segm, 0, len(palette) - 1)].astype(np.float32) / 255.0
+
+
+def rgb_to_segm(image: np.ndarray, palette: np.ndarray) -> np.ndarray:
+    """Nearest-palette-colour class map (segm_eval.py colour matching)."""
+    img = (np.asarray(image, np.float32) * 255.0).reshape(-1, 1, 3)
+    pal = palette.astype(np.float32)[None]  # [1, C, 3]
+    d = np.square(img - pal).sum(-1)  # [HW, C]
+    return d.argmin(-1).reshape(image.shape[:2])

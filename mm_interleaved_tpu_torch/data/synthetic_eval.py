@@ -5,8 +5,12 @@ with no dataset on disk.
 
 `write_eval_assets(root)` returns the ``data.val`` stanzas of six routes:
 COCO captioning, VQA (beam 3), VisDial ranking, grounding, COCO text to
-image and storytelling.  `write_inference_assets(root)` returns the path of
-an ``annt.json`` of two images.
+image and storytelling; `write_bench_assets(root)` writes the files of the
+eight benchmark sets of `data.datasets_bench`, each in its official
+layout, and returns their nine stanzas (VIST twice: storytelling and
+captioning its last frame).
+`write_inference_assets(root)` returns the path of an ``annt.json`` of two
+images.
 """
 
 from __future__ import annotations
@@ -117,6 +121,142 @@ def write_eval_assets(root: str, n: int = 2, seed: int = 0,
              collate_mode="generate_images"),
         dict(type="story", dataset_name="synthetic_story", annt_file=story,
              data_root=img_dir),
+    ]
+
+
+def _frames(path: str, rng: np.random.RandomState, n_frames: int,
+            frame_h: int = 128, width: int = 96) -> None:
+    """A story clip: ``n_frames`` random frames of ``frame_h`` rows stacked
+    vertically in one PNG, as the Pororo and FlintStones caches store
+    them."""
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    arr = rng.randint(0, 256, (n_frames * frame_h, width, 3), dtype=np.uint8)
+    Image.fromarray(arr).save(path)
+
+
+def write_bench_assets(root: str, n: int = 2, seed: int = 0) -> List[Dict]:
+    """Files of ``n`` samples of each `datasets_bench` set under ``root``,
+    in each one's official layout, and their ``data.val`` stanzas: nocaps
+    and Flickr30k (COCO-format json), the Stanford image paragraphs
+    (``annotations/paragraphs_coco.json`` and ``test_split.json``), LN-COCO
+    (``coco_val_captions.jsonl``, ``val2017/<id:012d>.jpg``), VIST
+    (``annotations/val_formatted_filtered.json``,
+    ``images/val_images/<id>.png``), Pororo (the four npy caches), FlintStones
+    (``following_cache4.pkl``, the split and annotation jsons,
+    ``video_frames_sampled_png/``) and ADE20k (``images/``,
+    ``annotations/`` class maps, ``annotations_with_color/`` rendered by
+    `prepare_ade20k`, ``validation.json``)."""
+    import pickle
+
+    from ..prepare_ade20k import render_split
+
+    rng = np.random.RandomState(seed + 10)
+    os.makedirs(root, exist_ok=True)
+
+    cap_dir = os.path.join(root, "coco_style")
+    names = [f"cap{i}.jpg" for i in range(n)]
+    write_images(cap_dir, names, seed + 11)
+    coco = {"images": [{"id": 10 + i, "file_name": names[i]}
+                       for i in range(n)],
+            "annotations": [{"image_id": 10 + i, "caption": _sentence(rng),
+                             "id": k} for i in range(n) for k in range(2)]}
+    nocaps = _dump(os.path.join(root, "nocaps_val.json"), coco)
+    flickr = _dump(os.path.join(root, "flickr30k_test1k.json"), coco)
+
+    para = os.path.join(root, "image2paragraph")
+    os.makedirs(os.path.join(para, "annotations"), exist_ok=True)
+    write_images(os.path.join(para, "images", "VG_100K"),
+                 [f"{20 + i}.jpg" for i in range(n)], seed + 12)
+    _dump(os.path.join(para, "annotations", "paragraphs_coco.json"), {
+        "annotations": [{"image_id": 20 + i, "url": "https://cs.stanford.edu"
+                         f"/people/rak248/VG_100K/{20 + i}.jpg",
+                         "caption": ". ".join(_sentence(rng)
+                                              for _ in range(3))}
+                        for i in range(n + 1)]})
+    _dump(os.path.join(para, "annotations", "test_split.json"),
+          [20 + i for i in range(n)])
+
+    lncoco = os.path.join(root, "lncoco")
+    write_images(os.path.join(lncoco, "val2017"),
+                 [f"{30 + i:012d}.jpg" for i in range(n)], seed + 13)
+    _dump_jsonl(os.path.join(lncoco, "coco_val_captions.jsonl"),
+                [{"image_id": 30 + i, "caption": _sentence(rng, 10)}
+                 for i in range(n)])
+
+    vist = os.path.join(root, "vist")
+    os.makedirs(os.path.join(vist, "annotations"), exist_ok=True)
+    vist_ids = [f"{40 + k}" for k in range(3 * n)]
+    write_images(os.path.join(vist, "images", "val_images"),
+                 [f"{i}.png" for i in vist_ids], seed + 14)
+    _dump(os.path.join(vist, "annotations", "val_formatted_filtered.json"), {
+        "annotations": {f"story{s}": [
+            {"sequence_index": j, "caption": _sentence(rng),
+             "image_id": vist_ids[3 * s + j]} for j in (2, 0, 1)]
+            for s in range(n)}})
+
+    pororo = os.path.join(root, "pororo")
+    ids = [f"ep{k}/frame{k}.png" for k in range(5 * n)]
+    for path in ids:
+        _frames(os.path.join(pororo, "data", path), rng, 2)
+    np.save(os.path.join(pororo, "descriptions.npy"), np.array(
+        {p[:-4]: [_sentence(rng).capitalize() + " pororo smiles."]
+         for p in ids}, dtype=object))
+    np.save(os.path.join(pororo, "img_cache4.npy"),
+            np.array([ids[5 * s].encode() for s in range(n)]))
+    np.save(os.path.join(pororo, "following_cache4.npy"),
+            np.array([[p.encode() for p in ids[5 * s + 1:5 * s + 5]]
+                      for s in range(n)]))
+    split = np.empty(3, dtype=object)
+    split[0], split[1] = np.array([], np.int64), np.array([], np.int64)
+    split[2] = np.arange(n)[::-1].copy()
+    np.save(os.path.join(pororo, "train_seen_unseen_ids.npy"), split)
+
+    flint = os.path.join(root, "flintstones")
+    gids = [f"s_{k:02d}_e_01_shot_{k:06d}" for k in range(5 * n)]
+    for g in gids:
+        _frames(os.path.join(flint, "data", "video_frames_sampled_png",
+                             f"{g}.png"), rng, 3)
+    with open(os.path.join(flint, "following_cache4.pkl"), "wb") as f:
+        pickle.dump({gids[5 * s]: gids[5 * s + 1:5 * s + 5]
+                     for s in range(n)}, f)
+    _dump(os.path.join(flint, "train-val-test_split.json"),
+          {"train": [], "val": [], "test": [gids[5 * s] for s in range(n)]})
+    _dump(os.path.join(flint, "flintstones_annotations_v1-0.json"), [
+        {"globalID": g, "description": "Fred " + _sentence(rng)}
+        for g in gids])
+
+    ade = os.path.join(root, "ade20k")
+    ade_ids = [f"ADE_val_{k:08d}" for k in range(1, n + 1)]
+    write_images(os.path.join(ade, "images", "validation"),
+                 [f"{i}.jpg" for i in ade_ids], seed + 15)
+    os.makedirs(os.path.join(ade, "annotations", "validation"), exist_ok=True)
+    for i in ade_ids:
+        segm = np.repeat(np.repeat(rng.randint(0, 151, (8, 10)), 10, 0), 10, 1)
+        Image.fromarray(segm.astype(np.uint8)).save(
+            os.path.join(ade, "annotations", "validation", f"{i}.png"))
+    render_split(ade, "validation")
+    _dump(os.path.join(ade, "validation.json"),
+          [{"image_id": i, "caption": _sentence(rng)} for i in ade_ids])
+
+    return [
+        dict(type="nocaps", dataset_name="synthetic_nocaps",
+             annt_file=nocaps, data_root=cap_dir),
+        dict(type="flickr30k", dataset_name="synthetic_flickr30k",
+             annt_file=flickr, data_root=cap_dir),
+        dict(type="image2paragraph", dataset_name="synthetic_image2paragraph",
+             annt_root=para, data_root=os.path.join(para, "images")),
+        dict(type="lncoco", dataset_name="synthetic_lncoco",
+             annt_root=lncoco, data_root=lncoco),
+        dict(type="vist", dataset_name="synthetic_vist", annt_root=vist,
+             data_root=vist),
+        dict(type="vist", dataset_name="synthetic_vist_caption",
+             annt_root=vist, data_root=vist, collate_mode="generate_texts"),
+        dict(type="pororo", dataset_name="synthetic_pororo",
+             annt_root=pororo, data_root=os.path.join(pororo, "data")),
+        dict(type="flintstones", dataset_name="synthetic_flintstones",
+             annt_root=flint, data_root=os.path.join(flint, "data")),
+        dict(type="ade20k", dataset_name="synthetic_ade20k", annt_root=ade,
+             data_root=ade),
     ]
 
 

@@ -6,18 +6,20 @@ Each eval dataset declares a ``collate_mode`` that routes to a loop:
   * ``generate_texts``  -> caption decode -> CIDEr / BLEU-4 / ROUGE-L / METEOR
   * ``generate_vqa``    -> short-answer decode -> VQA accuracy
   * ``generate_images`` -> SD sampling -> images saved, FID with a feature fn
-  * grounding (box strings, acc@IoU 0.5), ranking (option scores, NDCG)
-    and storytelling (frames generated in turn, each re-encoded as context)
+  * grounding (box strings, acc@IoU 0.5), ranking (option scores, NDCG),
+    storytelling (frames generated in turn, each re-encoded as context)
+    and segmentation to image (the photo from a colour-rendered map, mIoU
+    with a segmenter)
 
 Batches arrive numpy from the collators and go to the device as the
 runtime takes them.  Results append to ``eval_metrics.jsonl``.
 
 Differences from the JAX harness: draws come from `torch.Generator`s (a
 t2i candidate's seeded from its (batch, candidate), a storytelling
-round's from its (batch, round)) in place of ``fold_in`` / ``split``;
-`gather_predictions` is the identity in one process and refuses a larger
-`torch.distributed` world (multi-GPU, ROADMAP.md §1 item 6); segmentation
-to image waits for the ADE20k dataset (item 4b).
+round's from its (batch, round), a segmentation-to-image batch's from its
+batch index) in place of ``fold_in`` / ``split``; `gather_predictions` is
+the identity in one process and refuses a larger `torch.distributed` world
+(multi-GPU, ROADMAP.md §1 item 6).
 """
 
 from __future__ import annotations
@@ -124,8 +126,10 @@ class Evaluator:
         gen_cfg = self._gen_cfg()
         for _, batch in self._batches(batches):
             texts = self._decode_batch(batch, gen_cfg)
-            for (index, _), text in zip(batch["meta"], texts):
-                preds[index] = text
+            # meta is (index, caption), or (index,) from the
+            # MultiImageCollator of VIST's captioning route
+            for meta, text in zip(batch["meta"], texts):
+                preds[meta[0]] = text
         idxs = sorted(preds.keys())
         cands = [preds[i] for i in idxs]
         refs = [references[i] for i in idxs]
@@ -232,12 +236,57 @@ class Evaluator:
         self._sink(dataset_name, result)
         return result
 
-    def evaluate_segm2img(self, batches, gt_segm_by_index, segment_fn=None,
+    def evaluate_segm2img(self, batches, gt_segm_by_index: Dict[int,
+                          np.ndarray], segment_fn=None,
                           dataset_name: str = "ade20k",
                           num_classes: int = 150) -> Dict[str, float]:
-        raise NotImplementedError(
-            "segmentation to image needs the ADE20k dataset of "
-            "datasets_bench.py, not ported yet (ROADMAP.md §1 item 4b)")
+        """Segmentation-to-image eval (reference generate_segm route,
+        lmm_trainer.py:1450-1489 + 1534-1556): generate the photo from the
+        colour-rendered segm map + caption, run a semantic segmenter over
+        the generated photo (``segment_fn(image [H,W,3] in [0,1]) -> [H,W]
+        1-indexed class map``, the OneFormer analogue of
+        segm_eval.py:9-22), then accumulate the official
+        intersection-and-union mIoU against the ground-truth class maps.
+
+        Without ``segment_fn``, images are generated and saved and only
+        ``num_generated`` is reported (the reference likewise skips the
+        metric off the main process)."""
+        from PIL import Image
+
+        out_dir = self._out_dir(dataset_name)
+        preds, labels = [], []
+        n = 0
+        for bi, batch in self._batches(batches):
+            inputs = self.runtime.generate_image_inputs(
+                batch["text_ids"], batch["image_tensors"],
+                batch["num_image_per_seq"], batch["attention_mask"],
+            )
+            B = batch["text_ids"].shape[0]
+            max_img = batch["image_tensors"].shape[1]
+            slot = batch["target_image_slots"][:, 0].cpu().numpy()
+            tgt = np.arange(B) * max_img + np.maximum(slot, 0)
+            imgs = self._denoise(inputs, tgt,
+                                 seeded_generator(self.device, bi))
+            for b, (index, _sid) in enumerate(batch["meta"]):
+                if out_dir is not None:
+                    Image.fromarray((imgs[b] * 255).astype(np.uint8)).save(
+                        os.path.join(out_dir, f"{index:06d}.png"))
+                n += 1
+                if segment_fn is None:
+                    continue
+                gt = np.asarray(gt_segm_by_index[index])
+                pred = np.asarray(segment_fn(imgs[b]))
+                if pred.shape != gt.shape:
+                    pred = np.asarray(Image.fromarray(
+                        pred.astype(np.uint8)
+                    ).resize(gt.shape[::-1], Image.NEAREST))
+                preds.append(pred)
+                labels.append(gt)
+        result: Dict[str, float] = {"num_generated": n}
+        if preds:
+            result["miou"] = M.miou_from_maps(preds, labels, num_classes)
+        self._sink(dataset_name, result)
+        return result
 
     def evaluate_grounding(self, batches, dataset_name: str = "grounding"
                            ) -> Dict[str, float]:

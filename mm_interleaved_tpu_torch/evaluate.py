@@ -12,13 +12,17 @@ image routes FID (and storytelling the CLIP image-image similarity) from
 the model's own CLIP ViT.
 
 Datasets: ``coco_caption``, ``vqa``, ``vizwiz_vqa``, ``image_text_jsonl``,
-``visdial``, ``grounding`` and ``story``.  The benchmark sets of
-`datasets_bench.py` (nocaps, flickr30k, image2paragraph, lncoco, vist,
-pororo, flintstones, ade20k) are ROADMAP.md §1 item 4b and refused; so are
-a ``mesh:`` over more than one device (item 6), ``quantize`` (item 7) and
-an orbax checkpoint (``--checkpoint`` takes the port's own checkpoints:
-``python -m mm_interleaved_tpu_torch.convert_checkpoint`` writes one from
-the released weights).
+``visdial``, ``grounding`` and ``story``, and the benchmark sets of
+`data.datasets_bench` (`BENCH_TYPES`): nocaps, flickr30k and
+image2paragraph caption; lncoco goes to text to image; vist, pororo and
+flintstones to storytelling (vist with ``collate_mode: generate_texts`` to
+captioning its last frame); ade20k to segmentation to image, with no
+segmenter (``num_generated`` only, as in the JAX entry).
+``evaluation.quantize: int8`` runs the LLM with int8 weights
+(`ops.quant`).  A ``mesh:`` over more than one device (ROADMAP.md §1 item
+6) and an orbax checkpoint are refused (``--checkpoint`` takes the port's
+own checkpoints: ``python -m mm_interleaved_tpu_torch.convert_checkpoint``
+writes one from the released weights).
 
 The t2i rerank (a stanza's ``rerank_by_clip`` with ``num_candidates > 1``)
 reads ``evaluation.clip_text_path``, an HF CLIP directory: both its towers
@@ -34,6 +38,8 @@ from __future__ import annotations
 import argparse
 import dataclasses
 from typing import Any, Dict
+
+import numpy as np
 
 # Reference per-task generation defaults, applied when the dataset stanza
 # does not override them (ImageTextPairCollator collator.py:199-205,
@@ -57,7 +63,7 @@ _REF_KEY_ALIASES = {
     "num_validation_images": "num_candidates",
 }
 
-# the dataset types of `datasets_bench.py`, the next slice
+# the dataset types of `data.datasets_bench`
 BENCH_TYPES = ("nocaps", "flickr30k", "image2paragraph", "lncoco", "vist",
                "pororo", "flintstones", "ade20k")
 
@@ -92,10 +98,6 @@ def build_eval_dataset(ds_cfg, model_cfg, tokenizer):
     from .data.transforms import create_transform
 
     name = ds_cfg["type"]
-    if name in BENCH_TYPES:
-        raise NotImplementedError(
-            f"dataset type {name!r} comes from datasets_bench.py, not "
-            "ported yet (ROADMAP.md §1 item 4b)")
     enc_res = model_cfg.visual.encoder.vit.image_size
     transform = create_transform(
         aug_type=ds_cfg.get("transform", "numpy"), resolution=enc_res,
@@ -172,9 +174,82 @@ def build_eval_dataset(ds_cfg, model_cfg, tokenizer):
             max_num_images=model_cfg.max_num_images,
         )
         mode = "generate_storytelling"
+    elif name in BENCH_TYPES:
+        return _bench_dataset(name, ds_cfg, model_cfg, tokenizer, transform)
     else:
         raise ValueError(name)
     return ds, coll, mode
+
+
+def _bench_dataset(name, ds_cfg, model_cfg, tokenizer, transform):
+    """``(dataset, collator, mode)`` of a `BENCH_TYPES` stanza
+    (`evaluate.py:170-276` of the JAX entry)."""
+    from .data import datasets_bench as DB
+    from .data.collators import ImageTextPairCollator
+    from .data.collators_extra import MultiImageCollator, StoryCollator
+
+    total = ds_cfg.get("total_length")
+    ntok = model_cfg.num_img_token
+    if name in ("nocaps", "flickr30k", "image2paragraph"):
+        if name == "image2paragraph":
+            ds = DB.Image2ParagraphDataset(
+                ds_cfg["annt_root"], ds_cfg["data_root"], transform,
+                phase=ds_cfg.get("phase", "test"), total_length=total,
+            )
+        else:
+            cls = (DB.NoCapsDataset if name == "nocaps"
+                   else DB.Flickr30KDataset)
+            ds = cls(ds_cfg["annt_file"], ds_cfg["data_root"], transform,
+                     total_length=total)
+        coll = ImageTextPairCollator(
+            tokenizer, tokenizer.special, num_img_token=ntok,
+            seq_len=ds_cfg.get("seq_len", 256), mode="generate_texts",
+            instr_prompts=ds_cfg.get("instr_prompts"),
+        )
+        return ds, coll, "generate_texts"
+    if name == "lncoco":
+        ds = DB.LNCOCODataset(
+            ds_cfg["annt_root"], ds_cfg["data_root"], transform,
+            total_length=total, image_only=ds_cfg.get("image_only", False),
+        )
+        coll = ImageTextPairCollator(
+            tokenizer, tokenizer.special, num_img_token=ntok,
+            seq_len=ds_cfg.get("seq_len", 256), mode="generate_images",
+        )
+        return ds, coll, "generate_images"
+    collate_mode = ds_cfg.get("collate_mode", "generate_images")
+    context_type = ds_cfg.get("context_type", "multi_modal")
+    if name == "vist":
+        ds = DB.VISTDataset(
+            ds_cfg["data_root"], ds_cfg["annt_root"], transform,
+            phase=ds_cfg.get("phase", "val"), collate_mode=collate_mode,
+            round_range=ds_cfg.get("round_range", "last"),
+            context_type=context_type, total_length=total,
+        )
+    elif name in ("pororo", "flintstones"):
+        cls = DB.PororoDataset if name == "pororo" else DB.FlintStonesDataset
+        ds = cls(ds_cfg["data_root"], ds_cfg["annt_root"], transform,
+                 phase=ds_cfg.get("phase", "test"),
+                 context_type=context_type, total_length=total)
+    else:  # ade20k
+        ds = DB.ADE20kDataset(
+            ds_cfg["data_root"], ds_cfg["annt_root"], transform,
+            phase=ds_cfg.get("phase", "validation"), total_length=total,
+        )
+    if name == "vist" and collate_mode == "generate_texts":
+        coll = MultiImageCollator(
+            tokenizer, tokenizer.special, num_img_token=ntok,
+            seq_len=ds_cfg.get("seq_len", 1024),
+            max_num_images=model_cfg.max_num_images, mode="generate",
+        )
+        return ds, coll, "generate_texts"
+    coll = StoryCollator(
+        tokenizer, tokenizer.special, num_img_token=ntok,
+        seq_len=ds_cfg.get("seq_len", 1024),
+        max_num_images=model_cfg.max_num_images,
+    )
+    return ds, coll, ("generate_segm" if name == "ade20k"
+                      else "generate_storytelling")
 
 
 def clip_feature_fns(path: str, device):
@@ -192,7 +267,6 @@ def clip_feature_fns(path: str, device):
     import json
     import os
 
-    import numpy as np
     import torch
 
     from .models.clip_text import load_clip
@@ -313,6 +387,15 @@ def main(argv=None, model=None) -> Dict[str, Any]:
         elif mode == "generate_storytelling":
             result = evaluator.evaluate_storytelling(
                 batches, dataset_name=name, feature_fn=feature_fn)
+        elif mode == "generate_segm":
+            # the ground-truth class maps; no segmenter, as in the JAX
+            # entry (`num_generated` only)
+            from PIL import Image
+
+            gt = {i: np.asarray(Image.open(ds.gt_id_to_path(i)))
+                  for i in range(len(ds))}
+            result = evaluator.evaluate_segm2img(
+                batches, gt, segment_fn=None, dataset_name=name)
         else:
             raise ValueError(mode)
         print(f"[{name}] {result}", flush=True)

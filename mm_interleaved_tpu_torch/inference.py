@@ -12,9 +12,10 @@ config, or ``--checkpoint``: a full checkpoint (``python -m
 mm_interleaved_tpu_torch.convert_checkpoint`` writes one from the released
 weights) or a checkpoint of the port's `Trainer` (`utils.checkpoint`).
 
+``inference.quantize: int8`` runs the LLM with int8 weights (`ops.quant`).
 Runs on the card; ``--device cpu`` runs on the CPU.  A ``mesh:`` over more
-than one device (ROADMAP.md §1 item 6), ``inference.quantize`` (item 7)
-and an orbax checkpoint directory are refused.
+than one device (ROADMAP.md §1 item 6) and an orbax checkpoint directory
+are refused.
 """
 
 from __future__ import annotations

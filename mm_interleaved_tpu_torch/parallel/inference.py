@@ -7,10 +7,14 @@ package's `LocalGenerator` and `ShardedGenerator`: `generate_texts`,
 `generate_image_inputs`, `denoise`, `generate_images` and
 `generate_scores`.  The model holds its weights, so no variables are
 passed.  `denoise` also takes ``latents`` and ``noises`` to inject draws.
+``quantize="int8"`` replaces the LLM's projections by int8 ones in place
+before the first call (`ops.quant.quantize_llm_weights`, as the JAX
+`LocalGenerator.__init__` quantizes its variables), so every generation
+call of the model (text, beam, scores and the image-prefix forward) runs
+the quantized LLM.
 
 The port runs on one device: a ``mesh:`` stanza over more than one device
-(the sharded runtime, ROADMAP.md §1 item 6) and ``quantize`` (int8
-weight-only decode, item 7) are refused.
+(the sharded runtime, ROADMAP.md §1 item 6) is refused.
 """
 
 from __future__ import annotations
@@ -20,6 +24,9 @@ from typing import Any, Dict, Optional
 from ..generation.diffusion import generate_images
 from ..generation.scores import generate_scores
 from ..generation.text import TextGenerationConfig, generate_texts
+from ..ops.quant import quantize_llm_weights
+
+QUANTIZE_MODES = ("int8",)
 
 
 def _default_mask(model, text_ids, attention_mask):
@@ -29,9 +36,13 @@ def _default_mask(model, text_ids, attention_mask):
 
 
 class LocalGenerator:
-    """One-device runtime with the JAX runtimes' five methods."""
+    """One-device runtime with the JAX runtimes' five methods; with
+    ``quantize="int8"`` the model's LLM is quantized in place first."""
 
-    def __init__(self, model):
+    def __init__(self, model, quantize: Optional[str] = None):
+        check_quantize(quantize)
+        if quantize == "int8":
+            quantize_llm_weights(model)
         self.model = model
 
     def generate_texts(self, text_ids, image_tensors, num_image_per_seq,
@@ -87,22 +98,27 @@ def mesh_size(mesh_cfg: Optional[Dict[str, Any]]) -> int:
     return size
 
 
+def check_quantize(quantize: Optional[str]) -> None:
+    """An unknown ``quantize`` mode raises `ValueError`, as in the JAX
+    runtimes."""
+    if quantize is not None and quantize not in QUANTIZE_MODES:
+        raise ValueError(f"unknown quantize mode {quantize!r}")
+
+
 def check_runtime(mesh_cfg=None, quantize: Optional[str] = None) -> None:
-    """Refuse what the runtime cannot do yet (before any model is built):
-    a ``mesh:`` stanza over more than one device (the JAX package's
-    `ShardedGenerator`, ROADMAP.md §1 item 6) and ``quantize`` (item 7)."""
+    """Refuse what the runtime cannot do (before any model is built): an
+    unknown ``quantize`` mode, and a ``mesh:`` stanza over more than one
+    device (the JAX package's `ShardedGenerator`, ROADMAP.md §1 item 6)."""
+    check_quantize(quantize)
     if mesh_size(mesh_cfg) > 1:
         raise NotImplementedError(
             f"mesh {dict(mesh_cfg)} asks for more than one device; the "
             "sharded runtime is not ported yet (ROADMAP.md §1 item 6)")
-    if quantize is not None:
-        raise NotImplementedError(
-            f"quantize {quantize!r}: int8 weight-only decode is not "
-            "ported yet (ROADMAP.md §1 item 7)")
 
 
 def build_generation_runtime(model, mesh_cfg=None,
                              quantize: Optional[str] = None) -> LocalGenerator:
-    """The entry points' factory, after `check_runtime`."""
+    """The entry points' factory, after `check_runtime`; ``quantize`` is
+    applied to ``model`` in place."""
     check_runtime(mesh_cfg, quantize)
-    return LocalGenerator(model)
+    return LocalGenerator(model, quantize=quantize)

@@ -25,6 +25,12 @@ tensors keyed as the port's modules name them, for
 is its inverse over a port module tree (port name -> the unrolled JAX
 path), which the optimizer's labels read.  `convert_params` also carries a
 JAX gradient tree over, which has the params' structure.
+
+A tree quantized by JAX's `ops.quant.quantize_llm_weights` carries over
+too (`convert_variables`, `load_flax_variables`): its int8 ``[in, out]``
+kernels become the `ops.quant.QLinear` int8 ``[out, in]`` weights, each
+``qscale`` leaf the layer's ``scale``, and the scanned stacks unstack per
+block (JAX's per-block scales are the layers' own).
 """
 
 from __future__ import annotations
@@ -101,11 +107,29 @@ def _convert_array(path: str, arr: np.ndarray) -> np.ndarray:
 
 
 def convert_params(params: Mapping) -> Dict[str, torch.Tensor]:
-    """JAX params tree (nested dicts of arrays) -> the port's state dict."""
+    """JAX params tree (nested dicts of arrays) -> the port's state dict
+    (fp32; int8 kernels stay int8)."""
     flat = _unstack_blocks(_flatten(params))
     return {port_name(path): torch.from_numpy(np.array(
-                _convert_array(path, arr), np.float32, order="C"))
+                _convert_array(path, arr),
+                np.int8 if arr.dtype == np.int8 else np.float32, order="C"))
             for path, arr in flat.items()}
+
+
+def convert_variables(variables: Mapping) -> Dict[str, torch.Tensor]:
+    """A JAX variables dict (``params``, and ``qscale`` after JAX's
+    `quantize_llm_weights`) -> the port's state dict: the params as
+    `convert_params` carries them, each ``.../<proj>/scale`` of ``qscale``
+    as ``<proj>.scale`` (fp32 ``[out]``)."""
+    out = convert_params(variables["params"])
+    flat = _unstack_blocks(_flatten(variables.get("qscale", {})))
+    for path, arr in flat.items():
+        mod, leaf = path.rsplit("/", 1)
+        if leaf != "scale":
+            raise ValueError(f"unexpected qscale leaf {path}")
+        out[f"{port_name(mod)}.scale"] = torch.from_numpy(
+            np.array(arr, np.float32, order="C"))
+    return out
 
 
 _INVERSE = (
@@ -156,3 +180,15 @@ def param_jax_paths(model: nn.Module) -> Dict[str, str]:
 def load_flax_params(module: torch.nn.Module, params: Mapping) -> None:
     """Convert ``params`` and load them into ``module`` with strict=True."""
     module.load_state_dict(convert_params(params), strict=True)
+
+
+def load_flax_variables(module: torch.nn.Module, variables: Mapping) -> None:
+    """Convert ``variables`` and load them into ``module`` with strict=True;
+    a quantized tree (a ``qscale`` collection) first gives ``module`` its
+    `QLinear` layers, unless it has them."""
+    from ..ops.quant import QLinear, quantize_llm_weights
+
+    if variables.get("qscale") and not any(
+            isinstance(m, QLinear) for m in module.modules()):
+        quantize_llm_weights(module)
+    module.load_state_dict(convert_variables(variables), strict=True)

@@ -12,9 +12,8 @@ directory:
   * the entry points on the CPU: `evaluate` appends one row per route,
     `inference` writes a PNG and its JSON; the `Trainer.fit` eval hook;
     `load_model` over a `Trainer` checkpoint;
-  * the refusals: a mesh, ``quantize``, an orbax checkpoint, a
-    `datasets_bench` type, ``clip_text_path``, segmentation to image, and
-    ``--device cuda`` without a GPU each raise.
+  * the refusals: a mesh, an unknown ``quantize`` mode, an orbax
+    checkpoint and ``--device cuda`` without a GPU each raise.
 """
 
 import dataclasses
@@ -424,32 +423,30 @@ def test_load_model_reads_a_trainer_checkpoint(tmp_path):
 
 
 def test_refusals_raise_and_name_the_roadmap_item(assets, tmp_path):
-    """Nothing falls back: each unported setting raises, naming its
-    ROADMAP.md item."""
+    """Nothing falls back: a mesh over more than one device raises, naming
+    its ROADMAP.md item (6); an unknown ``quantize`` mode raises
+    `ValueError`, as JAX's runtimes do; an orbax checkpoint names the
+    converter; ``--device cuda`` without a GPU raises.  ``quantize: int8``
+    and the CLIP rerank's directory are accepted."""
     model = build_model(tcfg.tiny_config(with_image_decoder=False), "cpu",
                         torch.float32)
     with pytest.raises(NotImplementedError, match="item 6"):
         build_generation_runtime(model, {"fsdp": 2})
-    with pytest.raises(NotImplementedError, match="item 7"):
-        build_generation_runtime(model, None, quantize="int8")
+    with pytest.raises(ValueError, match="unknown quantize mode"):
+        build_generation_runtime(model, None, quantize="fp8")
     (tmp_path / "orbax").mkdir()
     with pytest.raises(NotImplementedError, match="convert_checkpoint"):
         load_model(model.cfg, "cpu", str(tmp_path / "orbax"))
-    for bench in ("nocaps", "vist", "ade20k"):
-        with pytest.raises(NotImplementedError, match="item 4b"):
-            evaluate.build_eval_dataset({"type": bench}, model.cfg, None)
-    ev = Evaluator(model, None, EvalConfig())
-    with pytest.raises(NotImplementedError, match="item 4b"):
-        ev.evaluate_segm2img(iter([]), {})
     assert Evaluator.gather_predictions({1: "a"}) == {1: "a"}
 
-    def entry_raises(mod, config, match, *extra):
+    def entry_raises(mod, config, match, *extra, errors=(
+            NotImplementedError, RuntimeError)):
         path = tmp_path / "c.yaml"
         path.write_text(yaml.safe_dump(config))
         args = ["--config", str(path), *extra]
         if mod is inference:
             args += ["--annt_path", "unused.json"]
-        with pytest.raises((NotImplementedError, RuntimeError), match=match):
+        with pytest.raises(errors, match=match):
             mod.main(args)
 
     base = dict(model=dict(preset="tiny"), data=dict(tokenizer_path=None,
@@ -457,15 +454,13 @@ def test_refusals_raise_and_name_the_roadmap_item(assets, tmp_path):
     cpu = ("--device", "cpu")
     for mod, key in ((evaluate, "evaluation"), (inference, "inference")):
         entry_raises(mod, dict(base, mesh={"data": 2}), "item 6", *cpu)
-        entry_raises(mod, dict(base, **{key: {"quantize": "int8"}}),
-                     "item 7", *cpu)
+        entry_raises(mod, dict(base, **{key: {"quantize": "int4"}}),
+                     "unknown quantize mode", *cpu, errors=ValueError)
         if not torch.cuda.is_available():
             entry_raises(mod, base, "no CUDA device")
-    # the CLIP rerank's directory is accepted (read when a t2i stanza
-    # reranks)
+    # the CLIP rerank's directory and int8 weights are accepted (the
+    # directory is read when a t2i stanza reranks)
     path = tmp_path / "clip.yaml"
     path.write_text(yaml.safe_dump(dict(base, evaluation={
-        "clip_text_path": str(tmp_path / "clip")})))
+        "clip_text_path": str(tmp_path / "clip"), "quantize": "int8"})))
     assert evaluate.main(["--config", str(path), *cpu]) == {}
-    entry_raises(evaluate, dict(base, data=dict(
-        tokenizer_path=None, val=[{"type": "lncoco"}])), "item 4b", *cpu)

@@ -54,5 +54,6 @@ def test_port_imports_without_jax():
                  "convert_checkpoint", "utils.state_dict_io",
                  "utils.name_map", "utils.convert_hf", "utils.convert_sd",
                  "utils.convert_ref", "utils.inception_v3",
-                 "models.clip_text"):
+                 "models.clip_text", "data.datasets_bench", "data.rices",
+                 "prepare_ade20k", "ops.quant"):
         assert f"mm_interleaved_tpu_torch.{name}" in imported, name
