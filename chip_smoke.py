@@ -193,9 +193,11 @@ Phases, each of which raises (and exits nonzero) on failure:
    shape (the prefill, decode at M = 2, 6 and 10, the prefix forward, the
    heads) and at M = 8, in bf16 and fp32, within its derived elementwise
    bound and bit-identical over two runs, timed beside its bound and
-   `F.linear` on the dequantized weight (cuBLAS), then at `INT8_EDGES` (K
-   not a multiple of 16, N off the tiles, M = 1 and 17, bias present and
-   absent, a misaligned view refused); (e) RICES over 16 seeded images with
+   `F.linear` on the dequantized weight (cuBLAS), the body and the wgmma
+   body's plan that served each recorded, then at `INT8_EDGES` (K not a
+   multiple of 16; N off the tiles, 2, 130 and 5000; M = 1, 9, 16, 17, 64,
+   65, 257 and 512; K = 16, 48 and 5136; bias present and absent; a
+   misaligned view refused); (e) RICES over 16 seeded images with
    a seeded ViT-L/14 in fp32: features within 1e-4 of their scale of the
    CPU's, the CPU's picks.
 
@@ -4152,7 +4154,10 @@ QUANT_BEAM = VQA_BEAM
 # the decode rows phase 16c adds to the captured sites (B = 2 greedy, K = 3
 # x B = 2 and K = 5 x B = 2 beams are captured): the bench's decode at B = 8
 INT8_DECODE_ROWS = (8,)
-# name: (M, N, K, bias): the bodies' edges
+# name: (M, N, K, bias): the bodies' edges; in bf16 every K % 16 == 0
+# edge takes the wgmma body (its plan logged): x rows straddling its tiles
+# of 8 / 16 / 32 / 64 / 128 / 256, N off its 128-row tiles, K under one
+# 64-wide K tile and off it
 INT8_EDGES = {
     "k_not_16_gemv": (3, 96, 200, True),
     "k_not_16_tiled": (40, 70, 200, True),
@@ -4161,6 +4166,21 @@ INT8_EDGES = {
     "m1": (1, 5120, 5120, False),
     "m1_head": (1, 32002, 5120, True),
     "m17": (17, 256, 512, False),
+    "m9": (9, 5120, 5120, False),
+    "m16": (16, 5120, 5120, True),
+    "m17_wide": (17, 5120, 5120, False),
+    "m64": (64, 5120, 5120, False),
+    "m65": (65, 5120, 5120, True),
+    "m257": (257, 5120, 5120, False),
+    "n130": (2, 130, 5120, True),
+    "n130_m512": (512, 130, 5120, False),
+    "n5000_m512": (512, 5000, 5120, True),
+    "n2_m512": (512, 2, 5120, True),
+    "k16": (2, 5120, 16, True),
+    "k48": (10, 5120, 48, False),
+    "k48_m512": (512, 5120, 48, True),
+    "k5136": (2, 5120, 5136, True),
+    "k5136_m512": (512, 5120, 5136, False),
 }
 RICES_SUPPORT = 16
 RICES_QUERIES = 4
@@ -4234,6 +4254,21 @@ def int8_plain_exact(x, q, scale, bias):
             flag
 
 
+def int8_served(rec, tag, x, q, scale, bias) -> None:
+    """Record the body (and the wgmma body's plan: x rows a tile and K
+    splits) the wrapper picks for this call."""
+    from mm_interleaved_tpu_torch.ops.quant import (
+        _sms, int8_linear_body, int8_linear_plan)
+
+    M, K = x.shape
+    N = q.shape[0]
+    body = int8_linear_body(M, N, K, x.dtype)
+    rec[f"body_{tag}"] = body
+    if body == "wgmma":
+        plan = int8_linear_plan(M, N, K, _sms(x.device))
+        rec[f"plan_{tag}"] = dict(bn=plan["bn"], split=plan["split"])
+
+
 def check_int8(x, q, scale, bias, rec, tag, fails) -> None:
     """One call against the plain version within `int8_tolerance`, and two
     runs bit-identical."""
@@ -4270,7 +4305,7 @@ def compare_int8(sites) -> list:
     import torch.nn.functional as F
 
     from mm_interleaved_tpu_torch.ops.quant import (
-        dequantize_int8, int8_linear_body, int8_linear_cuda)
+        dequantize_int8, int8_linear_cuda)
 
     recs, fails = [], []
     for site, (x, q, scale, bias) in sites.items():
@@ -4278,7 +4313,7 @@ def compare_int8(sites) -> list:
                    bias=bias is not None)
         for dt, tag in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
             a = (x.to(dt), q, scale, None if bias is None else bias.to(dt))
-            rec[f"body_{tag}"] = int8_linear_body(a[0].shape[0], dt)
+            int8_served(rec, tag, *a)
             with torch.inference_mode():
                 check_int8(*a, rec, tag, fails)
                 rec[f"ms_{tag}"] = time_ms(lambda: int8_linear_cuda(*a))
@@ -4316,13 +4351,13 @@ def compare_int8(sites) -> list:
 
 def check_int8_edges() -> list:
     """`INT8_EDGES` in bf16 and fp32 (seeded): the body `int8_linear_body`
-    gives, within `int8_tolerance` of the plain version, two runs
-    bit-identical; a misaligned x refused before any launch where K % 16
-    == 0."""
+    gives (and its plan), within `int8_tolerance` of the plain version,
+    two runs bit-identical; a misaligned x refused before any launch where
+    K % 16 == 0."""
     import torch
 
     from mm_interleaved_tpu_torch.ops.quant import (
-        int8_linear_body, int8_linear_cuda, int8_linear_vec, quantize_int8)
+        int8_linear_cuda, int8_linear_vec, quantize_int8)
 
     g = torch.Generator(device="cuda")
     g.manual_seed(SEED + 31)
@@ -4336,7 +4371,7 @@ def check_int8_edges() -> list:
         rec = dict(site=name, M=M, N=N, K=K, bias=has_bias)
         for dt, tag in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
             a = (x.to(dt), q, scale, None if bias is None else bias.to(dt))
-            rec[f"body_{tag}"] = int8_linear_body(M, dt)
+            int8_served(rec, tag, *a)
             with torch.inference_mode():
                 check_int8(*a, rec, tag, fails)
                 if int8_linear_vec(K):

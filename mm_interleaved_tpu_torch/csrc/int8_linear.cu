@@ -16,35 +16,74 @@
 //
 // Bound: bytes at decode (M <= 16: the N K bytes of codes dominate, about
 // 3.8 ms a token for the 13B LLM's 12.85 GB at 3.35 TB/s), operations at
-// the prefill (2 M N K).  Three bodies, chosen by the wrapper
-// (ops/quant.py::int8_linear_body) and passed in; a body that cannot take
-// the call returns an error, there is no fallback:
-//  * "gemv" (M <= 16, either dtype): 8 warps a CTA, each warp two output
-//    columns n.  The CTA walks K in chunks of 512 with x[:, chunk] in
-//    shared memory as fp32 (laid out so that lane l reads elements l, l+32,
-//    ... without bank conflicts), two chunks' buffers: the next chunk's x
-//    and codes are loaded into registers before the current chunk is
-//    multiplied, and x is written to the other buffer after it, one
-//    barrier a chunk.  Each lane reads 16 bytes of codes of each of its
-//    columns, coalesced along K (a warp reads 512 contiguous bytes a
-//    column), and accumulates its 16 products for every row m, each x
-//    element read from shared memory once for both columns.  Instances for
-//    M <= 4, 8 and 16 keep 2 x that many accumulators in registers (and
-//    2 x 8, 16 or 32 KB of x in shared memory).  The lanes' partial sums
-//    meet in a xor-butterfly of shuffles: a fixed order, no atomics, so two
-//    runs give the same bits.
-//  * "mma" (bf16, M > 16): 64 x 64 output tiles, 4 warps of 32 x 32, K in
-//    slices of 32.  x's slice goes to shared memory as it is; the codes'
-//    slice is dequantized on the way in (16 codes a thread, its row's
-//    scale) and stored as bf16; mma.sync m16n8k16 bf16 with fp32
-//    accumulators.  The next slice's loads are issued before the current
-//    one is multiplied.
+// the prefill (2 M N K over 989 TFLOP/s: 27 us at 512 x 5120 x 5120).
+// Four bodies, chosen by the wrapper (ops/quant.py::int8_linear_body) and
+// passed in with the wgmma body's plan (int8_linear_plan); a body that
+// cannot take the call returns an error, there is no fallback:
+//  * "wgmma" (bf16, K % 16 == 0: every LLM projection, decode and
+//    prefill).  It computes out^T = W x^T ("swap AB"): the weight's rows
+//    fill wgmma's 64-row side and x's rows its n side, so a decode of 2
+//    rows is a product of n = 8, not one of 64 rows padded from 2.  A CTA
+//    owns 128 weight rows by BN rows of x (BN = 8, 16, 32, 64, 128, 176 or
+//    256; 176 cuts M = 512 into three tiles: 120 CTAs at N = 5120, where
+//    256 gives 80 of the 132 SMs work).  One producer thread keeps TMA
+//    loads in flight through an mbarrier ring as deep as shared memory
+//    allows (3-12 stages): a stage is the codes' tile (128 rows of KS
+//    bytes, KS = 128, 128-byte swizzled, or 64, 64-byte swizzled, at BN =
+//    256, whose x tiles leave room for two stages of 128 only) and x's
+//    (BN rows of KS bf16, 128-byte swizzled tiles of 64).  Two consumer
+//    warpgroups of 64 weight rows each dequantize their A fragments
+//    (rows r, r + 8 of the warp's 16, four codes of each a k16 step: two
+//    2-byte reads, conflict-free under the swizzle) straight from the code
+//    tile into registers with the exact conversion below, and issue wgmma
+//    m64nBNk16 with the A fragment in registers and x's tile as B, the
+//    next stage's fragments filled while the tensor cores work on this
+//    one (two register buffers).  The alternative, the weights
+//    dequantized into a swizzled bf16 tile in shared memory for a wgmma
+//    with both operands there, was slower at every site on the H100
+//    (PERF.md, PR 16): its stores, proxy fence and barrier a stage cost
+//    more than the registers' path.  At BN <= 32 each consumer keeps four
+//    accumulators (k16 step j adds into accumulator j % 4), so a stage's
+//    few-column products do not wait on each other.  Split-K: ``split``
+//    CTAs (1, 2, 4 or 8: a cluster; clusters of 3 left SMs idle) share a
+//    tile's K stages; each leaves its fp32 partial in shared memory,
+//    transposed to [m][n], and split j sums the j-th slice of every
+//    partial in split order over the cluster's distributed shared memory,
+//    rounds it and stores it along n (the transpose makes the stores
+//    coalesced); a fixed order, no atomics, so two runs give the same
+//    bits.  Decode has 40 to 251 weight tiles for 132 SMs: two splits at
+//    N = 5120 give its small products enough CTAs in flight, and eight
+//    give head_new's single tile (N = 2) eight.  What bounds it: at the
+//    prefill each CTA runs at about 76% of an SM's tensor rate at BN = 256
+//    (the two warpgroups' wgmma and dequantization share the SM), so the
+//    waves decide (gate/up: 216 CTAs in two waves of 132); at decode about
+//    4 us of a CTA's start and stop and a pace of about 0.3 us a 64-wide
+//    stage per CTA (its TMA and its consumers' dequantization), so neither
+//    HBM's 3.35 TB/s nor the bound is reached below about 100 CTAs.  The
+//    exact conversion: codes4_bf16.
+//  * "gemv" (M <= 16, fp32; bf16 with K % 16 != 0): 8 warps a CTA, each
+//    warp two output columns n.  The CTA walks K in chunks of 512 with
+//    x[:, chunk] in shared memory as fp32 (laid out so that lane l reads
+//    elements l, l+32, ... without bank conflicts), two chunks' buffers:
+//    the next chunk's x and codes are loaded into registers before the
+//    current chunk is multiplied, and x is written to the other buffer
+//    after it, one barrier a chunk.  Each lane reads 16 bytes of codes of
+//    each of its columns, coalesced along K, and accumulates its 16
+//    products for every row m.  Instances for M <= 4, 8 and 16.  The
+//    lanes' partial sums meet in a xor-butterfly of shuffles.  It served
+//    bf16 decode before the wgmma body, which is faster at every decode
+//    site of the flagship (PERF.md, PR 16).
+//  * "mma" (bf16, M > 16, K % 16 != 0: a TMA row stride must be a multiple
+//    of 16 bytes): 64 x 64 output tiles, 4 warps of 32 x 32, K in slices
+//    of 32, the codes dequantized on the way into shared memory, mma.sync
+//    m16n8k16 with fp32 accumulators.
 //  * "simt" (fp32, M > 16): 64 x 64 output tiles, 256 threads of 4 x 4
 //    outputs, K in slices of 16, fp32 FMAs on the CUDA cores (the plain
 //    version's fp32 product runs in full fp32 too).
-// With K % 16 == 0 ("vec", every LLM projection) the codes and x move in
-// 16-byte vectors and x, the codes and the output must sit on 16-byte
-// boundaries; otherwise every load is a guarded scalar.
+// The fp32 bodies serve the tiny preset's fp32 check; "gemv" and "mma"
+// keep the K % 16 != 0 calls.  With K % 16 == 0 ("vec") the codes and x
+// move in 16-byte vectors and x, the codes and the output must sit on
+// 16-byte boundaries; otherwise every load is a guarded scalar.
 //
 // C interface (ctypes): mmi_int8_linear, see the end of the file.
 
@@ -52,7 +91,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
 #include <type_traits>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -151,25 +193,14 @@ __device__ __forceinline__ int8_t code_byte(const uint4& v, int i) {
   return static_cast<int8_t>((w >> (8 * (i & 3))) & 0xffu);
 }
 
-// bf16 element e of 8 held in a register quad (e is a constant once the
-// loops are unrolled)
-__device__ __forceinline__ float packed_bf16(const uint4& v, int e) {
-  const unsigned w = e < 2 ? v.x : e < 4 ? v.y : e < 6 ? v.z : v.w;
-  return __uint_as_float((e & 1 ? w >> 16 : w & 0xffffu) << 16);
-}
-
 // the staging of x: thread t holds its tasks' 16 elements of the chunk at
 // k0 (task j: row (t + j * blockDim) / 32, lanes' slice (t + ...) % 32) in
-// registers, then writes them to the chunk's shared buffer as fp32; bf16
-// rows with vector loads stay packed until the write (8 registers a task,
-// not 16)
+// registers, then writes them to the chunk's shared buffer as fp32
 template <typename T, bool VEC, int MT>
 struct XStage {
   static constexpr int kTasks = (MT * 32 + kGemvWarps * 32 - 1) /
                                 (kGemvWarps * 32);
-  static constexpr bool kPacked = VEC && sizeof(T) == 2;
-  static constexpr int kWords = kPacked ? 2 : 16;  // uint4 or float each
-  typename std::conditional<kPacked, uint4, float>::type v[kTasks][kWords];
+  float v[kTasks][16];
 
   __device__ __forceinline__ void load(const T* x, int M, long k0, int K) {
 #pragma unroll
@@ -177,12 +208,7 @@ struct XStage {
       const int t = threadIdx.x + j * kGemvWarps * 32;
       const int m = t >> 5;
       const long k = k0 + (t & 31) * 16;
-      const bool live = m < M && k < K;
-      if constexpr (kPacked) {
-        const uint4* src = reinterpret_cast<const uint4*>(x + (long)m * K + k);
-        v[j][0] = live ? src[0] : make_uint4(0, 0, 0, 0);
-        v[j][1] = live ? src[1] : make_uint4(0, 0, 0, 0);
-      } else if (live) {
+      if (m < M && k < K) {
         load16<T, VEC>(x + (long)m * K, k, K, v[j]);
       } else {
 #pragma unroll
@@ -198,15 +224,7 @@ struct XStage {
       const int m = t >> 5, l = t & 31;
       if (m < M) {
 #pragma unroll
-        for (int i = 0; i < 16; ++i) {
-          float e;
-          if constexpr (kPacked) {
-            e = packed_bf16(v[j][i / 8], i % 8);
-          } else {
-            e = v[j][i];
-          }
-          xs[(m * 16 + i) * 32 + l] = e;
-        }
+        for (int i = 0; i < 16; ++i) xs[(m * 16 + i) * 32 + l] = v[j][i];
       }
     }
   }
@@ -318,7 +336,7 @@ struct MmaStage {
   int8_t c[16];
 };
 
-template <bool VEC>
+// (every load a guarded scalar: the body serves K % 16 != 0)
 __device__ __forceinline__ void mma_load(MmaStage& st,
                                          const __nv_bfloat16* x,
                                          const int8_t* q, int M, int N,
@@ -329,10 +347,6 @@ __device__ __forceinline__ void mma_load(MmaStage& st,
     const int piece = t + j * kMmaThreads;  // 256 pieces of 8 elements
     const int row = piece >> 2, col = (piece & 3) * 8;
     const long k = k0 + col;
-    if (m0 + row < M && VEC && k < K) {
-      st.a[j] = *reinterpret_cast<const uint4*>(x + (long)(m0 + row) * K + k);
-      continue;
-    }
     __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&st.a[j]);
 #pragma unroll
     for (int i = 0; i < 8; ++i)
@@ -342,7 +356,7 @@ __device__ __forceinline__ void mma_load(MmaStage& st,
   const int n = t >> 1;
   const long k = k0 + (t & 1) * 16;
   if (n0 + n < N && k < K) {
-    codes16<VEC>(q + (long)(n0 + n) * K, k, K, st.c);
+    codes16<false>(q + (long)(n0 + n) * K, k, K, st.c);
   } else {
 #pragma unroll
     for (int i = 0; i < 16; ++i) st.c[i] = 0;
@@ -370,7 +384,6 @@ __device__ __forceinline__ void mma_store(const MmaStage& st,
   dst[1] = packed[1];
 }
 
-template <bool VEC>
 __global__ void __launch_bounds__(kMmaThreads)
     mma_kernel(const __nv_bfloat16* __restrict__ x,
                const int8_t* __restrict__ q, const float* __restrict__ scale,
@@ -395,13 +408,12 @@ __global__ void __launch_bounds__(kMmaThreads)
       for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
 
   MmaStage st;
-  mma_load<VEC>(st, x, q, M, N, K, m0, n0, 0);
+  mma_load(st, x, q, M, N, K, m0, n0, 0);
   for (long k0 = 0; k0 < K; k0 += kSliceK) {
     __syncthreads();
     mma_store(st, As, Bs, s);
     __syncthreads();
-    if (k0 + kSliceK < K) mma_load<VEC>(st, x, q, M, N, K, m0, n0,
-                                        k0 + kSliceK);
+    if (k0 + kSliceK < K) mma_load(st, x, q, M, N, K, m0, n0, k0 + kSliceK);
 #pragma unroll
     for (int kk = 0; kk < kSliceK; kk += 16) {
       uint32_t a[2][4], b[4][2];
@@ -514,13 +526,394 @@ __global__ void __launch_bounds__(kSimtThreads)
     }
 }
 
+// ----------------------------------------------------------------- wgmma
+
+constexpr int kWgRows = 128;                  // weight rows (outputs n) a CTA
+constexpr int kWgThreads = 384;               // a producer and two consumers
+constexpr int kWgConsumerRegs = 240;
+constexpr int kWgPStride = kWgRows + 4;       // floats a row of the partial
+constexpr int kWgMaxStages = 16;
+constexpr int kWgMaxSplit = 8;                // the portable cluster size
+constexpr int kWgSmemLimit = 232448;          // a block's dynamic maximum
+
+// K a stage: 128 (code rows of 128 bytes, 128-byte swizzled, and two 64-wide
+// tiles of x), or 64 at BN = 256, whose x tiles would leave room for only
+// two stages of 128 (code rows of 64 bytes, 64-byte swizzled)
+__host__ __device__ constexpr int wg_k(int bn) { return bn >= 256 ? 64 : 128; }
+
+__host__ __device__ constexpr int wg_stage_bytes(int bn) {
+  return kWgRows * wg_k(bn) + (wg_k(bn) / 64) * bn * 128;  // codes, then x
+}
+
+// independent accumulators a consumer keeps (k16 step j adds into
+// accumulator j % wg_accs): a stage's wgmma steps then need not wait on
+// each other, which a few-column product would otherwise do
+__host__ __device__ constexpr int wg_accs(int bn) { return bn <= 32 ? 4 : 1; }
+
+int wg_stages(int bn) {
+  const int room = kWgSmemLimit - 2048 - 16 * kWgMaxStages;
+  const int st = room / wg_stage_bytes(bn);
+  return st < kWgMaxStages ? st : kWgMaxStages;
+}
+
+size_t wg_smem_bytes(int bn, int stages) {
+  return 1024 + (size_t)stages * wg_stage_bytes(bn) + 16 * (size_t)stages;
+}
+
+// a 16-bit read of shared memory (volatile: it stays after the mbarrier
+// wait that makes the TMA's bytes visible)
+__device__ __forceinline__ uint32_t lds_u16(uint32_t addr) {
+  unsigned short v;
+  asm volatile("ld.shared.u16 %0, [%1];\n" : "=h"(v) : "r"(addr));
+  return v;
+}
+
+// four int8 codes (bytes of v) times the row's scale s, each rounded once
+// to bf16, as two bf16 pairs (bytes 0, 1 -> lo; 2, 3 -> hi).  Byte b ^ 0x80
+// under the exponent of 2^23 is the float 2^23 + q + 128, and
+// fma(2^23 + q + 128, s, -(2^23 + 128) s) is q s exactly: the products of
+// s's 8-bit significand with 2^23 + u and with 2^23 + 128 fit fp32's 24
+// bits, and q s itself has at most 15.  So the one rounding, to bf16, gives
+// T(float(q) * float(T(s))), the plain version's dequantized weight.
+__device__ __forceinline__ void codes4_bf16(uint32_t v, float s, float cs,
+                                            uint32_t& lo, uint32_t& hi) {
+  const uint32_t u = v ^ 0x80808080u;
+  const float w0 = fmaf(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540)),
+                        s, cs);
+  const float w1 = fmaf(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7541)),
+                        s, cs);
+  const float w2 = fmaf(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7542)),
+                        s, cs);
+  const float w3 = fmaf(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7543)),
+                        s, cs);
+  lo = hopper::pack_bf16(w0, w1);
+  hi = hopper::pack_bf16(w2, w3);
+}
+
+// out^T = W x^T over one tile: weight rows [n0, n0 + 128) by x rows [m0,
+// m0 + BN), the K stages [kt0, kt0 + nk) of split r = blockIdx.x of the
+// cluster (split, 1, 1).  tq: the codes [N, K] int8, boxes of 128 rows x
+// KS bytes; tx: x [M, K] bf16, boxes of BN rows x 64, 128-byte swizzled
+// (elements past N, M or K read as zeros).
+template <int BN>
+__global__ void __launch_bounds__(kWgThreads, 1)
+    wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                 const __grid_constant__ CUtensorMap tx,
+                 const float* __restrict__ scale,
+                 const __nv_bfloat16* __restrict__ bias,
+                 __nv_bfloat16* __restrict__ out, int M, int N, int K,
+                 int stages) {
+  using namespace hopper;
+  constexpr int KS = wg_k(BN);             // K a stage
+  constexpr int kSteps = KS / 16;          // its k16 steps
+  constexpr int kCodeBytes = kWgRows * KS;
+  constexpr int kXTile = BN * 128;         // one 64-wide tile of x
+  constexpr int kStage = wg_stage_bytes(BN);
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + stages * kStage);
+  uint64_t* empty = full + stages;
+  const int split = gridDim.x;
+  const int r = blockIdx.x;
+  const int n0 = blockIdx.y * kWgRows, m0 = blockIdx.z * BN;
+  const int KT = (K + KS - 1) / KS;
+  const int kt0 = (int)((long)r * KT / split);
+  const int nk = (int)((long)(r + 1) * KT / split) - kt0;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      for (int i = 0; i < nk; ++i) {
+        const int st = i % stages;
+        mbar_wait(&empty[st], ((i / stages) & 1) ^ 1);
+        mbar_expect_tx(&full[st], kStage);
+        unsigned char* dst = ring + st * kStage;
+        const int k = (kt0 + i) * KS;
+        tma_load_2d(dst, &tq, &full[st], k, n0);
+#pragma unroll
+        for (int h = 0; h < KS / 64; ++h)
+          tma_load_2d(dst + kCodeBytes + h * kXTile, &tx, &full[st],
+                      k + 64 * h, m0);
+      }
+    }
+    __syncwarp();
+    cluster_sync();  // the partials are written
+    cluster_sync();  // and read
+    return;
+  }
+
+  setmaxnreg_inc<kWgConsumerRegs>();
+  const int t = threadIdx.x - 128;   // 0..255
+  const int lane = t & 31, g = lane >> 2, tq4 = lane & 3;
+  // this thread's weight rows in the tile: row0 and row0 + 8; their
+  // swizzle (the 16-byte chunk j of a code row lands at j ^ swz): rows
+  // row0 and row0 + 8 share it, as (row0 & 7) == g
+  const int row0 = 64 * (wg - 1) + 16 * ((t >> 5) & 3) + g;
+  const int swz = KS == 128 ? g : (g >> 1) & 3;
+  const float s0 =
+      n0 + row0 < N ? rounded_scale<__nv_bfloat16>(scale[n0 + row0]) : 0.f;
+  const float s1 = n0 + row0 + 8 < N
+                       ? rounded_scale<__nv_bfloat16>(scale[n0 + row0 + 8])
+                       : 0.f;
+  const float c0 = -8388736.f * s0, c1 = -8388736.f * s1;
+  const uint32_t ring_u32 = smem_u32(ring);
+  // the byte of this thread's codes in chunk j of row row0 (row0 + 8 is 8
+  // code rows on)
+  uint32_t off[kSteps];
+#pragma unroll
+  for (int j = 0; j < kSteps; ++j)
+    off[j] = row0 * KS + 2 * tq4 + ((j ^ swz) << 4);
+
+  constexpr int kAccs = wg_accs(BN);
+  float acc[kAccs][BN / 2];
+#pragma unroll
+  for (int a = 0; a < kAccs; ++a)
+#pragma unroll
+    for (int e = 0; e < BN / 2; ++e) acc[a][e] = 0.f;
+
+  // the A fragments of the code tile at ``tile``, one a k16 step
+  auto dequant = [&](uint32_t tile, uint32_t (*a)[4]) {
+#pragma unroll
+    for (int j = 0; j < kSteps; ++j) {
+      const uint32_t p0 = tile + off[j];
+      const uint32_t p1 = p0 + 8 * KS;
+      const uint32_t v0 = __byte_perm(lds_u16(p0), lds_u16(p0 + 8), 0x5410);
+      const uint32_t v1 = __byte_perm(lds_u16(p1), lds_u16(p1 + 8), 0x5410);
+      codes4_bf16(v0, s0, c0, a[j][0], a[j][2]);
+      codes4_bf16(v1, s1, c1, a[j][1], a[j][3]);
+    }
+  };
+  // the A fragments of two stages: stage kt's k16 steps are issued with
+  // buffer kt % 2; once stage kt - 1 is done (one group may stay in
+  // flight), its slot goes back to the producer and its buffer takes stage
+  // kt + 1's fragments while the tensor cores work on stage kt
+  constexpr int kDepth = 2;
+  uint32_t frag[kDepth][kSteps][4];
+  int st = 0, rel = 0;  // the slots of stage kt and of the oldest held
+  uint32_t phase = 0;   // the parity of slot st's fill for stage kt
+  mbar_wait(&full[0], 0);
+  dequant(ring_u32, frag[0]);
+  for (int k0 = 0; k0 < nk; k0 += kDepth) {
+#pragma unroll
+    for (int d = 0; d < kDepth; ++d) {
+      const int kt = k0 + d;
+      if (kt < nk) {
+        const int nst = st + 1 == stages ? 0 : st + 1;
+        const uint32_t nphase = nst == 0 ? phase ^ 1 : phase;
+        const unsigned char* xt = ring + st * kStage + kCodeBytes;
+        wgmma_fence();
+#pragma unroll
+        for (int j = 0; j < kSteps; ++j)
+          wgmma_rs_k<BN>(
+              acc[j % kAccs], frag[d][j],
+              desc_b128(xt + (j >> 2) * kXTile + (j & 3) * 32, 0, 1024));
+        wgmma_commit();
+        wgmma_wait<kDepth - 1>();
+        if (kt >= kDepth - 1) {
+          if (lane == 0) mbar_arrive(&empty[rel]);
+          rel = rel + 1 == stages ? 0 : rel + 1;
+        }
+        if (kt + 1 < nk) {
+          mbar_wait(&full[nst], nphase);
+          dequant(ring_u32 + nst * kStage, frag[(d + 1) % kDepth]);
+        }
+        st = nst;
+        phase = nphase;
+      }
+    }
+  }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int a = 0; a < kAccs; ++a) fence_regs<BN / 2>(acc[a]);
+  // the accumulators in a fixed order
+#pragma unroll
+  for (int a = 1; a < kAccs; ++a)
+#pragma unroll
+    for (int e = 0; e < BN / 2; ++e) acc[0][e] += acc[a][e];
+
+  // the partial, transposed: P[m][n] (the row stride's 4 extra floats
+  // spread a warp's writes over all banks)
+  bar_sync(1, 256);  // both consumers are done with the ring
+  float* P = reinterpret_cast<float*>(ring);
+#pragma unroll
+  for (int jb = 0; jb < BN / 8; ++jb)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      P[(8 * jb + 2 * tq4 + (e & 1)) * kWgPStride + row0 + 8 * (e >> 1)] =
+          acc[0][4 * jb + e];
+  cluster_sync();
+
+  // this split's slice of the tile, 4 outputs a thread: the sum over the
+  // splits in split order, T(sum), then T(y + bias)
+  const int per = BN * (kWgRows / 4);
+  const int lo = (int)((long)r * per / split);
+  const int hi = (int)((long)(r + 1) * per / split);
+  const bool vec_out = (N & 3) == 0;
+  for (int idx = lo + t; idx < hi; idx += 256) {
+    const int m = idx / (kWgRows / 4), n = (idx % (kWgRows / 4)) * 4;
+    const int gm = m0 + m, gn = n0 + n;
+    if (gm >= M || gn >= N) continue;
+    const float* src = P + m * kWgPStride + n;
+    float4 v = ld_cluster_f4(cluster_map(src, 0));
+    for (int j = 1; j < split; ++j) {
+      const float4 u = ld_cluster_f4(cluster_map(src, j));
+      v.x += u.x;
+      v.y += u.y;
+      v.z += u.z;
+      v.w += u.w;
+    }
+    const float a[4] = {v.x, v.y, v.z, v.w};
+    __nv_bfloat16* o = out + (long)gm * N + gn;
+    if (vec_out && gn + 3 < N) {
+      uint32_t h[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        h[e] = __bfloat16_as_ushort(finish<__nv_bfloat16>(a[e], bias, gn + e));
+      *reinterpret_cast<uint2*>(o) =
+          make_uint2(h[0] | (h[1] << 16), h[2] | (h[3] << 16));
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (gn + e < N) o[e] = finish<__nv_bfloat16>(a[e], bias, gn + e);
+    }
+  }
+  cluster_sync();  // peers are done reading this CTA's partial
+}
+
+// Tensor maps, encoded once per (pointer, shape, box) and kept: a decode
+// step calls the kernel 282 times with the same weights, and the caching
+// allocator hands x's activations the same few addresses.  A map holds
+// only the address, shape, strides and box, so a hit is valid whatever the
+// memory holds now.  ``box`` tells a code map (128 rows, ``box`` bytes) from
+// an x map (``-box`` rows of 64 bf16).
+struct MapEntry {
+  const void* ptr;
+  int rows, cols, box;
+  CUtensorMap map;
+};
+
+int cached_map(const void* ptr, int rows, int cols, int box,
+               CUtensorMap* out) {
+  constexpr int kSlots = 1024;
+  static MapEntry cache[kSlots];
+  static std::mutex mu;
+  const uintptr_t key = reinterpret_cast<uintptr_t>(ptr);
+  std::lock_guard<std::mutex> lock(mu);
+  MapEntry& c = cache[((key >> 8) ^ (uintptr_t)rows * 31u ^
+                       (uintptr_t)cols * 7u ^ (uintptr_t)(box + 512)) %
+                      kSlots];
+  if (c.ptr != ptr || c.rows != rows || c.cols != cols || c.box != box) {
+    const int err =
+        box > 0 ? hopper::make_map_2d_i8(&c.map, ptr, rows, cols, box,
+                                         kWgRows)
+                : hopper::make_map_2d(&c.map, ptr, rows, cols, -box);
+    if (err != 0) {
+      c.ptr = nullptr;
+      return err;
+    }
+    c.ptr = ptr;
+    c.rows = rows;
+    c.cols = cols;
+    c.box = box;
+  }
+  *out = c.map;
+  return 0;
+}
+
+template <int BN>
+int launch_wgmma(int device, const void* x, const void* q, const float* s,
+                 const void* bias, void* out, int M, int N, int K, int split,
+                 cudaStream_t stream) {
+  CUtensorMap mq, mx;
+  int err = cached_map(q, N, K, wg_k(BN), &mq);
+  if (err == 0) err = cached_map(x, M, K, -BN, &mx);
+  if (err != 0) return err;
+  const int stages = wg_stages(BN);
+  const size_t smem = wg_smem_bytes(BN, stages);
+  static bool ready[64] = {};  // the shared-memory attribute, per device
+  if (device < 0 || device >= 64) return (int)cudaErrorInvalidValue;
+  if (!ready[device]) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        wgmma_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    ready[device] = true;
+  }
+  const dim3 grid(split, (N + kWgRows - 1) / kWgRows, (M + BN - 1) / BN);
+  const auto* b = static_cast<const __nv_bfloat16*>(bias);
+  auto* o = static_cast<__nv_bfloat16*>(out);
+  if (split == 1) {  // a cluster of one: the plain launch costs the host less
+    wgmma_kernel<BN><<<grid, kWgThreads, smem, stream>>>(mq, mx, s, b, o, M,
+                                                         N, K, stages);
+    return (int)cudaGetLastError();
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kWgThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, wgmma_kernel<BN>, mq, mx, s,
+                                           b, o, M, N, K, stages);
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+}
+
+int launch_wgmma(int device, int bn, const void* x, const void* q,
+                 const float* s, const void* bias, void* out, int M, int N,
+                 int K, int split, cudaStream_t stream) {
+  switch (bn) {
+    case 8:
+      return launch_wgmma<8>(device, x, q, s, bias, out, M, N, K, split,
+                             stream);
+    case 16:
+      return launch_wgmma<16>(device, x, q, s, bias, out, M, N, K, split,
+                              stream);
+    case 32:
+      return launch_wgmma<32>(device, x, q, s, bias, out, M, N, K, split,
+                              stream);
+    case 64:
+      return launch_wgmma<64>(device, x, q, s, bias, out, M, N, K, split,
+                              stream);
+    case 128:
+      return launch_wgmma<128>(device, x, q, s, bias, out, M, N, K, split,
+                               stream);
+    case 176:
+      return launch_wgmma<176>(device, x, q, s, bias, out, M, N, K, split,
+                               stream);
+    case 256:
+      return launch_wgmma<256>(device, x, q, s, bias, out, M, N, K, split,
+                               stream);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 template <typename T, int MT>
 int launch_gemv(bool vec, const void* x, const int8_t* q, const float* s,
                 const void* bias, void* out, int M, int N, int K,
                 cudaStream_t stream) {
   const int per_cta = kGemvWarps * kGemvRows;
   dim3 grid((N + per_cta - 1) / per_cta);
-  auto kernel = vec ? gemv_kernel<T, true, MT> : gemv_kernel<T, false, MT>;
+  // bf16 takes the vector loads in the wgmma body only
+  auto kernel = gemv_kernel<T, false, MT>;
+  if constexpr (std::is_same<T, float>::value) {
+    if (vec) kernel = gemv_kernel<T, true, MT>;
+  }
   const int smem = 2 * MT * kChunk * sizeof(float);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -546,13 +939,18 @@ int launch_gemv(bool vec, const void* x, const int8_t* q, const float* s,
 
 }  // namespace
 
-// dtype: 0 fp32, 1 bf16.  body: 0 gemv (M <= 16), 1 mma (bf16), 2 simt
-// (fp32).  vec: K % 16 == 0, with x, q and out on 16-byte boundaries.
-// bias may be null.  Returns a cudaError_t (0 on success).
+// dtype: 0 fp32, 1 bf16.  body: 0 gemv (M <= 16; fp32, or bf16 with K % 16
+// != 0), 1 mma (bf16, K % 16 != 0), 2 simt (fp32), 3 wgmma (bf16, K % 16
+// == 0) with the plan ``bn`` (x rows a tile: 8, 16, 32, 64, 128, 176 or
+// 256) and ``split`` (1, 2, 4 or 8, at most the tile's K stages; the other
+// bodies ignore both).  vec: K % 16 == 0, with x, q and out on 16-byte
+// boundaries.  bias may be null.  Returns a cudaError_t (0 on success), or
+// 1000 + a CUresult / 999 where a tensor map cannot be encoded.
 extern "C" int mmi_int8_linear(int device, int dtype, int body, int vec,
                                const void* x, const void* q,
                                const void* scale, const void* bias,
-                               void* out, int M, int N, int K, void* stream) {
+                               void* out, int M, int N, int K, int bn,
+                               int split, void* stream) {
   if (M < 1 || N < 1 || K < 1 || dtype < 0 || dtype > 1)
     return (int)cudaErrorInvalidValue;
   if (vec) {
@@ -567,16 +965,22 @@ extern "C" int mmi_int8_linear(int device, int dtype, int body, int vec,
   const int8_t* codes = static_cast<const int8_t*>(q);
   const float* sc = static_cast<const float*>(scale);
   if (body == 0) {
-    if (M > kMaxM) return (int)cudaErrorInvalidValue;
+    if (M > kMaxM || (dtype == 1 && vec)) return (int)cudaErrorInvalidValue;
     return dtype == 1 ? launch_gemv<__nv_bfloat16>(vec, x, codes, sc, bias,
                                                    out, M, N, K, s)
                       : launch_gemv<float>(vec, x, codes, sc, bias, out, M,
                                            N, K, s);
   }
+  if (body == 3) {
+    const int KT = (K + wg_k(bn) - 1) / wg_k(bn);
+    if (dtype != 1 || !vec || split < 1 || split > kWgMaxSplit ||
+        (split & (split - 1)) != 0 || split > KT)
+      return (int)cudaErrorInvalidValue;
+    return launch_wgmma(device, bn, x, q, sc, bias, out, M, N, K, split, s);
+  }
   dim3 grid((N + kTile - 1) / kTile, (M + kTile - 1) / kTile);
-  if (body == 1 && dtype == 1) {
-    auto kernel = vec ? mma_kernel<true> : mma_kernel<false>;
-    kernel<<<grid, kMmaThreads, 0, s>>>(
+  if (body == 1 && dtype == 1 && !vec) {
+    mma_kernel<<<grid, kMmaThreads, 0, s>>>(
         static_cast<const __nv_bfloat16*>(x), codes, sc,
         static_cast<const __nv_bfloat16*>(bias),
         static_cast<__nv_bfloat16*>(out), M, N, K);

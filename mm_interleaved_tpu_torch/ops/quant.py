@@ -16,7 +16,9 @@ out]`` with the scale over axis -2: the same numbers, transposed).
   counts its launches): the JAX package gets the dequantization fused into
   the dot's operand read from XLA (`QDense`, :85-97); the port gets it from
   this kernel, which reads the codes once and never writes a dequantized
-  copy.  Its body is `int8_linear_body`'s choice by M and dtype.
+  copy.  Its body is `int8_linear_body`'s choice by M, N, K and dtype;
+  the wgmma body's tiles and K splits are `int8_linear_plan`'s (pure, so
+  the CPU tests check them).
   `int8_linear_plain` is the same function in plain PyTorch (a
   dequantized copy, then a matmul); the CPU path uses it, and on the card
   it is the reference the kernel is held against.  `int8_linear`
@@ -33,6 +35,7 @@ out]`` with the scale over axis -2: the same numbers, transposed).
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import List, Optional, Tuple
 
 import torch
@@ -49,10 +52,24 @@ LLM_ROOTS = ("mm_decoder", "text_decoder", "layers")
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # the kernel's bodies, by the code its C interface takes
-BODIES = {"gemv": 0, "mma": 1, "simt": 2}
-# the most rows the GEMV body takes (decode: B = 2 greedy, K = 5 beams x
-# B = 2, the bench's decode at B = 8)
+BODIES = {"gemv": 0, "mma": 1, "simt": 2, "wgmma": 3}
+# the most rows the GEMV body takes (fp32, and bf16 with K % 16 != 0; the
+# decodes: B = 2 greedy, K = 5 beams x B = 2, the bench's B = 8)
 GEMV_MAX_M = 16
+# the wgmma body's tiles: 128 weight rows (outputs) a CTA, x rows a tile
+# one of WGMMA_BN (wgmma's n; 176 puts M = 512 in three tiles), K in
+# stages of `wgmma_k`, K splits one of WGMMA_SPLITS (a cluster of a power
+# of two CTAs: clusters of 3 or 6 left SMs idle on the H100)
+WGMMA_ROWS = 128
+WGMMA_BN = (8, 16, 32, 64, 128, 176, 256)
+WGMMA_SPLITS = (1, 2, 4, 8)
+
+
+def wgmma_k(bn: int) -> int:
+    """K a stage of the wgmma body at ``bn`` x rows a tile: 128 (code rows
+    of 128 bytes), 64 at 256 (whose x tiles leave room for two stages of
+    128 only); as ``wg_k`` in the kernel."""
+    return 64 if bn >= 256 else 128
 
 
 def quantize_int8(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -82,18 +99,6 @@ def int8_linear_plain(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
     return y
 
 
-def int8_linear_body(M: int, dtype: torch.dtype) -> str:
-    """The kernel body that serves ``M`` rows in ``dtype``: "gemv" for the
-    decode rows (M <= `GEMV_MAX_M`), else "mma" (bf16, mma.sync on the
-    tensor cores) or "simt" (fp32 on the CUDA cores)."""
-    if dtype not in _DTYPE_CODE:
-        raise TypeError(f"int8_linear: dtype {dtype} not in "
-                        f"{tuple(_DTYPE_CODE)}")
-    if M <= GEMV_MAX_M:
-        return "gemv"
-    return "mma" if dtype == torch.bfloat16 else "simt"
-
-
 def int8_linear_vec(K: int) -> bool:
     """Whether a call of reduction width ``K`` takes the 16-byte vector
     loads (then x, the codes and the output must sit on 16-byte
@@ -101,7 +106,81 @@ def int8_linear_vec(K: int) -> bool:
     return K % 16 == 0
 
 
+def int8_linear_body(M: int, N: int, K: int, dtype: torch.dtype) -> str:
+    """The kernel body that serves ``x [M, K]`` times ``q [N, K]`` in
+    ``dtype``: bf16 with K % 16 == 0 (every LLM projection) "wgmma" (TMA,
+    wgmma, split-K over a cluster: `int8_linear_plan`), which measured
+    faster than the GEMV and mma.sync bodies at every flagship site on the
+    H100, decode (M = 2-10) and prefill alike (PERF.md, PR 16); bf16 with
+    K % 16 != 0 "gemv" at M <= `GEMV_MAX_M`, else "mma" (mma.sync); fp32
+    "gemv" at M <= `GEMV_MAX_M`, else "simt" (fp32 on the CUDA cores)."""
+    if dtype not in _DTYPE_CODE:
+        raise TypeError(f"int8_linear: dtype {dtype} not in "
+                        f"{tuple(_DTYPE_CODE)}")
+    if dtype == torch.bfloat16 and int8_linear_vec(K):
+        return "wgmma"
+    if M <= GEMV_MAX_M:
+        return "gemv"
+    return "mma" if dtype == torch.bfloat16 else "simt"
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _plan_cost(M: int, N: int, K: int, bn: int, split: int,
+               sms: int) -> float:
+    """The wgmma body's time in microseconds, as a model fitted to a sweep
+    of every (bn, split) at the flagship's sites on an H100 (PERF.md, PR
+    16): waves of CTAs, each paying about 4 us to start and stop, for each
+    64 of its K the larger of its own pipeline's pace (0.28 + 0.0018 bn
+    us) and its codes' share of HBM (3.35 TB/s over the CTAs in flight),
+    and with a split the partials' meeting (1 + 0.004 bn (split - 1) us).
+    A cluster of ``split`` CTAs sits in one GPC: at most ``15 // split``
+    clusters in each of 8."""
+    ks = wgmma_k(bn)
+    ctas = _cdiv(M, bn) * _cdiv(N, WGMMA_ROWS) * split
+    cap = sms if split == 1 else min(sms, 8 * (15 // split) * split)
+    active = min(ctas, cap)
+    per64 = max(0.28 + 0.0018 * bn,
+                64 * min(N, WGMMA_ROWS) * active / 3.35e6)
+    meet = 1.0 + 0.004 * bn * (split - 1) if split > 1 else 0.0
+    cta = 4.0 + _cdiv(_cdiv(K, ks), split) * (ks // 64) * per64 + meet
+    return _cdiv(ctas, cap) * cta
+
+
+@functools.lru_cache(maxsize=4096)
+def int8_linear_plan(M: int, N: int, K: int, sms: int = 132) -> dict:
+    """The wgmma body's plan for ``x [M, K]`` times ``q [N, K]`` on a card
+    of ``sms`` multiprocessors (pure: no card is asked).  A CTA owns
+    ``WGMMA_ROWS`` weight rows by ``bn`` rows of x; ``split`` CTAs of one
+    cluster share the tile's T K tiles of ``k_tile`` (`wgmma_k`): split j
+    takes tiles ``[j T // split, (j + 1) T // split)``, so none is empty,
+    and they meet in the cluster's shared memory in split order.  The pair
+    (bn, split) is the one `_plan_cost` rates fastest (ties to fewer
+    splits, then fewer rows a tile).  ``k_splits``: each split's [k0, k1)
+    in elements."""
+    if min(M, N, K, sms) < 1:
+        raise ValueError(f"int8_linear_plan: M={M} N={N} K={K} sms={sms}")
+    best = None
+    for bn in WGMMA_BN:
+        kt = _cdiv(K, wgmma_k(bn))
+        for split in (sp for sp in WGMMA_SPLITS if sp <= kt):
+            key = (_plan_cost(M, N, K, bn, split, sms), split, bn)
+            if best is None or key < best:
+                best = key
+    split, bn = best[1], best[2]
+    ks = wgmma_k(bn)
+    kt = _cdiv(K, ks)
+    bounds = [j * kt // split for j in range(split + 1)]
+    return dict(bn=bn, split=split, m_tiles=_cdiv(M, bn),
+                n_tiles=_cdiv(N, WGMMA_ROWS), k_tile=ks, k_tiles=kt,
+                k_splits=tuple((bounds[j] * ks, min(bounds[j + 1] * ks, K))
+                               for j in range(split)))
+
+
 _ENTRY = []
+_SMS = {}
 
 
 def _entry():
@@ -110,16 +189,23 @@ def _entry():
     if not _ENTRY:
         fn = load_library("int8_linear").mmi_int8_linear
         fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 5 \
-            + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+            + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _ENTRY.append(fn)
     return _ENTRY[0]
 
 
-def _launch(x, q, scale, bias=None) -> torch.Tensor:
-    """Launch the CUDA kernel on ``x [M, K]``, ``q [N, K]`` int8, ``scale
-    [N]`` fp32 and ``bias [N]`` (x's dtype) or None; raises, before any
-    launch, on input it does not take."""
+def _sms(device: torch.device) -> int:
+    n = _SMS.get(device.index)
+    if n is None:
+        n = _SMS[device.index] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return n
+
+
+def _check(x, q, scale, bias) -> str:
+    """Raise, before any launch, on input the kernel does not take; else
+    return the body that serves it."""
     name = "int8_linear"
     if x.dim() != 2 or q.dim() != 2 or x.shape[1] != q.shape[1]:
         raise ValueError(f"{name}: x {tuple(x.shape)}, q {tuple(q.shape)}: "
@@ -135,22 +221,43 @@ def _launch(x, q, scale, bias=None) -> torch.Tensor:
                         f"{tuple(scale.shape)}")
     if bias is not None and (bias.dtype != x.dtype or bias.shape != (N,)):
         raise TypeError(f"{name}: bias must be {x.dtype} [N]")
-    body = int8_linear_body(M, x.dtype)
-    vec = int8_linear_vec(K)
+    body = int8_linear_body(M, N, K, x.dtype)
     tensors = [x, q, scale] + ([bias] if bias is not None else [])
     check_cuda(name, tensors)
     forbid_grad(name, *tensors)
-    if vec and any(t.data_ptr() % 16 for t in (x, q)):
+    if int8_linear_vec(K) and any(t.data_ptr() % 16 for t in (x, q)):
         raise ValueError(f"{name}: K % 16 == 0 takes 16-byte loads: x and q "
                          "must sit on 16-byte boundaries (a misaligned view: "
                          "pass a copy)")
+    return body
+
+
+def _run(x, q, scale, bias, body: str, plan) -> torch.Tensor:
+    """One launch of ``body`` (with the wgmma body's ``plan``) on inputs
+    `_check` passed."""
+    M, K = x.shape
+    N = q.shape[0]
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    bn, split = (plan["bn"], plan["split"]) if plan is not None else (0, 0)
     err = _entry()(x.device.index, _DTYPE_CODE[x.dtype], BODIES[body],
-                   int(vec), x.data_ptr(), q.data_ptr(), scale.data_ptr(),
+                   int(int8_linear_vec(K)), x.data_ptr(), q.data_ptr(),
+                   scale.data_ptr(),
                    None if bias is None else bias.data_ptr(), out.data_ptr(),
-                   M, N, K, stream_of(x))
-    raise_on_error(f"{name} ({body})", err)
+                   M, N, K, bn, split, stream_of(x))
+    raise_on_error(f"int8_linear ({body})", err)
     return out
+
+
+def _launch(x, q, scale, bias=None) -> torch.Tensor:
+    """Launch the CUDA kernel on ``x [M, K]``, ``q [N, K]`` int8, ``scale
+    [N]`` fp32 and ``bias [N]`` (x's dtype) or None, with the body
+    `int8_linear_body` and, for "wgmma", the plan `int8_linear_plan`
+    give; raises, before any launch, on input it does not take."""
+    body = _check(x, q, scale, bias)
+    M, K = x.shape
+    plan = (int8_linear_plan(M, q.shape[0], K, _sms(x.device))
+            if body == "wgmma" else None)
+    return _run(x, q, scale, bias, body, plan)
 
 
 int8_linear_cuda = CountedKernel(_launch)

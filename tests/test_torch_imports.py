@@ -55,5 +55,5 @@ def test_port_imports_without_jax():
                  "utils.name_map", "utils.convert_hf", "utils.convert_sd",
                  "utils.convert_ref", "utils.inception_v3",
                  "models.clip_text", "data.datasets_bench", "data.rices",
-                 "prepare_ade20k", "ops.quant"):
+                 "prepare_ade20k", "ops.quant", "bench_int8_kernel"):
         assert f"mm_interleaved_tpu_torch.{name}" in imported, name

@@ -14,7 +14,10 @@ noised):
     `LocalGenerator(quantize="int8")`, through `build_generation_runtime`;
   * the prefill's and a decode step's hidden states within JAX's own 0.05
     of the unquantized model (tests/test_quant.py:130-156);
-  * the kernel's Python half: the body by M and dtype, the refusals before
+  * the kernel's Python half: the body by M, N, K and dtype, the wgmma
+    body's plan (tiles and K splits) at the flagship's sites and the
+    edges, the CPU dispatch to the plain version bit for bit, the
+    dequantization identity the wgmma body relies on, the refusals before
     any launch (a misaligned view among them), and the runtime's refusals.
 """
 
@@ -37,8 +40,10 @@ from mm_interleaved_tpu_torch.models.llama import KVCache
 from mm_interleaved_tpu_torch.models.mm_interleaved import build_model
 from mm_interleaved_tpu_torch.ops import quant
 from mm_interleaved_tpu_torch.ops.quant import (
-    QLinear, int8_linear, int8_linear_body, int8_linear_cuda,
-    int8_linear_plain, int8_linear_vec, quantize_int8, quantize_llm_weights)
+    WGMMA_BN, WGMMA_ROWS, WGMMA_SPLITS, QLinear,
+    dequantize_int8, int8_linear, int8_linear_body, int8_linear_cuda,
+    int8_linear_plain, int8_linear_plan, int8_linear_vec, quantize_int8,
+    quantize_llm_weights, wgmma_k)
 from mm_interleaved_tpu_torch.parallel.inference import (
     build_generation_runtime, check_runtime)
 from mm_interleaved_tpu_torch.utils.from_flax import (
@@ -197,17 +202,25 @@ def test_prefill_and_decode_track_the_unquantized_model(tiny):
 
 
 def test_kernel_python_half_and_refusals(monkeypatch):
-    """The body by M and dtype, the vector-load rule, the CPU dispatch to
-    the plain version, and every refusal before any launch: inputs off the
-    card, dtypes and shapes the kernel does not take, a view off a 16-byte
-    boundary, an unknown quantize mode, a mesh (ROADMAP.md §1 item 6)."""
-    assert [int8_linear_body(m, torch.bfloat16) for m in (1, 2, 10, 16, 17,
-                                                           512)] == \
-        ["gemv"] * 4 + ["mma"] * 2
-    assert int8_linear_body(600, torch.float32) == "simt"
-    assert int8_linear_body(8, torch.float32) == "gemv"
+    """The body by M, N, K and dtype, the vector-load rule, the CPU
+    dispatch to the plain version, and every refusal before any launch:
+    inputs off the card, dtypes and shapes the kernel does not take, a view
+    off a 16-byte boundary, an unknown quantize mode, a mesh (ROADMAP.md §1
+    item 6)."""
+    bf16, fp32 = torch.bfloat16, torch.float32
+    # bf16 with K % 16 == 0 (every LLM projection): the Hopper body
+    assert [int8_linear_body(m, 5120, 5120, bf16)
+            for m in (1, 2, 10, 16, 17, 512)] == ["wgmma"] * 6
+    assert int8_linear_body(512, 2, 5120, bf16) == "wgmma"
+    assert int8_linear_body(2, 5120, 16, bf16) == "wgmma"
+    # K % 16 != 0 and fp32 keep their bodies
+    assert int8_linear_body(3, 96, 200, bf16) == "gemv"
+    assert int8_linear_body(40, 70, 200, bf16) == "mma"
+    assert int8_linear_body(600, 64, 64, fp32) == "simt"
+    assert int8_linear_body(8, 64, 64, fp32) == "gemv"
+    assert int8_linear_body(8, 64, 200, fp32) == "gemv"
     with pytest.raises(TypeError):
-        int8_linear_body(4, torch.float16)
+        int8_linear_body(4, 64, 64, torch.float16)
     assert int8_linear_vec(5120) and int8_linear_vec(13824)
     assert not int8_linear_vec(40) and not int8_linear_vec(5121)
 
@@ -244,3 +257,125 @@ def test_kernel_python_half_and_refusals(monkeypatch):
         check_runtime(None, "int4")
     with pytest.raises(NotImplementedError, match="item 6"):
         check_runtime({"tensor": 2}, "int8")
+
+
+# the flagship's projection sites (M: decode B = 2, beams K = 3 and 5 at B
+# = 2, the prefill and prefix forwards at 512 rows) and the kernel's edges
+_PLAN_SITES = [(m, n, k) for m in (2, 6, 10, 512)
+               for n, k in ((5120, 5120), (13824, 5120), (5120, 13824),
+                            (32002, 5120), (2, 5120))] + [
+    (m, 5120, 5120) for m in (1, 8, 9, 16, 17, 64, 65, 257)] + [
+    (2, 130, 5120), (2, 5000, 5120), (512, 130, 5120), (2, 5120, 16),
+    (2, 5120, 48), (2, 5120, 5136), (512, 5120, 5136), (3, 96, 208)]
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("M,N,K", _PLAN_SITES)
+def test_int8_linear_plan_covers_the_product(M, N, K, sms):
+    """`int8_linear_plan`: the K splits are disjoint, cover [0, K) in
+    order, each a whole number of K tiles (the last may end at K) and none
+    empty; the tiles cover N and M; the plan is one of the kernel's
+    instances and the same on every call."""
+    plan = int8_linear_plan(M, N, K, sms)
+    assert plan["bn"] in WGMMA_BN
+    assert plan["split"] in WGMMA_SPLITS
+    tile = plan["k_tile"]
+    assert tile == wgmma_k(plan["bn"]) and tile % 64 == 0
+    kt = -(-K // tile)
+    assert plan["k_tiles"] == kt and plan["split"] <= kt
+    splits = plan["k_splits"]
+    assert len(splits) == plan["split"]
+    assert splits[0][0] == 0 and splits[-1][1] == K
+    for (a0, a1), (b0, _) in zip(splits, splits[1:]):
+        assert a1 == b0
+    for k0, k1 in splits:
+        assert k0 < k1
+        assert k0 % tile == 0
+        assert k1 % tile == 0 or k1 == K
+    sizes = [-(-(k1 - k0) // tile) for k0, k1 in splits]
+    assert sum(sizes) == kt and max(sizes) - min(sizes) <= 1
+    assert (plan["n_tiles"] - 1) * WGMMA_ROWS < N <= \
+        plan["n_tiles"] * WGMMA_ROWS
+    assert (plan["m_tiles"] - 1) * plan["bn"] < M <= \
+        plan["m_tiles"] * plan["bn"]
+    int8_linear_plan.cache_clear()
+    assert int8_linear_plan(M, N, K, sms) == plan
+    assert int8_linear_plan(M, N, K, sms) is int8_linear_plan(M, N, K, sms)
+
+
+def test_int8_linear_plan_refuses_empty():
+    with pytest.raises(ValueError):
+        int8_linear_plan(0, 5120, 5120)
+    with pytest.raises(ValueError):
+        int8_linear_plan(2, 5120, 5120, 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bias", [True, False])
+def test_int8_linear_cpu_is_the_plain_version(dtype, bias):
+    """On CPU tensors `int8_linear` (and `QLinear`) is the plain version,
+    bit for bit, whatever the body a card would take; no launch."""
+    rs = np.random.RandomState(5)
+    w = torch.from_numpy(rs.randn(48, 64).astype(np.float32))
+    q, s = quantize_int8(w)
+    x = torch.from_numpy(rs.randn(2, 5, 64).astype(np.float32)).to(dtype)
+    b = torch.from_numpy(rs.randn(48).astype(np.float32)).to(dtype) \
+        if bias else None
+    before = int8_linear_cuda.launches
+    got = int8_linear(x, q, s, b)
+    want = int8_linear_plain(x, q, s, b)
+    assert got.dtype == dtype and got.shape == (2, 5, 48)
+    assert torch.equal(got, want)
+    lin = torch.nn.Linear(64, 48, bias=bias).to(dtype)
+    ql = QLinear.from_linear(lin)
+    assert torch.equal(ql(x), int8_linear_plain(x, ql.weight, ql.scale,
+                                                ql.bias))
+    assert int8_linear_cuda.launches == before
+
+
+@pytest.mark.parametrize("exp", [-30, -12, -5, 0, 3, 9])
+def test_wgmma_dequant_identity(exp):
+    """The wgmma body's dequantization, exactly as ``codes4_bf16`` computes
+    it: ``fma(2^23 + (q ^ 0x80 as unsigned), s, -(2^23 + 128) s)`` in fp32
+    (one rounding of an exact value), then one rounding to bf16, equals
+    the plain version's ``q.to(bf16) * s.to(bf16)`` for every code and
+    bf16 scales of every significand at magnitude 2^exp.  Emulated in
+    float64, where the fma's product and sum are exact."""
+    codes = np.arange(-127, 128, dtype=np.int64)
+    sig = np.arange(128, 256, dtype=np.float64)  # every 8-bit significand
+    s_bf16 = torch.from_numpy(sig * 2.0 ** (exp - 7)).to(torch.bfloat16)
+    s = s_bf16.double().numpy()
+    u = ((codes & 0xFF) ^ 0x80).astype(np.float64)  # the byte ^ 0x80
+    f = 2.0 ** 23 + u                                 # the fp32 bit trick
+    cs32 = np.float32(-(2.0 ** 23 + 128)) * s.astype(np.float32)
+    assert np.array_equal(cs32.astype(np.float64), -(2.0 ** 23 + 128) * s)
+    fma = (f[:, None] * s[None, :] + cs32.astype(np.float64)[None, :])
+    assert np.array_equal(fma, codes[:, None] * s[None, :])  # exact
+    got = torch.from_numpy(fma.T.astype(np.float32)).to(torch.bfloat16)
+    # one weight row a scale, one column a code
+    q = torch.from_numpy(codes.astype(np.int8))[None, :].expand(128, -1)
+    want = dequantize_int8(q, s_bf16.float(), torch.bfloat16)
+    assert torch.equal(got, want)
+
+
+# the wgmma body's (x rows a tile, K splits) that served each flagship
+# site fastest in a sweep of every pair on an H100 (PERF.md, PR 16), which
+# `_plan_cost` is fitted to: (M, N, K) -> (bn, split)
+_MEASURED_BEST = {
+    (2, 5120, 5120): (8, 2), (2, 13824, 5120): (8, 1),
+    (2, 5120, 13824): (8, 2), (2, 32002, 5120): (8, 1),
+    (2, 2, 5120): (8, 8), (6, 5120, 5120): (8, 2),
+    (10, 5120, 5120): (16, 2), (10, 13824, 5120): (16, 1),
+    (10, 5120, 13824): (16, 2), (10, 32002, 5120): (16, 1),
+    (512, 5120, 5120): (176, 1), (512, 13824, 5120): (256, 1),
+    (512, 5120, 13824): (176, 1), (512, 32002, 5120): (256, 1),
+    (512, 2, 5120): (64, 8),
+}
+
+
+@pytest.mark.parametrize("M,N,K", sorted(_MEASURED_BEST))
+def test_int8_linear_plan_picks_the_measured_best(M, N, K):
+    """At the flagship's sites on 132 SMs the plan is the pair the H100
+    sweep measured fastest."""
+    plan = int8_linear_plan(M, N, K, 132)
+    assert (plan["bn"], plan["split"]) == _MEASURED_BEST[(M, N, K)]
