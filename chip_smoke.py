@@ -104,8 +104,8 @@ Phases, each of which raises (and exits nonzero) on failure:
    plain version (bf16 within 2 ulps at the output's scale, fp32 within
    1e-5 of it) and against kernel 1 (bf16 2e-2, fp32 1e-4 of kernel 1's
    scale) at both cases, in bf16 and fp32, beside the bound of the
-   function (`work_deform`, as kernel 1's) and the design's own operation
-   count;
+   function (`work_deform`, as kernel 1's), kernel 1's time on the same
+   inputs and the design's own operation count;
 10. the v4-against-v5 benchmark (`mm_interleaved_tpu_torch.
    bench_v5_kernel.run`): v4 (kernels 8a, 8b, 8c through
    `MSDeformAttnV4Function`) and v5 (kernels 1, 2, 3), forward and forward
@@ -117,8 +117,13 @@ Phases, each of which raises (and exits nonzero) on failure:
    bf16; 1e-5 in fp32) and against kernels 2 and 3 (dV 2e-2, d_loc and d_w
    1e-3 in bf16; 1e-4 in fp32; d_loc away from the hat's kinks) at all four
    cases, in bf16 and fp32, the benchmark's own gradients equal to the
-   kernels', beside the bounds of kernels 2 and 3 (the same function) and
-   the design's own operation count;
+   kernels', beside the bounds of kernels 2 and 3 (the same function),
+   their times on the same inputs and the design's own operation count;
+   then the v4 gathers (8a, 8c) at the `V4_EDGES` (whole-texel
+   coordinates, corners outside the grid, a query's points on one spot,
+   P = 1, 8, 9 and 64, non-square levels, D = 16 to 128 in bf16 and fp32,
+   bf16 locations, a value view off a 16-byte boundary) against their
+   plain versions with the sites' tolerances, bit-identical over two calls;
 11. the training entry point (`mm_interleaved_tpu_torch.train.main`) on
    ``build/smoke_train.yaml``: `configs/pretrain_synthetic.yaml` with the
    flagship preset (``seq_len`` 256, 2 image slots a row), 2 rows a batch,
@@ -2637,24 +2642,54 @@ def kernel_line(name, sites, launches,
     }
 
 
+def v4_corner_texels(loc, shapes):
+    """``[N, Q, H, L, P, 4]`` int64: each sample's four corner texels on its
+    level (row-major corners, -1 outside the grid), as the v4 gathers
+    enumerate them."""
+    import torch
+
+    out = []
+    dx = torch.tensor([0, 1, 0, 1], device=loc.device)
+    dy = torch.tensor([0, 0, 1, 1], device=loc.device)
+    for lid, (h, w) in enumerate(shapes):
+        xs = loc[:, :, :, lid, :, 0].float() * w - 0.5
+        ys = loc[:, :, :, lid, :, 1].float() * h - 0.5
+        cx = torch.floor(xs).long()[..., None] + dx
+        cy = torch.floor(ys).long()[..., None] + dy
+        inside = (cx >= 0) & (cx < w) & (cy >= 0) & (cy < h)
+        out.append(torch.where(inside, cy * w + cx, -1))
+    return torch.stack(out, dim=3)
+
+
 def design_ops(name, args) -> dict:
     """The operations the kernel's own design performs (beside the bound,
     which counts the function's work and does not change with the
-    formulation): v4 builds Q * sum(h*w) * P hat products per (n, h) and
-    multiplies A (Q x h*w) by V (h*w x D) on the tensor cores; its value
-    gradient builds A again and multiplies A^T by dOut, its location/weight
-    gradient multiplies dOut by V^T and evaluates the hats, their slopes and
-    three products at every (query, point, texel); v1 reads 2 rows by 2
-    columns per sample and channel, with 6 FMAs (4 row blends, 2 column
-    weights)."""
+    formulation), counted on this run's inputs.  8a, a gather: per sample
+    four corner terms (two hats and two products each), then per distinct
+    texel of a (query, level)'s corners one row of D read and D FMAs; 8c, a
+    gather: per in-grid corner one row of D read and D FMAs (its dot
+    product), per sample a blend of the four; 8b, dense: Q * sum(h*w) * P
+    hat products per (n, h), and A^T times dOut on the tensor cores; v1
+    reads 2 rows by 2 columns per sample and channel, with 6 FMAs (4 row
+    blends, 2 column weights)."""
     value, shapes, loc, w = args[:4]
     N, Q, H, L, P, _ = loc.shape
     D = value.shape[3]
-    texels = sum(h * w_ for h, w_ in shapes)
-    if name in ("ms_deform_attn_v4_fwd", *V4_BWD):
+    samples = N * Q * H * L * P
+    if name == "ms_deform_attn_v4_fwd":
+        k = v4_corner_texels(loc, shapes).flatten(4).sort(-1).values
+        first = k[..., :1] >= 0
+        new = (k[..., 1:] != k[..., :-1]) & (k[..., 1:] >= 0)
+        rows = int(first.sum()) + int(new.sum())
+        return dict(corner_terms=4 * samples, texel_rows=rows,
+                    fmas=rows * D)
+    if name == "ms_deform_attn_v4_bwd_loc_weight":
+        rows = int((v4_corner_texels(loc, shapes) >= 0).sum())
+        return dict(corner_rows=rows, fmas=rows * D, blends=samples)
+    if name in V4_BWD:
+        texels = sum(h * w_ for h, w_ in shapes)
         return dict(hat_products=N * H * Q * texels * P,
                     tensor_flops=2 * N * H * Q * texels * D)
-    samples = N * Q * H * L * P
     return dict(texel_reads=4 * samples * D, flops=12 * samples * D)
 
 
@@ -2667,8 +2702,9 @@ def compare_bench(name, res) -> list:
     (bf16 within 2e-2 of kernel 1's scale, as tests/test_pallas_kernel.py
     allows v4 against the gather; fp32 1e-4).  The bf16 time is the
     benchmark's own; the fp32 time and the plain versions' (median of
-    PLAIN_RUNS) are taken here.  Every failure is gathered; the phase fails
-    after the last case."""
+    PLAIN_RUNS) are taken here; kernel 1's bf16 time on the same inputs,
+    the benchmark's, is recorded beside the kernel's.  Every failure is
+    gathered; the phase fails after the last case."""
     import torch
 
     mod = kmod(name)
@@ -2680,9 +2716,11 @@ def compare_bench(name, res) -> list:
     for case, args in res["inputs"].items():
         row = next(r for r in res["rows"]
                    if r["case"] == case and r["formulation"] == form)
+        k1_row = next(r for r in res["rows"]
+                      if r["case"] == case and r["formulation"] == "kernel1")
         rec = dict(site=case, shapes=[list(x.shape) for x in args
                                       if isinstance(x, torch.Tensor)],
-                   ms_bf16=row["ms"])
+                   ms_bf16=row["ms"], kernel1_ms_bf16=k1_row["ms"])
         for dt, tag in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
             a = (args[0].to(dt),) + tuple(args[1:])
             with torch.inference_mode():
@@ -2772,9 +2810,9 @@ def compare_v4_backward(res) -> dict:
     (bf16) and 1e-4 (fp32) of kernel 3's, d_loc away from the hat's kinks
     (`bench_v5_kernel.kinks`), where the two formulations take different
     slopes and neither is the gradient.  The benchmark's own v4 gradients
-    must equal the kernels' (both kernels are deterministic).  Each kernel
-    and its plain version timed in both dtypes (plain: median of
-    PLAIN_RUNS).  Every failure is gathered; the phase fails after the last
+    must equal the kernels' (both kernels are deterministic).  Each kernel,
+    kernel 2 or 3 beside it on the same inputs, and its plain version timed
+    in both dtypes (plain: median of PLAIN_RUNS).  Every failure is gathered; the phase fails after the last
     case.  Returns ``{kernel: [site records]}``."""
     import torch
 
@@ -2840,13 +2878,13 @@ def compare_v4_backward(res) -> dict:
                             f"{gname}_scale_{tag}": scale,
                             f"{gname}_err_vs_kernels23_{tag}": err1,
                             f"{gname}_tol_vs_kernels23_{tag}": tol1})
-            for name, kernel, plain, outs in ((V4_BWD[0], k_dv, p_dv,
-                                               got[:1]),
-                                              (V4_BWD[1], k_lw, p_lw,
-                                               got[1:])):
+            for name, kernel, plain, outs, yard, yname in (
+                    (V4_BWD[0], k_dv, p_dv, got[:1], ref_dv, "kernel2"),
+                    (V4_BWD[1], k_lw, p_lw, got[1:], ref_lw, "kernel3")):
                 rec = recs[name]
                 with torch.inference_mode():
                     rec[f"ms_{tag}"] = time_ms(lambda: kernel(*a))
+                    rec[f"{yname}_ms_{tag}"] = time_ms(lambda: yard(*a))
                     rec[f"plain_ms_{tag}"] = time_ms(lambda: plain(*a),
                                                      PLAIN_RUNS)
                 if tag == "bf16":
@@ -2870,13 +2908,147 @@ def compare_v4_backward(res) -> dict:
     return sites
 
 
+# The v4 gathers (8a, 8c) at the edges of their corner enumeration: whole-
+# texel coordinates (the hat's kinks, the far corner at |t| = 1 exactly;
+# power-of-two levels, so that loc * size - 0.5 is whole in fp32 and bf16),
+# corners outside the grid (locations over [-0.2, 1.2], the default), every
+# point of a query on one spot (its corners merged onto four texels), P = 1,
+# 8, 9 and 64 (4P corners over 32 take the merge across rounds), non-square
+# levels, Q = 300 (off the 32 queries of a CTA), D = 16, 32, 64 and 128 in
+# bf16 and fp32 (16, 32, 64 and 128 bytes a row: the 2-, 4-, 8- and
+# 16-lane bodies, 32 lanes at fp32 D = 128), bf16 locations, and a value
+# view off a 16-byte boundary (the single-element body).
+V4_EDGES = {
+    "kinks_d64": dict(draw="whole"),
+    "out_of_grid_d16": dict(D=16),
+    "one_spot_d32": dict(D=32, draw="one", P=8),
+    "p1_d128": dict(D=128, P=1),
+    "p9_nonsquare": dict(P=9, shapes=((12, 16), (6, 8), (3, 5))),
+    "p64_d64": dict(P=64, Q=100),
+    "bf16_locations": dict(loc_dtype="bfloat16"),
+    "bf16_locations_kinks": dict(loc_dtype="bfloat16", draw="whole"),
+    "misaligned_value": dict(misaligned=True, P=8),
+    "fp32_d16": dict(dtype="float32", D=16),
+    "fp32_d32_kinks": dict(dtype="float32", D=32, draw="whole"),
+    "fp32_d64_one_spot": dict(dtype="float32", draw="one", P=9),
+    "fp32_d128_p64": dict(dtype="float32", D=128, P=64, Q=100),
+}
+
+
+def v4_edge_case(rng, D=64, dtype="bfloat16", loc_dtype="float32",
+                 shapes=((16, 16), (8, 8), (4, 4)), P=4, N=2, Q=300, H=4,
+                 draw="wide", misaligned=False):
+    """``(value, shapes, loc, w, grad_out)`` on the card: locations over
+    [-0.2, 1.2], snapped so that each coordinate in texels is whole
+    (``whole``), or one spot for all of a query's points (``one``); the
+    value a contiguous view 2 elements off a 16-byte boundary with
+    ``misaligned``."""
+    import torch
+
+    dt, lt = getattr(torch, dtype), getattr(torch, loc_dtype)
+    L, S = len(shapes), sum(h * w for h, w in shapes)
+    loc = rng.uniform(-0.2, 1.2, (N, Q, H, L, P, 2))
+    if draw == "whole":
+        for lid, (h, w) in enumerate(shapes):
+            for axis, n in ((0, w), (1, h)):
+                k = np.floor(loc[:, :, :, lid, :, axis] * n)
+                loc[:, :, :, lid, :, axis] = (k + 0.5) / n
+    elif draw == "one":
+        loc[:] = loc[:, :, :, :, :1]
+
+    def dev(a, t=dt):
+        return torch.tensor(a, dtype=t, device="cuda")
+
+    value = dev(rng.randn(N, S, H, D))
+    if misaligned:
+        buf = torch.empty(value.numel() + 2, dtype=dt, device="cuda")
+        value = buf[2:].view(value.shape).copy_(value)
+    return (value, shapes, dev(loc, lt), dev(rng.rand(N, Q, H, L, P), lt),
+            dev(rng.randn(N, Q, H * D)))
+
+
+def bf16_ulp(x):
+    """One bf16 ulp at each element's magnitude (fp64)."""
+    import torch
+
+    a = x.double().abs().clamp_min(1e-30)
+    return torch.exp2(torch.floor(torch.log2(a)) - 7)
+
+
+def check_v4_edges() -> list:
+    """Kernels 8a and 8c at each `V4_EDGES` case against their plain
+    versions with the benchmark sites' tolerances (8a: 2 bf16 ulps at the
+    output's scale, fp32 1e-5 of it; 8c: d_loc and d_w within 1e-4 of their
+    scales in bf16, 1e-5 in fp32; with bf16 locations 8c's gradients come
+    back in bf16, and each element is allowed one bf16 ulp at its own
+    magnitude beside that, the rounding of the output itself), two calls
+    bit-identical; where every coordinate is whole, d_loc exactly 0 (v4's
+    slopes are 0 there).  Every failure is gathered; the phase fails after
+    the last case."""
+    import torch
+
+    k_fwd = kernel_of("ms_deform_attn_v4_fwd")
+    k_lw = kernel_of("ms_deform_attn_v4_bwd_loc_weight")
+    p_fwd = getattr(kmod("ms_deform_attn_v4_fwd"),
+                    KERNELS["ms_deform_attn_v4_fwd"]["plain"])
+    p_lw = getattr(kmod("ms_deform_attn_v4_bwd_loc_weight"),
+                   KERNELS["ms_deform_attn_v4_bwd_loc_weight"]["plain"])
+    recs, fails = [], []
+    for i, (name, kw) in enumerate(V4_EDGES.items()):
+        tag = f"v4 edge {name}"
+        args = v4_edge_case(np.random.RandomState(SEED + 700 + i), **kw)
+        value = args[0]
+        D = value.shape[-1]
+        f32 = value.dtype == torch.float32
+        rec = dict(case=name, value=list(value.shape),
+                   loc=list(args[2].shape), loc_dtype=str(args[2].dtype),
+                   rows_in_vectors=(D * value.element_size()) % 16 == 0
+                   and value.data_ptr() % 16 == 0)
+        with torch.inference_mode():
+            got = dict(fwd=((k_fwd(*args[:4]),), (k_fwd(*args[:4]),)),
+                       loc_weight=(k_lw(*args), k_lw(*args)))
+            want = dict(fwd=(p_fwd(*args[:4]),), loc_weight=p_lw(*args))
+            torch.cuda.synchronize()
+        for k in ("fwd", "loc_weight"):
+            first, again = got[k]
+            same = all(bool(torch.equal(a, b)) for a, b in zip(first, again))
+            rec[f"bit_identical_{k}"] = same
+            if not same:
+                fails.append(f"{tag} {k}: two calls differ")
+            errs, tols = [], []
+            for g, r in zip(first, want[k]):
+                scale = float(r.float().abs().max())
+                if k == "fwd":
+                    tol = 1e-5 * scale if f32 else _ulps(scale, 2)
+                else:
+                    tol = (1e-5 if f32 else 1e-4) * scale
+                diff = (g.double() - r.double()).abs()
+                if k == "loc_weight" and g.dtype == torch.bfloat16:
+                    # gradients returned in bf16 locations' dtype: each
+                    # element may round either way of its own fp32 sum
+                    diff = (diff - bf16_ulp(r)).clamp_min(0.0)
+                err = float(diff.max())
+                errs.append(err), tols.append(tol)
+                if not err <= tol:
+                    fails.append(f"{tag} {k}: {err} > {tol}")
+            rec[f"errs_{k}"], rec[f"tols_{k}"] = errs, tols
+        if kw.get("draw") == "whole" and bool(got["loc_weight"][0][0].any()):
+            fails.append(f"{tag}: d_loc not 0 at whole-texel coordinates")
+        recs.append(rec)
+        log(f"v4 edge case: {json.dumps(rec)}")
+        del got, want, args
+    if fails:
+        raise AssertionError(f"{len(fails)} failed checks: {fails}")
+    return recs
+
+
 def run_v5_bench_phase() -> list:
     """Phase 10: the v4-against-v5 benchmark entry point on the card with
     every count at 0 just before it: each kernel of its path launched
     exactly as often as the calls that reach it, every other kernel not at
     all; each row finite, with v4 within 2e-2 of v5 in the forward and in
     every gradient (the bf16 tolerance of tests/test_torch_v4_backward.py);
-    then `compare_v4_backward`.  Returns the kernels line's entries of 8b
+    then `compare_v4_backward` and `check_v4_edges`.  Returns the kernels line's entries of 8b
     and 8c."""
     from mm_interleaved_tpu_torch import bench_v5_kernel as bench
 
@@ -2905,6 +3077,9 @@ def run_v5_bench_phase() -> list:
     t0 = time.perf_counter()
     sites = compare_v4_backward(res)
     log(f"compare_v4_backward: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    check_v4_edges()
+    log(f"check_v4_edges: {time.perf_counter() - t0:.1f} s")
     return [kernel_line(name, sites[name], got[name],
                         timing="sum over the v4-against-v5 benchmark's four "
                                "cases")

@@ -1,6 +1,8 @@
 """Deformable-kernel comparison on the card: the v1 (separable) and v4
-(dense bilinear-matrix) formulations against kernel 1, the gather of
+(bilinear-matrix) formulations against kernel 1, the gather of
 `ops/ms_deform_attn.py` (counterpart of `scripts/bench_deform_kernel.py`).
+v4 keeps its numerics (A rounded after the sum over the points); on the
+card its forward is a per-query gather of A's non-zero entries.
 
     python -m mm_interleaved_tpu_torch.bench_deform_kernel            # card
     python -m mm_interleaved_tpu_torch.bench_deform_kernel --device cpu

@@ -4,9 +4,12 @@ backward (counterpart of `scripts/bench_v5_kernel.py`).
     python -m mm_interleaved_tpu_torch.bench_v5_kernel            # card
     python -m mm_interleaved_tpu_torch.bench_v5_kernel --device cpu
 
-v4 is the dense bilinear-matrix formulation (`ops/ms_deform_attn_v4.py`:
-its forward kernel and two backward kernels); v5 is the port's production
-op, `ops/ms_deform_attn.py` (kernel 1 and its two backward kernels).  The
+v4 is the bilinear-matrix formulation's function and numerics
+(`ops/ms_deform_attn_v4.py`: its forward kernel and two backward kernels,
+on the card the forward and the location/weight gradient per-query
+gathers, the value gradient the dense product); v5 is the port's
+production op, `ops/ms_deform_attn.py` (kernel 1 and its two backward
+kernels).  The
 cases are the script's: ``unet`` (B 4, Q 4096, levels 64/32/16/8, P 8,
 H 16, D 64, each query's locations within 1/64 of its cell of a 64 x 64
 grid) and ``prefill`` (B 16, Q 512, levels 32/16/8, locations within 3/16

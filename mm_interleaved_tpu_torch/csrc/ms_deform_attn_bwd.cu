@@ -66,6 +66,9 @@
 //      sample j's four sums, so the gradients of a query-head's samples
 //      are written by consecutive lanes, coalesced.  A CTA's 8 warps take
 //      neighbouring queries of one (n, h), whose corners overlap in L1.
+//      The body is deform::loc_weight_gather (ms_deform_attn_common.cuh)
+//      with this kernel's blend, BilinearBlend; v4's kernel 8c
+//      (ms_deform_attn_v4_bwd.cu) runs it with v4's hats and slopes.
 //    - "warp", any D: one warp per sample, lanes along D, a full-warp
 //      reduction per corner.
 //    Both write the gradients in the locations' dtype.
@@ -94,7 +97,6 @@ using deform::from_f32;
 using deform::kFull;
 using deform::kMaxLevels;
 using deform::Levels;
-using deform::load_corners;
 using deform::to_f32;
 using deform::widen;
 
@@ -757,21 +759,36 @@ bwd_loc_weight_kernel(const V* __restrict__ value, const T* __restrict__ loc,
 }
 
 
-template <int VW>
-__device__ __forceinline__ float dot16(const uint4& u, const float (&go)[VW]) {
-  float f[VW];
-  widen(u, f);
-  float a = 0.f;
-#pragma unroll
-  for (int v = 0; v < VW; ++v) a = fmaf(go[v], f[v], a);
-  return a;
-}
+// Kernel 3's corner blend for deform::loc_weight_gather: the floor-based
+// bilinear weights of deform::corners and their derivatives
+// (blend_grads), the gradients written in the locations' type.
+template <typename T>
+struct BilinearBlend {
+  using Out = T;
+  struct Sample {
+    float fx, fy;
+  };
 
-constexpr int kQTile = 32;  // queries a CTA of the grouped body takes
+  __device__ static Sample setup(float lx, float ly, int hl, int wl,
+                                 int* texel, unsigned* mask) {
+    const Corners k = corners(lx, ly, hl, wl);
+    *texel = k.texel;
+    *mask = k.mask;
+    return {k.fx, k.fy};
+  }
 
-// The "grouped" body: G lanes a sample, one 16-byte vector of each corner a
-// lane (D = G * 16 / sizeof(V)).  A CTA takes kQTile queries of one (n, h);
-// each warp one query at a time, its L*P samples in rounds of 32.
+  __device__ static void finish(const Sample& s, float aw, int hl, int wl,
+                                const float (&g)[4], int64_t si,
+                                T* grad_loc, T* grad_weight) {
+    float dw, dx, dy;
+    blend_grads(s.fx, s.fy, g, dw, dx, dy);
+    grad_weight[si] = from_f32<T>(dw);
+    store_pair(grad_loc + 2 * si, aw * dx * wl, aw * dy * hl);
+  }
+};
+
+// The "grouped" body: deform::loc_weight_gather with G lanes a sample, one
+// 16-byte vector of each corner a lane (D = G * 16 / sizeof(V)).
 template <typename V, typename T, int G>
 __global__ void __launch_bounds__(kThreads, 3)
 bwd_loc_weight_grouped(const V* __restrict__ value, const T* __restrict__ loc,
@@ -779,101 +796,10 @@ bwd_loc_weight_grouped(const V* __restrict__ value, const T* __restrict__ loc,
                        T* __restrict__ grad_loc, T* __restrict__ grad_weight,
                        int Q, int H, int S, int L, int P, int q_tiles,
                        const __grid_constant__ Levels lv) {
-  constexpr int VW = 16 / (int)sizeof(V);
-  constexpr int D = G * VW;
-  constexpr int NG = 32 / G;  // samples a warp holds at once
-  __shared__ int s_h[kMaxLevels], s_w[kMaxLevels], s_start[kMaxLevels];
-  if (threadIdx.x == 0) {
-#pragma unroll
-    for (int i = 0; i < kMaxLevels; ++i) {
-      s_h[i] = lv.h[i];
-      s_w[i] = lv.w[i];
-      s_start[i] = lv.start[i];
-    }
-  }
-  __syncthreads();
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int grp = lane / G;
-  const int LP = L * P;
-  const int tile = blockIdx.x % q_tiles;
-  const int64_t nh = blockIdx.x / q_tiles;
-  const int h = (int)(nh % H);
-  const int64_t n = nh / H;
-  const int64_t row = (int64_t)H * D;
-  const V* vbase = value + n * (int64_t)S * row + (int64_t)h * D +
-                   (lane % G) * VW;
-  const int q_end = min(Q, (tile + 1) * kQTile);
-
-  for (int q = tile * kQTile + warp; q < q_end; q += kWarps) {
-    const int64_t nqh = (n * Q + q) * H + h;
-    float go[VW];
-    widen(__ldg(reinterpret_cast<const uint4*>(dout + nqh * D +
-                                               (lane % G) * VW)),
-          go);
-    for (int base = 0; base < LP; base += 32) {
-      const int R = min(32, LP - base);
-      const int iters = (R + NG - 1) / NG;
-      // lane j sets up sample base + j and collects its corner sums
-      const bool own = lane < R;
-      const int64_t si = nqh * LP + base + lane;
-      Corners k = {0.f, 0.f, 0, 0u};
-      float aw = 0.f;
-      int hl = 0, wl = 0;
-      if (own) {
-        const int l = (base + lane) / P;
-        hl = s_h[l];
-        wl = s_w[l];
-        k = corners(to_f32(loc[2 * si]), to_f32(loc[2 * si + 1]), hl, wl);
-        k.texel += s_start[l];
-        aw = to_f32(weight[si]);
-      }
-      const int packed = wl << 4 | (int)k.mask;
-      // group grp takes samples grp * iters + it; lane j's was taken by
-      // group j / iters at it = j % iters
-      const int from = lane / iters;
-      const int at = lane - from * iters;
-      float g[4] = {0.f, 0.f, 0.f, 0.f};
-      uint4 cur[4];
-      load_corners(vbase, row, k.texel, packed, grp * iters, cur);
-      for (int it = 0; it < iters; ++it) {
-        uint4 nxt[4] = {};
-        if (it + 1 < iters)
-          load_corners(vbase, row, k.texel, packed, grp * iters + it + 1,
-                       nxt);
-        float a[4];
-#pragma unroll
-        for (int c = 0; c < 4; ++c) a[c] = dot16<VW>(cur[c], go);
-        const bool take = at == it;
-        // corners {0, 1} | {2, 3} by bit G/2, then {0} | {1} by bit G/4,
-        // then the rest of the group's lanes
-        const bool hi_a = lane & (G / 2);
-        float k0 = hi_a ? a[2] : a[0], k1 = hi_a ? a[3] : a[1];
-        k0 += __shfl_xor_sync(kFull, hi_a ? a[0] : a[2], G / 2);
-        k1 += __shfl_xor_sync(kFull, hi_a ? a[1] : a[3], G / 2);
-        const bool hi_b = lane & (G / 4);
-        float r = hi_b ? k1 : k0;
-        r += __shfl_xor_sync(kFull, hi_b ? k0 : k1, G / 4);
-#pragma unroll
-        for (int off = G / 8; off > 0; off >>= 1)
-          r += __shfl_xor_sync(kFull, r, off);
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const float v = __shfl_sync(
-              kFull, r, from * G + (c >> 1) * (G / 2) + (c & 1) * (G / 4));
-          if (take) g[c] = v;
-        }
-#pragma unroll
-        for (int c = 0; c < 4; ++c) cur[c] = nxt[c];
-      }
-      if (own) {
-        float dw, dx, dy;
-        blend_grads(k.fx, k.fy, g, dw, dx, dy);
-        grad_weight[si] = from_f32<T>(dw);
-        store_pair(grad_loc + 2 * si, aw * dx * wl, aw * dy * hl);
-      }
-    }
-  }
+  constexpr int D = G * 16 / (int)sizeof(V);
+  deform::loc_weight_gather<BilinearBlend<T>, V, T, true, G, 1>(
+      value, loc, weight, dout, grad_loc, grad_weight, Q, H, D, S, L, P,
+      q_tiles, lv);
 }
 
 template <typename V, typename T, int G>
@@ -881,7 +807,7 @@ int launch_grouped(const void* value, const void* loc, const void* weight,
                    const void* dout, void* gl, void* gw, int N, int Q, int H,
                    int S, int L, int P, const Levels& lv,
                    cudaStream_t stream) {
-  const int q_tiles = (Q + kQTile - 1) / kQTile;
+  const int q_tiles = (Q + deform::kGatherQTile - 1) / deform::kGatherQTile;
   const int64_t blocks = (int64_t)N * H * q_tiles;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
   bwd_loc_weight_grouped<V, T, G><<<(unsigned)blocks, kThreads, 0, stream>>>(

@@ -1,7 +1,10 @@
 // Helpers shared by the deformable forward (ms_deform_attn.cu) and its
-// backward (ms_deform_attn_bwd.cu): the level table, fp32 widening and
-// narrowing of 16-byte vectors, the group width of the Hopper bodies, and
-// the bilinear geometry of one sample.
+// backward (ms_deform_attn_bwd.cu), and by the v4 kernels
+// (ms_deform_attn_v4.cuh): the level table, fp32 widening and narrowing of
+// 16-byte vectors, the group width of the Hopper bodies, the bilinear
+// geometry of one sample, a value row read in chunks of a lane, and the
+// location/weight gradient's gather, which kernel 3 and v4's kernel 8c run
+// with their own corner blends.
 //
 // The geometry rounds as the plain version does (x = loc * W - 0.5 as a
 // product, then a difference, no fused multiply-add), in every kernel that
@@ -14,6 +17,9 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <initializer_list>
+#include <type_traits>
 
 namespace deform {
 
@@ -167,6 +173,283 @@ __device__ __forceinline__ void load_corners(const V* vbase, int64_t row,
     c[i] = pk >> i & 1 ? __ldg(reinterpret_cast<const uint4*>(
                              vbase + off[i] * row))
                        : make_uint4(0u, 0u, 0u, 0u);
+}
+
+// One lane's part of a value row in a gather: 16-byte vectors of VW =
+// 16 / sizeof(V) elements where the row is whole vectors on a 16-byte
+// boundary (VEC), else single elements.  A row of D elements is nch =
+// D / VW chunks; lane ``sub`` of a group of G takes chunks sub + G * c for
+// c < C.
+template <typename V, bool VEC>
+struct RowChunk {
+  static constexpr int VW = VEC ? 16 / (int)sizeof(V) : 1;
+  using Raw = typename std::conditional<VEC, uint4, V>::type;
+
+  __device__ static Raw load(const V* p) {
+    if constexpr (VEC) {
+      return __ldg(reinterpret_cast<const uint4*>(p));
+    } else {
+      return __ldg(p);
+    }
+  }
+  __device__ static Raw zero() {
+    if constexpr (VEC) {
+      return make_uint4(0u, 0u, 0u, 0u);
+    } else {
+      return from_f32<V>(0.f);
+    }
+  }
+  __device__ static void widen(const Raw& r, float (&f)[VW]) {
+    if constexpr (VEC) {
+      deform::widen(r, f);
+    } else {
+      f[0] = to_f32(r);
+    }
+  }
+  __device__ static void store(V* p, const float (&f)[VW]) {
+    if constexpr (VEC) {
+      *reinterpret_cast<uint4*>(p) = narrow(f);
+    } else {
+      *p = from_f32<V>(f[0]);
+    }
+  }
+};
+
+// Whether a row of D elements of V reads as 16-byte vectors from each of
+// ``ptrs`` (whole vectors, every base on a 16-byte boundary).
+template <typename V>
+bool rows_in_vectors(int D, std::initializer_list<const void*> ptrs) {
+  if ((D * (int)sizeof(V)) % 16) return false;
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16) return false;
+  return true;
+}
+
+// The lanes a row takes in a gather: the power of two, at least 2, that
+// holds nch 16-byte chunks (at most 32).
+inline int row_lanes(int nch) {
+  int g = 2;
+  while (g < nch) g <<= 1;
+  return g;
+}
+
+// Calls ``launch(vec, lanes, chunks)`` (std::integral_constant values: the
+// template arguments VEC, G and C of a gather body) for rows of D <= MaxD
+// elements of V read from ``ptrs``: 16-byte chunks and row_lanes lanes a
+// row where the rows are whole vectors on 16-byte boundaries, else single
+// elements, 32 lanes a row and MaxD / 32 a lane.  Returns launch's result,
+// or an error code for a row of more than 32 chunks.
+template <typename V, int MaxD, typename F>
+int with_row_body(int D, std::initializer_list<const void*> ptrs,
+                  F&& launch) {
+  using std::integral_constant;
+  if (!rows_in_vectors<V>(D, ptrs))
+    return launch(std::false_type{}, integral_constant<int, 32>{},
+                  integral_constant<int, MaxD / 32>{});
+  const integral_constant<int, 1> one{};
+  switch (row_lanes(D * (int)sizeof(V) / 16)) {
+    case 2: return launch(std::true_type{}, integral_constant<int, 2>{}, one);
+    case 4: return launch(std::true_type{}, integral_constant<int, 4>{}, one);
+    case 8: return launch(std::true_type{}, integral_constant<int, 8>{}, one);
+    case 16:
+      return launch(std::true_type{}, integral_constant<int, 16>{}, one);
+    case 32:
+      if constexpr (MaxD * sizeof(V) / 16 >= 32)
+        return launch(std::true_type{}, integral_constant<int, 32>{}, one);
+      return (int)cudaErrorInvalidValue;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The four corner dot products of each group's sample summed over the
+// group's G lanes, in one tree whatever G: the lanes that differ in bit
+// G/2 first, then in G/4, ..., then in bit 1.  For G >= 4 a transposed
+// butterfly (2 + 1 shuffles leave each corner's sums on G / 4 lanes,
+// log2(G) - 2 butterfly steps finish them) leaves corner c's sum on lane
+// (c >> 1) * (G / 2) + (c & 1) * (G / 4) of the group; for G = 2 every
+// lane ends with all four.  Float addition commutes, so every lane that
+// holds a corner's sum holds the same bits.
+template <int G>
+struct GroupSums {
+  float r[G >= 4 ? 1 : 4];
+
+  __device__ void reduce(const float (&a)[4], int lane) {
+    if constexpr (G >= 4) {
+      const bool hi_a = lane & (G / 2);
+      float k0 = hi_a ? a[2] : a[0], k1 = hi_a ? a[3] : a[1];
+      k0 += __shfl_xor_sync(kFull, hi_a ? a[0] : a[2], G / 2);
+      k1 += __shfl_xor_sync(kFull, hi_a ? a[1] : a[3], G / 2);
+      const bool hi_b = lane & (G / 4);
+      float v = hi_b ? k1 : k0;
+      v += __shfl_xor_sync(kFull, hi_b ? k0 : k1, G / 4);
+#pragma unroll
+      for (int off = G / 8; off > 0; off >>= 1)
+        v += __shfl_xor_sync(kFull, v, off);
+      r[0] = v;
+    } else {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        r[c] = a[c];
+#pragma unroll
+        for (int off = G / 2; off > 0; off >>= 1)
+          r[c] += __shfl_xor_sync(kFull, r[c], off);
+      }
+    }
+  }
+
+  // corner c's sum of group ``from``'s sample (every lane calls it)
+  __device__ float read(int c, int from) const {
+    if constexpr (G >= 4) {
+      return __shfl_sync(kFull, r[0],
+                         from * G + (c >> 1) * (G / 2) + (c & 1) * (G / 4));
+    } else {
+      return __shfl_sync(kFull, r[c], from * G);
+    }
+  }
+};
+
+constexpr int kGatherWarps = 8;   // warps of a location/weight gather CTA
+constexpr int kGatherQTile = 32;  // queries it takes
+
+// The location/weight gradient as a gather, for a blend of the four
+// corners ``Blend``: a warp owns one (n, q, h) at a time with its dOut row
+// in registers; a CTA's kGatherWarps warps take kGatherQTile neighbouring
+// queries of one (n, h) (blockIdx.x = (n * H + h) * q_tiles + tile), whose
+// corners share L1 and L2.  A query-head's L*P samples go in rounds of
+// 32: lane j sets sample j up (Blend::setup: its corner (x0, y0) as a
+// texel of its level, its in-grid corners as bits 0-3 in row-major order
+// (x0,y0), (x1,y0), (x0,y1), (x1,y1)), and a group of G lanes takes one
+// sample, each lane C chunks of each corner's value row, all four corners'
+// loads issued before the dot products and the next sample's under this
+// one's.  The dot products with dOut sum in fp32 over the lane's chunks,
+// then over the group (GroupSums); lane j collects sample j's four sums
+// (0 for a corner outside the grid) and Blend::finish writes its
+// gradients, so a query-head's gradients are written by consecutive
+// lanes.  Every sum runs in a fixed order: the same bits every run.
+//
+// Blend provides ``Out`` (the gradients' type), ``Sample`` (what the
+// sample's lane keeps), ``setup(lx, ly, hl, wl, &texel, &mask)`` and
+// ``finish(sample, aw, hl, wl, dA, si, grad_loc, grad_weight)``.
+template <typename Blend, typename V, typename T, bool VEC, int G, int C>
+__device__ __forceinline__ void loc_weight_gather(
+    const V* __restrict__ value, const T* __restrict__ loc,
+    const T* __restrict__ weight, const V* __restrict__ dout,
+    typename Blend::Out* __restrict__ grad_loc,
+    typename Blend::Out* __restrict__ grad_weight, int Q, int H, int D,
+    int S, int L, int P, int q_tiles, const Levels& lv) {
+  using R = RowChunk<V, VEC>;
+  using Raw = typename R::Raw;
+  constexpr int VW = R::VW;
+  constexpr int NG = 32 / G;  // samples a warp holds at once
+  __shared__ int s_h[kMaxLevels], s_w[kMaxLevels], s_start[kMaxLevels];
+  // constant indices: an indexed kernel parameter would go to local memory
+#pragma unroll
+  for (int i = 0; i < kMaxLevels; ++i) {
+    if (threadIdx.x == i) {
+      s_h[i] = lv.h[i];
+      s_w[i] = lv.w[i];
+      s_start[i] = lv.start[i];
+    }
+  }
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int grp = lane / G, sub = lane % G;
+  const int LP = L * P;
+  const int tile = blockIdx.x % q_tiles;
+  const int64_t nh = blockIdx.x / q_tiles;
+  const int h = (int)(nh % H);
+  const int64_t n = nh / H;
+  const int64_t row = (int64_t)H * D;
+  const int nch = D / VW;
+  const V* vlane = value + n * (int64_t)S * row + (int64_t)h * D + sub * VW;
+  const int q_end = min(Q, (tile + 1) * kGatherQTile);
+
+  for (int q = tile * kGatherQTile + warp; q < q_end; q += kGatherWarps) {
+    const int64_t nqh = (n * Q + q) * H + h;
+    float g[C][VW];  // this lane's chunks of dOut, widened
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int ch = sub + G * c;
+      R::widen(ch < nch ? R::load(dout + nqh * D + ch * VW) : R::zero(),
+               g[c]);
+    }
+    for (int base = 0; base < LP; base += 32) {
+      const int batch = min(32, LP - base);  // samples this round
+      const int iters = (batch + NG - 1) / NG;
+      const bool own = lane < batch;
+      const int64_t si = nqh * LP + base + lane;
+      typename Blend::Sample smp = {};
+      float aw = 0.f;
+      int texel = 0, hl = 0, wl = 0;
+      unsigned mask = 0u;
+      if (own) {
+        const int l = (base + lane) / P;
+        hl = s_h[l];
+        wl = s_w[l];
+        smp = Blend::setup(to_f32(loc[2 * si]), to_f32(loc[2 * si + 1]), hl,
+                           wl, &texel, &mask);
+        texel += s_start[l];
+        aw = to_f32(weight[si]);
+      }
+      const int packed = wl << 4 | (int)mask;
+      // group grp takes samples grp * iters + it; lane j's was taken by
+      // group j / iters at it = j % iters
+      const int from = lane / iters;
+      const int at = lane - from * iters;
+      auto load = [&](int src, Raw (&r)[4][C]) {
+        const int t = __shfl_sync(kFull, texel, src);
+        const int pk = __shfl_sync(kFull, packed, src);
+        const int w = pk >> 4;
+        const int64_t off[4] = {t, t + 1, t + w, t + w + 1};
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+#pragma unroll
+          for (int c = 0; c < C; ++c) {
+            r[k][c] = pk >> k & 1 && sub + G * c < nch
+                          ? R::load(vlane + off[k] * row + G * c * VW)
+                          : R::zero();
+          }
+      };
+      float dA[4] = {0.f, 0.f, 0.f, 0.f};
+      Raw cur[4][C];
+      load(grp * iters, cur);
+      for (int it = 0; it < iters; ++it) {
+        Raw nxt[4][C];
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+#pragma unroll
+          for (int c = 0; c < C; ++c) nxt[k][c] = R::zero();
+        if (it + 1 < iters) load(grp * iters + it + 1, nxt);
+        float a[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          a[k] = 0.f;
+#pragma unroll
+          for (int c = 0; c < C; ++c) {
+            float f[VW];
+            R::widen(cur[k][c], f);
+#pragma unroll
+            for (int v = 0; v < VW; ++v) a[k] = fmaf(g[c][v], f[v], a[k]);
+          }
+        }
+        GroupSums<G> sums;
+        sums.reduce(a, lane);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const float v = sums.read(k, from);
+          if (at == it) dA[k] = v;
+        }
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+#pragma unroll
+          for (int c = 0; c < C; ++c) cur[k][c] = nxt[k][c];
+      }
+      if (own)
+        Blend::finish(smp, aw, hl, wl, dA, si, grad_loc, grad_weight);
+    }
+  }
 }
 
 }  // namespace deform

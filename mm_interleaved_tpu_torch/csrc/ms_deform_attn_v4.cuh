@@ -1,7 +1,10 @@
 // What the v4 deformable kernels share (ms_deform_attn_v4.cu, the forward,
-// and ms_deform_attn_v4_bwd.cu, the two backward kernels): the tile sizes,
-// the level table, the staging of a query tile's samples, one entry of the
-// bilinear matrix A, and the bf16 tensor-core product m16n8k16.
+// and ms_deform_attn_v4_bwd.cu, the two backward kernels): the limits, the
+// texel coordinate of a location, the hat and its slope; for the value
+// gradient (the one kernel that still builds the dense bilinear matrix A)
+// the tile sizes, the staging of a query tile's samples, one entry of A
+// and the bf16 tensor-core product m16n8k16.  The level table and the
+// gathers' row reads are ms_deform_attn_common.cuh's.
 
 #pragma once
 
@@ -9,9 +12,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "ms_deform_attn_common.cuh"
+
 namespace {
 
-constexpr int kMaxLevels = 8;
+using deform::fill_levels;
+using deform::kMaxLevels;
+using deform::Levels;
+using deform::to_f32;
+
 constexpr int kMaxP = 64;
 constexpr int kMaxD = 128;
 constexpr int kTQ = 64;        // queries per tile
@@ -21,32 +30,20 @@ constexpr int kPad = 8;        // bf16 elements of row padding
 constexpr int kMaxNB = kMaxD / 16;  // n-blocks of 8 per warp (bf16)
 constexpr int kMaxCols = kMaxD / 16;  // channels per thread (fp32)
 
-struct Levels {
-  int h[kMaxLevels];
-  int w[kMaxLevels];
-  int start[kMaxLevels];
-};
-
-// level_hw: host array (h0, w0, h1, w1, ...).  Returns a cudaError_t code:
-// the levels' texels must add up to S.
-int fill_levels(const int* level_hw, int L, int S, Levels* lv) {
-  int start = 0;
-  for (int l = 0; l < L; ++l) {
-    lv->h[l] = level_hw[2 * l];
-    lv->w[l] = level_hw[2 * l + 1];
-    lv->start[l] = start;
-    start += lv->h[l] * lv->w[l];
-  }
-  return start == S ? 0 : (int)cudaErrorInvalidValue;
-}
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
 __device__ __forceinline__ float hat(float t) {
   return fmaxf(1.f - fabsf(t), 0.f);
+}
+
+// sign(t) where |t| < 1, else 0: the hat's derivative (0 at t = 0).
+__device__ __forceinline__ float hat_slope(float t) {
+  return fabsf(t) < 1.f ? (t > 0.f ? 1.f : (t < 0.f ? -1.f : 0.f)) : 0.f;
+}
+
+// A location in texels, loc * n - 0.5, as one fused multiply-add.  Every
+// v4 kernel takes its coordinates from here, so that the forward and both
+// gradients see the same texels and the same hats.
+__device__ __forceinline__ float v4_coord(float loc, int n) {
+  return fmaf(loc, (float)n, -0.5f);
 }
 
 // The tile's samples of level l in texel coordinates: xs, ys, aw, each
@@ -63,8 +60,8 @@ __device__ void stage_samples(const T* __restrict__ loc,
     float x = 0.f, y = 0.f, a = 0.f;
     if (q < Q) {
       const int64_t s = (((int64_t)n * Q + q) * H + h) * L * P + l * P + p;
-      x = to_f32(loc[2 * s]) * wl - 0.5f;
-      y = to_f32(loc[2 * s + 1]) * hl - 0.5f;
+      x = v4_coord(to_f32(loc[2 * s]), wl);
+      y = v4_coord(to_f32(loc[2 * s + 1]), hl);
       a = to_f32(weight[s]);
     }
     xs[i] = x;

@@ -1,6 +1,6 @@
-// Multi-scale deformable attention, backward, in the dense bilinear-matrix
-// formulation (v4), for sm_90a: the value gradient and the location/weight
-// gradient.
+// Multi-scale deformable attention, backward, v4's function and numerics,
+// for sm_90a: the value gradient (the dense bilinear-matrix product) and
+// the location/weight gradient (a per-query gather).
 //
 // Replaces mm_interleaved_tpu/ops/ms_deform_attn_pallas_v4.py::
 // _kernel_v4_bwd_dv and ::_kernel_v4_bwd_dslab.  With the forward's
@@ -11,35 +11,41 @@
 //   d_aw  = sum_f wx wy dA,  d_xs = aw sum_f sx wy dA,  d_ys = aw sum_f wx sy dA,
 // wx = hat(x - xs), sx = sign(x - xs) where |x - xs| < 1 and 0 elsewhere (so
 // 0 at x = xs), the same in y; d loc_x = d_xs * w and d loc_y = d_ys * h.
-// Every sum is fp32.  The formulation is kept, not replaced by a scatter and
-// a gather (kernels 2 and 3, ms_deform_attn_bwd.cu, do that), because it is
-// what the benchmark measures.
+// Every sum is fp32.
 //
-// Bound: operations on the fp32 units, as the forward.  Each kernel
-// evaluates the hats of every (query, point, texel): Q * sum(h*w) * P per
-// (n, h), about 1.1e10 at the benchmark's unet case, against about 1.8e11
-// flops of products on the tensor cores.
-//  * Value gradient (mmi_ms_deform_attn_v4_bwd_value): one block per (n, h,
-//    level, 64-texel chunk), looping over all 64-query tiles.  Each step
-//    stages the tile's samples and dOut, builds the A tile in fp32 from the
-//    samples (a warp reads one query's samples, a broadcast), rounds it and
-//    adds A^T . dOut into the chunk's dV held in registers.  The block owns
-//    its texels, so the sum over query tiles (the TPU's sequential grid)
-//    needs no atomics and is the same on every run; the block writes its dV
-//    rows once, in the value's dtype.  A padded query has weight 0 and dOut
-//    0, so it adds nothing.
-//  * Location/weight gradient (mmi_ms_deform_attn_v4_bwd_loc_weight): one
-//    block per (n, h, 64-query tile) that holds its dOut tile and walks each
-//    level's texels in chunks of 64: dA = dOut . V_chunk^T into shared
-//    memory in fp32, then each thread adds, for its (query, point) pairs,
-//    wx wy dA, sx wy dA and wx sy dA over the chunk's texels.  At the end of
-//    a level the sums are scaled by aw and by w and h and written as fp32.
-//  * bf16 values: the products on mma.sync m16n8k16 (bf16 in, fp32
-//    accumulate), eight warps each 16 rows by a quarter or half of the
+//  * Value gradient (mmi_ms_deform_attn_v4_bwd_value), still the TPU's
+//    dense formulation.  Bound: operations on the fp32 units: it evaluates
+//    the hats of every (query, point, texel), Q * sum(h*w) * P per (n, h),
+//    about 1.1e10 at the benchmark's unet case, against about 1.8e11 flops
+//    of products on the tensor cores.  One block per (n, h, level, 64-texel
+//    chunk), looping over all 64-query tiles.  Each step stages the tile's
+//    samples and dOut, builds the A tile in fp32 from the samples (a warp
+//    reads one query's samples, a broadcast), rounds it and adds A^T . dOut
+//    into the chunk's dV held in registers.  The block owns its texels, so
+//    the sum over query tiles (the TPU's sequential grid) needs no atomics
+//    and is the same on every run; the block writes its dV rows once, in
+//    the value's dtype.  A padded query has weight 0 and dOut 0, so it adds
+//    nothing.  bf16 values: the products on mma.sync m16n8k16 (bf16 in,
+//    fp32 accumulate), eight warps each 16 rows by a quarter or half of the
 //    columns; D a multiple of 16, at most 128.  fp32 values: fp32 FMAs on
 //    the CUDA cores (TF32 would miss fp32 parity); D at most 128.
-// No wgmma, TMA or skipping of texels that no sample touches (each point
-// touches at most 2 x 2) yet: that is later work.
+//  * Location/weight gradient (mmi_ms_deform_attn_v4_bwd_loc_weight), a
+//    gather.  The hat and its slope are non-zero only at a sample's 2 x 2
+//    corner texels (floor(xs), floor(xs) + 1 in each axis), so of a row of
+//    dA only the four corners' entries count: dA_c = g . V_c.  Bound:
+//    gathered bytes (4 rows of D a sample, one FMA an element).  The body
+//    is kernel 3's, deform::loc_weight_gather (ms_deform_attn_common.cuh),
+//    with v4's blend (V4Blend): a warp owns one (n, q, h) at a time with
+//    its dOut row in registers, a CTA's 8 warps take 32 neighbouring
+//    queries of one (n, h); a group of G lanes takes one sample, each lane
+//    16 bytes of each of its four corners' rows (single elements where the
+//    rows are not whole 16-byte vectors on a 16-byte boundary), all four
+//    loads issued before the dot products and the next sample's under this
+//    one's; the group's sums reduce in a fixed tree and the sample's own
+//    lane takes its four dA_c (0 for a corner outside the grid) and forms
+//    d_aw, d_xs, d_ys from the corners' hats and slopes in row-major order.
+//    d_loc and d_w are written in fp32.  No hat or product at a texel no
+//    sample touches; no float atomics; the same bits every run.
 //
 // C interface (ctypes): see the end of the file.
 
@@ -54,15 +60,6 @@ constexpr int kDS = kKC + 1;     // row stride of the fp32 A and dA tiles
 
 template <typename V>
 constexpr bool kIsBf16 = std::is_same<V, __nv_bfloat16>::value;
-
-template <typename V>
-__device__ __forceinline__ V zero_of() {
-  if constexpr (kIsBf16<V>) {
-    return __float2bfloat16(0.f);
-  } else {
-    return 0.f;
-  }
-}
 
 template <typename V>
 size_t dv_smem_bytes(int P, int D) {
@@ -214,160 +211,68 @@ v4_bwd_value_kernel(const T* __restrict__ loc, const T* __restrict__ weight,
   }
 }
 
-// The row stride of the dOut and value tiles of the location/weight kernel.
-template <typename V>
-__host__ __device__ int lw_stride(int D) {
-  return kIsBf16<V> ? D + kPad : D + 1;
-}
+// v4's corner blend for deform::loc_weight_gather: the hats and slopes of
+// each axis's two texels (x0 = floor(xs) and x0 + 1, where the dense walk's
+// hats and slopes are the only non-zero ones), d_w, d_xs and d_ys summed
+// over the corners in row-major order, the gradients in fp32.
+struct V4Blend {
+  using Out = float;
+  struct Sample {
+    float xs, ys, x0, y0;
+  };
 
-template <typename V>
-size_t lw_smem_bytes(int P, int D) {
-  return sizeof(float) * 6 * kTQ * P +
-         sizeof(V) * ((size_t)kTQ + kKC) * lw_stride<V>(D) +
-         sizeof(float) * kTQ * kDS;
-}
+  __device__ static Sample setup(float lx, float ly, int hl, int wl,
+                                 int* texel, unsigned* mask) {
+    const float xs = v4_coord(lx, wl), ys = v4_coord(ly, hl);
+    const float x0f = floorf(xs), y0f = floorf(ys);
+    if (x0f >= -1.f && x0f <= (float)(wl - 1) && y0f >= -1.f &&
+        y0f <= (float)(hl - 1)) {
+      const int x0 = (int)x0f, y0 = (int)y0f;
+      const bool x0_in = x0 >= 0, x1_in = x0 + 1 < wl;
+      const bool y0_in = y0 >= 0, y1_in = y0 + 1 < hl;
+      *mask = (unsigned)(y0_in && x0_in) | (unsigned)(y0_in && x1_in) << 1 |
+              (unsigned)(y1_in && x0_in) << 2 |
+              (unsigned)(y1_in && x1_in) << 3;
+      *texel = y0 * wl + x0;
+    }
+    return {xs, ys, x0f, y0f};
+  }
 
-// sign(t) where |t| < 1, else 0: the hat's derivative.
-__device__ __forceinline__ float hat_slope(float t) {
-  return fabsf(t) < 1.f ? (t > 0.f ? 1.f : (t < 0.f ? -1.f : 0.f)) : 0.f;
-}
+  __device__ static void finish(const Sample& s, float aw, int hl, int wl,
+                                const float (&dA)[4], int64_t si,
+                                float* grad_loc, float* grad_weight) {
+    const float tx[2] = {__fsub_rn(s.x0, s.xs), __fsub_rn(s.x0 + 1.f, s.xs)};
+    const float ty[2] = {__fsub_rn(s.y0, s.ys), __fsub_rn(s.y0 + 1.f, s.ys)};
+    float s_w = 0.f, s_x = 0.f, s_y = 0.f;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const float tx_k = tx[k & 1], ty_k = ty[k >> 1];
+      s_w += hat(tx_k) * hat(ty_k) * dA[k];
+      s_x += hat_slope(tx_k) * hat(ty_k) * dA[k];
+      s_y += hat(tx_k) * hat_slope(ty_k) * dA[k];
+    }
+    grad_weight[si] = s_w;
+    grad_loc[2 * si] = aw * s_x * (float)wl;
+    grad_loc[2 * si + 1] = aw * s_y * (float)hl;
+  }
+};
 
 // value [N, S, H, D] and dout [N, Q, H, D] in V; loc, weight as the value
 // kernel; grad_loc fp32 [N, Q, H, L, P, 2], grad_weight fp32
-// [N, Q, H, L, P], every element written.  Grid (ceil(Q / kTQ), N * H).
-template <typename V, typename T>
-__global__ void __launch_bounds__(kThreads)
-v4_bwd_loc_weight_kernel(const V* __restrict__ value,
-                         const T* __restrict__ loc,
-                         const T* __restrict__ weight,
-                         const V* __restrict__ dout,
-                         float* __restrict__ grad_loc,
-                         float* __restrict__ grad_weight, int Q, int H, int D,
-                         int S, int L, int P, Levels lv) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* xs = reinterpret_cast<float*>(smem_raw);
-  float* ys = xs + kTQ * P;
-  float* aw = ys + kTQ * P;
-  float* sx = aw + kTQ * P;  // per (query, point): sum sx wy dA
-  float* sy = sx + kTQ * P;  // sum wx sy dA
-  float* sw = sy + kTQ * P;  // sum wx wy dA
-  const int GS = lw_stride<V>(D);
-  V* Gs = reinterpret_cast<V*>(sw + kTQ * P);  // [kTQ][GS]: dOut tile
-  V* Vs = Gs + kTQ * GS;                       // [kKC][GS]: value chunk
-  float* dA = reinterpret_cast<float*>(Vs + kKC * GS);  // [kTQ][kDS]
-
-  const int tid = threadIdx.x;
-  const int q0 = blockIdx.x * kTQ;
-  const int n = blockIdx.y / H, h = blockIdx.y - n * H;
-  const int64_t row = (int64_t)H * D;
-  const V zero = zero_of<V>();
-
-  for (int i = tid; i < kTQ * D; i += kThreads) {
-    const int r = i / D, d = i - r * D;
-    const int q = q0 + r;
-    Gs[r * GS + d] =
-        q < Q ? dout[(((int64_t)n * Q + q) * H + h) * D + d] : zero;
-  }
-
-  for (int l = 0; l < L; ++l) {
-    const int hl = lv.h[l], wl = lv.w[l], hw = hl * wl;
-    const V* vl = value + ((int64_t)n * S + lv.start[l]) * row +
-                  (int64_t)h * D;
-    __syncthreads();  // the previous level's sums have read dA
-    stage_samples(loc, weight, xs, ys, aw, n, h, q0, Q, H, L, P, l, hl, wl);
-    for (int i = tid; i < kTQ * P; i += kThreads) {
-      sx[i] = sy[i] = sw[i] = 0.f;  // owned by this thread, as the samples
-    }
-    for (int c0 = 0; c0 < hw; c0 += kKC) {
-      __syncthreads();  // the previous chunk's sums have read dA
-      for (int i = tid; i < kKC * D; i += kThreads) {
-        const int t = i / D, d = i - t * D;
-        Vs[t * GS + d] = c0 + t < hw ? vl[(int64_t)(c0 + t) * row + d] : zero;
-      }
-      __syncthreads();
-      // dA = dOut_tile . V_chunk^T, [kTQ queries][kKC texels]
-      if constexpr (kIsBf16<V>) {
-        const int warp = tid >> 5, lane = tid & 31;
-        const int g = lane >> 2, tig = lane & 3;
-        const int r0 = (warp & 3) * 16 + g;  // query rows r0 and r0 + 8
-        const int nt = (warp >> 2) * 4;      // first n-block of 8 texels
-        float c[4][4] = {};
-        for (int ks = 0; ks < D / 16; ++ks) {
-          const __nv_bfloat16* ar = Gs + r0 * GS + ks * 16 + tig * 2;
-          const uint32_t a0 = ld32(ar), a1 = ld32(ar + 8 * GS);
-          const uint32_t a2 = ld32(ar + 8), a3 = ld32(ar + 8 * GS + 8);
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const __nv_bfloat16* bp =
-                Vs + ((nt + j) * 8 + g) * GS + ks * 16 + tig * 2;
-            mma_bf16(c[j], a0, a1, a2, a3, ld32(bp), ld32(bp + 8));
-          }
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int t = (nt + j) * 8 + tig * 2;
-          dA[r0 * kDS + t] = c[j][0];
-          dA[r0 * kDS + t + 1] = c[j][1];
-          dA[(r0 + 8) * kDS + t] = c[j][2];
-          dA[(r0 + 8) * kDS + t + 1] = c[j][3];
-        }
-      } else {
-        const int rq = (tid >> 4) * 4;  // queries rq .. rq + 4
-        const int tc = tid & 15;        // texels tc + 16 j
-        float c[4][4] = {};
-        for (int d = 0; d < D; ++d) {
-          float a[4], b[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) a[i] = Gs[(rq + i) * GS + d];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) b[j] = Vs[(tc + 16 * j) * GS + d];
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j) c[i][j] = fmaf(a[i], b[j], c[i][j]);
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) dA[(rq + i) * kDS + tc + 16 * j] = c[i][j];
-      }
-      __syncthreads();
-      // the chunk's texels against each (query, point) this thread owns
-      const int cnt = min(kKC, hw - c0);
-      const float wlf = (float)wl;
-      for (int i = tid; i < kTQ * P; i += kThreads) {
-        const float x = xs[i], y = ys[i];
-        const float* da = dA + (i / P) * kDS;
-        float fx = (float)(c0 % wl), fy = (float)(c0 / wl);
-        float s_x = 0.f, s_y = 0.f, s_w = 0.f;
-        for (int t = 0; t < cnt; ++t) {
-          const float tx = fx - x, ty = fy - y;
-          const float wx = hat(tx), wy = hat(ty);
-          const float v = da[t];
-          s_w += wx * wy * v;
-          s_x += hat_slope(tx) * wy * v;
-          s_y += wx * hat_slope(ty) * v;
-          fx += 1.f;
-          if (fx == wlf) {
-            fx = 0.f;
-            fy += 1.f;
-          }
-        }
-        sx[i] += s_x;
-        sy[i] += s_y;
-        sw[i] += s_w;
-      }
-    }
-    for (int i = tid; i < kTQ * P; i += kThreads) {
-      const int r = i / P, p = i - r * P;
-      const int q = q0 + r;
-      if (q >= Q) continue;
-      const int64_t s = (((int64_t)n * Q + q) * H + h) * L * P + l * P + p;
-      grad_weight[s] = sw[i];
-      grad_loc[2 * s] = aw[i] * sx[i] * (float)wl;
-      grad_loc[2 * s + 1] = aw[i] * sy[i] * (float)hl;
-    }
-  }
+// [N, Q, H, L, P], every element written.  Grid N * H * q_tiles.  Three
+// CTAs an SM, as kernel 3: left to itself ptxas takes about 98 registers
+// a thread, two CTAs an SM, and the gather has fewer loads in flight.
+template <typename V, typename T, bool VEC, int G, int C>
+__global__ void __launch_bounds__(kThreads, 3)
+v4_gather_loc_weight(const V* __restrict__ value, const T* __restrict__ loc,
+                     const T* __restrict__ weight, const V* __restrict__ dout,
+                     float* __restrict__ grad_loc,
+                     float* __restrict__ grad_weight, int Q, int H, int D,
+                     int S, int L, int P, int q_tiles,
+                     const __grid_constant__ Levels lv) {
+  deform::loc_weight_gather<V4Blend, V, T, VEC, G, C>(
+      value, loc, weight, dout, grad_loc, grad_weight, Q, H, D, S, L, P,
+      q_tiles, lv);
 }
 
 template <typename V, typename T>
@@ -386,20 +291,35 @@ int launch_value(const void* loc, const void* weight, const void* dout,
   return 0;
 }
 
+template <typename V, typename T, bool VEC, int G, int C>
+int launch_lw_body(const void* value, const void* loc, const void* weight,
+                   const void* dout, float* grad_loc, float* grad_weight,
+                   int N, int S, int Q, int H, int D, int L, int P,
+                   const Levels& lv, cudaStream_t stream) {
+  const int q_tiles = (Q + deform::kGatherQTile - 1) / deform::kGatherQTile;
+  const int64_t blocks = (int64_t)N * H * q_tiles;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  v4_gather_loc_weight<V, T, VEC, G, C><<<(unsigned)blocks, kThreads, 0,
+                                          stream>>>(
+      static_cast<const V*>(value), static_cast<const T*>(loc),
+      static_cast<const T*>(weight), static_cast<const V*>(dout), grad_loc,
+      grad_weight, Q, H, D, S, L, P, q_tiles, lv);
+  return 0;
+}
+
 template <typename V, typename T>
 int launch_loc_weight(const void* value, const void* loc, const void* weight,
                       const void* dout, float* grad_loc, float* grad_weight,
                       int N, int S, int Q, int H, int D, int L, int P,
                       const Levels& lv, cudaStream_t stream) {
-  const size_t smem = lw_smem_bytes<V>(P, D);
-  const int e = allow_smem(v4_bwd_loc_weight_kernel<V, T>, smem);
-  if (e) return e;
-  const dim3 grid((Q + kTQ - 1) / kTQ, N * H);
-  v4_bwd_loc_weight_kernel<V, T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const V*>(value), static_cast<const T*>(loc),
-      static_cast<const T*>(weight), static_cast<const V*>(dout), grad_loc,
-      grad_weight, Q, H, D, S, L, P, lv);
-  return 0;
+  return deform::with_row_body<V, kMaxD>(
+      D, {value, dout}, [&](auto vec, auto lanes, auto chunks) {
+        return launch_lw_body<V, T, decltype(vec)::value,
+                              decltype(lanes)::value,
+                              decltype(chunks)::value>(
+            value, loc, weight, dout, grad_loc, grad_weight, N, S, Q, H, D,
+            L, P, lv, stream);
+      });
 }
 
 // Checks the sizes both kernels take and fills the level table; returns a

@@ -1,16 +1,15 @@
-"""Deformable attention as the dense bilinear-matrix product, the v4
-formulation (counterpart of `mm_interleaved_tpu/ops/ms_deform_attn_pallas_v4.py`),
-forward and backward.
+"""Deformable attention in v4's numerics (counterpart of
+`mm_interleaved_tpu/ops/ms_deform_attn_pallas_v4.py`), forward and backward.
 
-Per (batch, head) and level ``l`` the formulation builds the matrix
+v4 is a function of the bilinear matrix: per (batch, head) and level ``l``
 
     A[q, y*w + x] = sum_p  aw_p[q] * hat(x - xs_p[q]) * hat(y - ys_p[q]),
 
-``hat(t) = relu(1 - |t|)`` over the level's row-major texels, rounds A to
-the value's dtype and takes ``A @ V_l`` with fp32 accumulation; the levels'
-products are summed in order.  ``xs = loc_x * w - 0.5`` (``align_corners=
-False``); a texel outside the grid does not exist, so out-of-grid corners
-contribute zero, as in `ms_deform_attn`.
+``hat(t) = relu(1 - |t|)`` over the level's row-major texels, A rounded to
+the value's dtype (after the sum over the points) and ``A @ V_l`` taken
+with fp32 accumulation; the levels' products are summed in order.  ``xs =
+loc_x * w - 0.5`` (``align_corners=False``); a texel outside the grid does
+not exist, so out-of-grid corners contribute zero, as in `ms_deform_attn`.
 
 The backward is the TPU kernels' (the docstring of the JAX module), with
 dOut ``g`` rounded to the value's dtype and every sum in fp32:
@@ -27,12 +26,17 @@ same in y; then ``d loc_x = d_xs * w`` and ``d loc_y = d_ys * h``.
 * `ms_deform_attn_v4_plain`, `ms_deform_attn_v4_plain_bwd_value`,
   `ms_deform_attn_v4_plain_bwd_loc_weight` (and
   `ms_deform_attn_v4_plain_backward`, both): that arithmetic in plain
-  PyTorch, in query chunks so that A and dA stay bounded (a whole level-0
-  A of the benchmark's unet case would take 4.3 GB), looping over points.
-* `ms_deform_attn_v4_cuda` (``csrc/ms_deform_attn_v4.cu``),
-  `ms_deform_attn_v4_bwd_value_cuda` and
-  `ms_deform_attn_v4_bwd_loc_weight_cuda` (``csrc/ms_deform_attn_v4_bwd.cu``):
-  the kernels (counted, CUDA tensors only).
+  PyTorch, the dense matrix in query chunks so that A and dA stay bounded
+  (a whole level-0 A of the benchmark's unet case would take 4.3 GB),
+  looping over points.
+* `ms_deform_attn_v4_cuda` (``csrc/ms_deform_attn_v4.cu``, kernel 8a),
+  `ms_deform_attn_v4_bwd_value_cuda` (8b) and
+  `ms_deform_attn_v4_bwd_loc_weight_cuda` (8c, both in
+  ``csrc/ms_deform_attn_v4_bwd.cu``): the kernels (counted, CUDA tensors
+  only).  8a and 8c are per-query gathers: a sample's hats are non-zero
+  only at its 2 x 2 corner texels, so they form only those entries of A
+  and dA (8a merges a query's corners by texel before it rounds A); 8b
+  still builds the dense matrix.
 * `MSDeformAttnV4Function`: the op on the card, the forward kernel and the
   backward kernels for the gradients autograd asks for.
 * `ms_deform_attn_v4`: the plain forward for CPU tensors (autograd
@@ -225,7 +229,9 @@ def _dims(D, P, dtype):
 
 
 def _launch(value, level_shapes, sampling_locations, attention_weights):
-    """Launch the v4 forward kernel; raises on input it does not take."""
+    """Launch the v4 forward kernel (a warp a query: its corners merged by
+    texel, A rounded, the rows gathered); raises on input it does not
+    take."""
     return launch_forward("ms_deform_attn_v4_cuda", "ms_deform_attn_v4",
                           value, level_shapes, sampling_locations,
                           attention_weights, _dims)
@@ -260,8 +266,9 @@ def _launch_bwd_value(value, level_shapes, sampling_locations,
 
 def _launch_bwd_loc_weight(value, level_shapes, sampling_locations,
                            attention_weights, grad_out):
-    """Launch the v4 location/weight-gradient kernel; returns ``(d_loc,
-    d_w)`` in the dtypes of the locations and weights."""
+    """Launch the v4 location/weight-gradient kernel (a warp a query, the
+    four corners' dot products a sample); returns ``(d_loc, d_w)`` in the
+    dtypes of the locations and weights."""
     name = "ms_deform_attn_v4_bwd_loc_weight"
     N, S, Q, H, D, L, P = _check(name, value, level_shapes,
                                  sampling_locations, attention_weights,
@@ -314,8 +321,8 @@ class MSDeformAttnV4Function(torch.autograd.Function):
 
 def ms_deform_attn_v4(value, level_shapes, sampling_locations,
                       attention_weights) -> torch.Tensor:
-    """The v4 formulation: `MSDeformAttnV4Function` for CUDA tensors, the
-    plain version for CPU tensors.  Returns ``[N, Q, H*D]`` in the value's
+    """v4: `MSDeformAttnV4Function` for CUDA tensors, the plain version for
+    CPU tensors.  Returns ``[N, Q, H*D]`` in the value's
     dtype."""
     shapes = tuple((int(h), int(w)) for h, w in level_shapes)
     if value.device.type == "cuda":
