@@ -105,7 +105,12 @@ Phases, each of which raises (and exits nonzero) on failure:
    1e-5 of it) and against kernel 1 (bf16 2e-2, fp32 1e-4 of kernel 1's
    scale) at both cases, in bf16 and fp32, beside the bound of the
    function (`work_deform`, as kernel 1's), kernel 1's time on the same
-   inputs and the design's own operation count;
+   inputs and the design's own operation count; then v1 (kernel 9, on
+   kernel 1's grouped body where `forward_variant` says "grouped") at the
+   `V1_EDGES` (D = 16 to 128, fp32, bf16 locations, corners outside the
+   grid, whole-texel coordinates, L * P over 32, the "channel" body at
+   fp32 D = 20) against its plain version, bit-identical over two calls,
+   and a misaligned value refused before any launch;
 10. the v4-against-v5 benchmark (`mm_interleaved_tpu_torch.
    bench_v5_kernel.run`): v4 (kernels 8a, 8b, 8c through
    `MSDeformAttnV4Function`) and v5 (kernels 1, 2, 3), forward and forward
@@ -119,11 +124,14 @@ Phases, each of which raises (and exits nonzero) on failure:
    cases, in bf16 and fp32, the benchmark's own gradients equal to the
    kernels', beside the bounds of kernels 2 and 3 (the same function),
    their times on the same inputs and the design's own operation count;
-   then the v4 gathers (8a, 8c) at the `V4_EDGES` (whole-texel
+   then the v4 gathers (8a, 8b, 8c) at the `V4_EDGES` (whole-texel
    coordinates, corners outside the grid, a query's points on one spot,
    P = 1, 8, 9 and 64, non-square levels, D = 16 to 128 in bf16 and fp32,
-   bf16 locations, a value view off a 16-byte boundary) against their
-   plain versions with the sites' tolerances, bit-identical over two calls;
+   fp32 D = 18, bf16 locations, a value view off a 16-byte boundary, a
+   128 x 128 level whose texel table 8b keeps in device memory) against
+   their plain versions with the sites' tolerances, bit-identical over two
+   calls, 8b's plan logged and a grad_out off a 16-byte boundary refused
+   by 8b before any launch;
 11. the training entry point (`mm_interleaved_tpu_torch.train.main`) on
    ``build/smoke_train.yaml``: `configs/pretrain_synthetic.yaml` with the
    flagship preset (``seq_len`` 256, 2 image slots a row), 2 rows a batch,
@@ -2642,23 +2650,52 @@ def kernel_line(name, sites, launches,
     }
 
 
-def v4_corner_texels(loc, shapes):
-    """``[N, Q, H, L, P, 4]`` int64: each sample's four corner texels on its
-    level (row-major corners, -1 outside the grid), as the v4 gathers
-    enumerate them."""
+def v4_corners(loc, w, shapes):
+    """Per level ``(texel, term)``, each ``[N, Q, H, P, 4]``: each sample's
+    four corner texels on its level (row-major corners, -1 outside the
+    grid) and terms hat(x - xs) * (hat(y - ys) * aw), as the v4 gathers
+    enumerate and form them; xs = loc * size - 0.5 in one rounding, as
+    ``v4_coord``'s fused multiply-add (exact in fp64, then rounded)."""
     import torch
 
     out = []
     dx = torch.tensor([0, 1, 0, 1], device=loc.device)
     dy = torch.tensor([0, 0, 1, 1], device=loc.device)
-    for lid, (h, w) in enumerate(shapes):
-        xs = loc[:, :, :, lid, :, 0].float() * w - 0.5
-        ys = loc[:, :, :, lid, :, 1].float() * h - 0.5
-        cx = torch.floor(xs).long()[..., None] + dx
-        cy = torch.floor(ys).long()[..., None] + dy
-        inside = (cx >= 0) & (cx < w) & (cy >= 0) & (cy < h)
-        out.append(torch.where(inside, cy * w + cx, -1))
-    return torch.stack(out, dim=3)
+    hat = lambda t: (1.0 - t.abs()).clamp_min(0.0)
+    for lid, (h, w_) in enumerate(shapes):
+        xs = (loc[:, :, :, lid, :, 0].double() * w_ - 0.5).float()
+        ys = (loc[:, :, :, lid, :, 1].double() * h - 0.5).float()
+        cx = torch.floor(xs)[..., None] + dx
+        cy = torch.floor(ys)[..., None] + dy
+        inside = (cx >= 0) & (cx < w_) & (cy >= 0) & (cy < h)
+        wy = hat(cy - ys[..., None]) * w[:, :, :, lid, :, None].float()
+        term = hat(cx - xs[..., None]) * wy
+        out.append((torch.where(inside, cy * w_ + cx, -1).long(), term))
+    return out
+
+
+def v4_pairs(loc, w, shapes, dtype) -> tuple:
+    """The (query, level, texel) pairs of the v4 gathers on these inputs:
+    ``(corners in the grid, pairs, pairs whose merged A rounds to a
+    non-zero in dtype)``."""
+    import torch
+
+    inside = pairs = nonzero = 0
+    for texel, term in v4_corners(loc, w, shapes):
+        k = texel.flatten(3)
+        k, order = torch.sort(k, dim=-1, stable=True)
+        t = torch.gather(term.flatten(3), -1, order)
+        live = k >= 0
+        start = live.clone()
+        start[..., 1:] &= k[..., 1:] != k[..., :-1]
+        seg = torch.cumsum(start.flatten().long(), 0) - 1
+        sums = torch.zeros(int(start.sum()), device=k.device)
+        sums.index_add_(0, seg[live.flatten()], t.flatten()[live.flatten()])
+        inside += int(live.sum())
+        pairs += sums.numel()
+        nonzero += int((sums.to(dtype) != 0).sum())
+        del k, order, t, live, start, seg, sums
+    return inside, pairs, nonzero
 
 
 def design_ops(name, args) -> dict:
@@ -2666,31 +2703,50 @@ def design_ops(name, args) -> dict:
     which counts the function's work and does not change with the
     formulation), counted on this run's inputs.  8a, a gather: per sample
     four corner terms (two hats and two products each), then per distinct
-    texel of a (query, level)'s corners one row of D read and D FMAs; 8c, a
-    gather: per in-grid corner one row of D read and D FMAs (its dot
-    product), per sample a blend of the four; 8b, dense: Q * sum(h*w) * P
-    hat products per (n, h), and A^T times dOut on the tensor cores; v1
-    reads 2 rows by 2 columns per sample and channel, with 6 FMAs (4 row
-    blends, 2 column weights)."""
+    texel of a (query, level)'s corners one row of D read and D FMAs; 8c,
+    a gather: per in-grid corner one row of D read and D FMAs (its dot
+    product), per sample a blend of the four; 8b, texel-major: four keys
+    written a sample, every in-grid corner walked (its term formed again),
+    the corners merged into (query, texel) pairs, one row of g read and D
+    FMAs a pair whose A is not 0; 9, kernel 1's body: per in-grid corner
+    one row of D read, 7 flops a sample and channel (4 for the two row
+    blends, 3 for the column weights)."""
     value, shapes, loc, w = args[:4]
     N, Q, H, L, P, _ = loc.shape
     D = value.shape[3]
     samples = N * Q * H * L * P
     if name == "ms_deform_attn_v4_fwd":
-        k = v4_corner_texels(loc, shapes).flatten(4).sort(-1).values
-        first = k[..., :1] >= 0
-        new = (k[..., 1:] != k[..., :-1]) & (k[..., 1:] >= 0)
-        rows = int(first.sum()) + int(new.sum())
+        inside, rows, _ = v4_pairs(loc, w, shapes, value.dtype)
         return dict(corner_terms=4 * samples, texel_rows=rows,
                     fmas=rows * D)
     if name == "ms_deform_attn_v4_bwd_loc_weight":
-        rows = int((v4_corner_texels(loc, shapes) >= 0).sum())
+        rows = sum(int((t >= 0).sum())
+                   for t, _ in v4_corners(loc, w, shapes))
         return dict(corner_rows=rows, fmas=rows * D, blends=samples)
-    if name in V4_BWD:
-        texels = sum(h * w_ for h, w_ in shapes)
-        return dict(hat_products=N * H * Q * texels * P,
-                    tensor_flops=2 * N * H * Q * texels * D)
-    return dict(texel_reads=4 * samples * D, flops=12 * samples * D)
+    if name == "ms_deform_attn_v4_bwd_value":
+        inside, pairs, rows = v4_pairs(loc, w, shapes, value.dtype)
+        return dict(keys_written=4 * samples, entries_walked=inside,
+                    pairs=pairs, g_rows=rows, fmas=rows * D)
+    rows = sum(int((t >= 0).sum()) for t in v1_corner_texels(loc, shapes))
+    return dict(texel_rows=rows, flops=7 * samples * D)
+
+
+def v1_corner_texels(loc, shapes):
+    """Per level ``[N, Q, H, P, 4]``: each sample's four corner texels on
+    its level by ``deform::corners`` (x = loc * size - 0.5, the product
+    rounded, then the difference; -1 outside the grid)."""
+    import torch
+
+    out = []
+    dx = torch.tensor([0, 1, 0, 1], device=loc.device)
+    dy = torch.tensor([0, 0, 1, 1], device=loc.device)
+    for lid, (h, w_) in enumerate(shapes):
+        cx = torch.floor(loc[:, :, :, lid, :, 0].float() * w_ - 0.5)
+        cy = torch.floor(loc[:, :, :, lid, :, 1].float() * h - 0.5)
+        cx, cy = cx.long()[..., None] + dx, cy.long()[..., None] + dy
+        inside = (cx >= 0) & (cx < w_) & (cy >= 0) & (cy < h)
+        out.append(torch.where(inside, cy * w_ + cx, -1))
+    return out
 
 
 def compare_bench(name, res) -> list:
@@ -2772,11 +2828,85 @@ def compare_bench(name, res) -> list:
     return sites
 
 
+# The v1 forward (kernel 9) at the edges of its two bodies: D = 16 (bf16:
+# two 16-byte vectors, the "channel" body), 32, 64 and 128 (bf16: the 4-,
+# 8- and 16-lane groups of kernel 1's grouped body), fp32 at D = 16 and 64
+# (4 and 16 lanes), bf16 locations, corners outside the grid (locations
+# over [-0.2, 1.2], the default), whole-texel coordinates (power-of-two
+# levels), non-square levels with L * P over 32 (two rounds of a query's
+# samples), the "channel" body at fp32 D = 20, and a value view off a
+# 16-byte boundary, refused where the body is "grouped".
+V1_EDGES = {
+    "d16_channel": dict(D=16),
+    "d32": dict(D=32),
+    "d64_out_of_grid": dict(),
+    "d128": dict(D=128),
+    "fp32_d16": dict(dtype="float32", D=16),
+    "fp32_d64": dict(dtype="float32"),
+    "bf16_locations": dict(loc_dtype="bfloat16"),
+    "kinks": dict(draw="whole"),
+    "nonsquare_p12": dict(P=12, shapes=((12, 16), (6, 8), (3, 5)), Q=100),
+    "channel_fp32_d20": dict(dtype="float32", D=20),
+    "misaligned_value": dict(misaligned=True),
+}
+
+
+def check_v1_edges() -> list:
+    """Kernel 9 at each `V1_EDGES` case against its plain version with the
+    benchmark's tolerances (2 bf16 ulps at the output's scale, fp32 1e-5 of
+    it), two calls bit-identical, its body (`forward_variant`) logged; with
+    ``misaligned`` the call refused before any launch.  Every failure is
+    gathered; the phase fails after the last case."""
+    import torch
+
+    from mm_interleaved_tpu_torch.ops import ms_deform_attn_cuda as dk
+
+    name = "ms_deform_attn_v1_fwd"
+    kernel, plain = kernel_of(name), getattr(kmod(name),
+                                             KERNELS[name]["plain"])
+    recs, fails = [], []
+    for i, (case, kw) in enumerate(V1_EDGES.items()):
+        tag = f"v1 edge {case}"
+        args = v4_edge_case(np.random.RandomState(SEED + 900 + i),
+                            **{k: v for k, v in kw.items()
+                               if k != "misaligned"})[:4]
+        value = args[0]
+        D = value.shape[-1]
+        rec = dict(case=case, value=list(value.shape),
+                   loc=list(args[2].shape), loc_dtype=str(args[2].dtype),
+                   body=dk.forward_variant(D, value.dtype))
+        if kw.get("misaligned"):
+            _refuses_misaligned(tag, kernel, args, 0, rec, fails)
+            recs.append(rec)
+            log(f"v1 edge case: {json.dumps(rec)}")
+            continue
+        with torch.inference_mode():
+            first, again = kernel(*args), kernel(*args)
+            want = plain(*args)
+            torch.cuda.synchronize()
+        rec["bit_identical"] = bool(torch.equal(first, again))
+        if not rec["bit_identical"]:
+            fails.append(f"{tag}: two calls differ")
+        scale = float(want.float().abs().max())
+        tol = (1e-5 * scale if value.dtype == torch.float32
+               else _ulps(scale, 2))
+        err = float((first.double() - want.double()).abs().max())
+        rec.update(err=err, tol=tol, scale=scale)
+        if not err <= tol:
+            fails.append(f"{tag}: {err} > {tol}")
+        recs.append(rec)
+        log(f"v1 edge case: {json.dumps(rec)}")
+        del first, again, want, args
+    if fails:
+        raise AssertionError(f"{len(fails)} failed checks: {fails}")
+    return recs
+
+
 def run_bench_phase() -> list:
     """Phase 9: the benchmark entry point on the card with every count at
     0 just before it, its v1, v4 and kernel-1 launches equal to the calls
-    it made, then `compare_bench` for v1 and v4; returns their entries of
-    the kernels line."""
+    it made, then `compare_bench` for v1 and v4 and `check_v1_edges`;
+    returns their entries of the kernels line."""
     from mm_interleaved_tpu_torch import bench_deform_kernel as bench
 
     reset_counts()
@@ -2791,10 +2921,14 @@ def run_bench_phase() -> list:
             raise AssertionError(f"{name}: {got[name]} launches in the "
                                  f"benchmark, {n} calls made")
     log(f"benchmark launches {json.dumps(got)}")
-    return [kernel_line(name, compare_bench(name, res), got[name],
-                        timing="sum over the benchmark's unet and prefill "
-                               "cases")
-            for name in BENCH]
+    lines = [kernel_line(name, compare_bench(name, res), got[name],
+                         timing="sum over the benchmark's unet and prefill "
+                                "cases")
+             for name in BENCH]
+    t0 = time.perf_counter()
+    check_v1_edges()
+    log(f"check_v1_edges: {time.perf_counter() - t0:.1f} s")
+    return lines
 
 
 def compare_v4_backward(res) -> dict:
@@ -2908,16 +3042,21 @@ def compare_v4_backward(res) -> dict:
     return sites
 
 
-# The v4 gathers (8a, 8c) at the edges of their corner enumeration: whole-
-# texel coordinates (the hat's kinks, the far corner at |t| = 1 exactly;
-# power-of-two levels, so that loc * size - 0.5 is whole in fp32 and bf16),
-# corners outside the grid (locations over [-0.2, 1.2], the default), every
-# point of a query on one spot (its corners merged onto four texels), P = 1,
-# 8, 9 and 64 (4P corners over 32 take the merge across rounds), non-square
-# levels, Q = 300 (off the 32 queries of a CTA), D = 16, 32, 64 and 128 in
-# bf16 and fp32 (16, 32, 64 and 128 bytes a row: the 2-, 4-, 8- and
-# 16-lane bodies, 32 lanes at fp32 D = 128), bf16 locations, and a value
-# view off a 16-byte boundary (the single-element body).
+# The v4 gathers (8a, 8b, 8c) at the edges of their corner enumeration:
+# whole-texel coordinates (the hat's kinks, the far corner at |t| = 1
+# exactly; power-of-two levels, so that loc * size - 0.5 is whole in fp32
+# and bf16), corners outside the grid (locations over [-0.2, 1.2], the
+# default), every point of a query on one spot (its corners merged onto four
+# texels), P = 1, 8, 9 and 64 (4P corners over 32 take 8a's merge across
+# rounds; 8b's runs of one query over a round's end carry its sum), non-
+# square levels, Q = 300 (off the 32 queries of a CTA), D = 16, 32, 64 and
+# 128 in bf16 and fp32 (16, 32, 64 and 128 bytes a row: the 2-, 4-, 8- and
+# 16-lane bodies, 32 lanes at fp32 D = 128), bf16 locations, a value view
+# off a 16-byte boundary (8a's and 8c's single-element body; 8b, which
+# reads no value, is refused a grad_out off one there), fp32 D = 18 (rows
+# that are not whole vectors: every kernel's single-element body), and a
+# 128 x 128 level (8b's texel table in device memory).  The default levels
+# give 8b both walks: a group a texel at 16 x 16, a warp at 8 x 8 and 4 x 4.
 V4_EDGES = {
     "kinks_d64": dict(draw="whole"),
     "out_of_grid_d16": dict(D=16),
@@ -2932,6 +3071,8 @@ V4_EDGES = {
     "fp32_d32_kinks": dict(dtype="float32", D=32, draw="whole"),
     "fp32_d64_one_spot": dict(dtype="float32", draw="one", P=9),
     "fp32_d128_p64": dict(dtype="float32", D=128, P=64, Q=100),
+    "fp32_d18_lanes": dict(dtype="float32", D=18),
+    "table_in_device_memory": dict(shapes=((128, 128), (8, 8))),
 }
 
 
@@ -2976,40 +3117,50 @@ def bf16_ulp(x):
 
 
 def check_v4_edges() -> list:
-    """Kernels 8a and 8c at each `V4_EDGES` case against their plain
-    versions with the benchmark sites' tolerances (8a: 2 bf16 ulps at the
-    output's scale, fp32 1e-5 of it; 8c: d_loc and d_w within 1e-4 of their
-    scales in bf16, 1e-5 in fp32; with bf16 locations 8c's gradients come
-    back in bf16, and each element is allowed one bf16 ulp at its own
-    magnitude beside that, the rounding of the output itself), two calls
-    bit-identical; where every coordinate is whole, d_loc exactly 0 (v4's
-    slopes are 0 there).  Every failure is gathered; the phase fails after
-    the last case."""
+    """Kernels 8a, 8b and 8c at each `V4_EDGES` case against their plain
+    versions with the benchmark sites' tolerances (8a and 8b: 2 bf16 ulps
+    at the output's scale, fp32 1e-5 of it; 8c: d_loc and d_w within 1e-4
+    of their scales in bf16, 1e-5 in fp32; with bf16 locations 8c's
+    gradients come back in bf16, and each element is allowed one bf16 ulp
+    at its own magnitude beside that, the rounding of the output itself),
+    two calls bit-identical; where every coordinate is whole, d_loc exactly
+    0 (v4's slopes are 0 there); 8b's plan (body, table, walks) logged, and
+    with ``misaligned`` a grad_out off a 16-byte boundary refused before
+    any launch.  Every failure is gathered; the phase fails after the last
+    case."""
     import torch
 
+    from mm_interleaved_tpu_torch.ops import ms_deform_attn_v4 as v4mod
+
     k_fwd = kernel_of("ms_deform_attn_v4_fwd")
+    k_dv = kernel_of("ms_deform_attn_v4_bwd_value")
     k_lw = kernel_of("ms_deform_attn_v4_bwd_loc_weight")
-    p_fwd = getattr(kmod("ms_deform_attn_v4_fwd"),
-                    KERNELS["ms_deform_attn_v4_fwd"]["plain"])
-    p_lw = getattr(kmod("ms_deform_attn_v4_bwd_loc_weight"),
-                   KERNELS["ms_deform_attn_v4_bwd_loc_weight"]["plain"])
+    plain = {name: getattr(kmod(name), KERNELS[name]["plain"])
+             for name in ("ms_deform_attn_v4_fwd", *V4_BWD)}
     recs, fails = [], []
     for i, (name, kw) in enumerate(V4_EDGES.items()):
         tag = f"v4 edge {name}"
         args = v4_edge_case(np.random.RandomState(SEED + 700 + i), **kw)
-        value = args[0]
+        value, shapes, loc = args[:3]
         D = value.shape[-1]
         f32 = value.dtype == torch.float32
+        plan = v4mod.value_grad_plan(shapes, loc.shape[1], len(shapes),
+                                     loc.shape[4], D, value.dtype)
         rec = dict(case=name, value=list(value.shape),
-                   loc=list(args[2].shape), loc_dtype=str(args[2].dtype),
+                   loc=list(loc.shape), loc_dtype=str(loc.dtype),
                    rows_in_vectors=(D * value.element_size()) % 16 == 0
-                   and value.data_ptr() % 16 == 0)
+                   and value.data_ptr() % 16 == 0,
+                   value_grad_plan=plan._asdict())
         with torch.inference_mode():
             got = dict(fwd=((k_fwd(*args[:4]),), (k_fwd(*args[:4]),)),
+                       value=((k_dv(*args),), (k_dv(*args),)),
                        loc_weight=(k_lw(*args), k_lw(*args)))
-            want = dict(fwd=(p_fwd(*args[:4]),), loc_weight=p_lw(*args))
+            want = dict(fwd=(plain["ms_deform_attn_v4_fwd"](*args[:4]),),
+                        value=(plain["ms_deform_attn_v4_bwd_value"](*args),),
+                        loc_weight=plain["ms_deform_attn_v4_bwd_loc_weight"](
+                            *args))
             torch.cuda.synchronize()
-        for k in ("fwd", "loc_weight"):
+        for k in ("fwd", "value", "loc_weight"):
             first, again = got[k]
             same = all(bool(torch.equal(a, b)) for a, b in zip(first, again))
             rec[f"bit_identical_{k}"] = same
@@ -3018,7 +3169,7 @@ def check_v4_edges() -> list:
             errs, tols = [], []
             for g, r in zip(first, want[k]):
                 scale = float(r.float().abs().max())
-                if k == "fwd":
+                if k in ("fwd", "value"):
                     tol = 1e-5 * scale if f32 else _ulps(scale, 2)
                 else:
                     tol = (1e-5 if f32 else 1e-4) * scale
@@ -3034,6 +3185,16 @@ def check_v4_edges() -> list:
             rec[f"errs_{k}"], rec[f"tols_{k}"] = errs, tols
         if kw.get("draw") == "whole" and bool(got["loc_weight"][0][0].any()):
             fails.append(f"{tag}: d_loc not 0 at whole-texel coordinates")
+        if kw.get("misaligned"):
+            go = _misaligned(args[4])
+            before = k_dv.launches
+            try:
+                k_dv(*args[:4], go)
+                fails.append(f"{tag}: 8b took a misaligned grad_out")
+            except ValueError as e:
+                rec["refused_8b"] = str(e)
+            if k_dv.launches != before:
+                fails.append(f"{tag}: 8b counted a refused call")
         recs.append(rec)
         log(f"v4 edge case: {json.dumps(rec)}")
         del got, want, args

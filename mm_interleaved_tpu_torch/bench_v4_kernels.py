@@ -12,7 +12,10 @@ backward's: twice the v4 forward's output, in the value's dtype.  Timed
 per case: the v4 forward (kernel 8a, ``ms_deform_attn_v4_cuda``), its value
 gradient (8b) and location/weight gradient (8c), and kernels 1, 2 and 3
 (`ops/ms_deform_attn_cuda.py`: forward, value gradient, location/weight
-gradient) on the same inputs, the yardsticks of 8a, 8b and 8c.  Each as
+gradient) on the same inputs, the yardsticks of 8a, 8b and 8c; at the
+``deform/*`` cases also the v1 forward (kernel 9,
+``ms_deform_attn_v1_cuda``), whose yardstick is kernel 1 (``v1_fwd_ms``
+is None at the ``v5/*`` cases, which the v1 benchmark does not run).  Each as
 ``<kernel>_ms``, the median of 25 synchronised CUDA-event runs, and
 ``<kernel>_queued_ms``, the mean of 25 calls enqueued back to back.  The
 card's ``nvidia-smi`` name and power line, then one JSON row per case.
@@ -34,6 +37,7 @@ import torch
 
 from . import bench_deform_kernel, bench_v5_kernel
 from .ops import ms_deform_attn_cuda as dk
+from .ops import ms_deform_attn_v1 as v1
 from .ops import ms_deform_attn_v4 as v4
 from .utils.timing import queued_ms, time_ms
 
@@ -60,7 +64,10 @@ KERNELS = {
     "kernel1": (dk.ms_deform_attn_cuda, dk.ms_deform_attn_plain, False),
     "kernel2": (dk.ms_deform_attn_bwd_value_cuda, _kernel2_plain, True),
     "kernel3": (dk.ms_deform_attn_bwd_loc_weight_cuda, _kernel3_plain, True),
+    "v1_fwd": (v1.ms_deform_attn_v1_cuda, v1.ms_deform_attn_v1_plain, False),
 }
+# the kernels timed only at the deformable benchmark's cases
+DEFORM_ONLY = ("v1_fwd",)
 
 
 def make_inputs(cases: Dict[str, tuple], device) -> dict:
@@ -101,7 +108,9 @@ def run(device="cuda", cases: Optional[Dict[str, tuple]] = None) -> list:
                        loc_shape=list(args[2].shape), finite=_finite(out))
             for name, (kernel, plain, takes_grad) in KERNELS.items():
                 a = args + (go,) if takes_grad else args
-                if cuda:
+                if name in DEFORM_ONLY and not case.startswith("deform/"):
+                    row[f"{name}_ms"] = None
+                elif cuda:
                     row[f"{name}_ms"] = time_ms(lambda: kernel(*a))
                     row[f"{name}_queued_ms"] = queued_ms(lambda: kernel(*a))
                 else:

@@ -25,7 +25,10 @@
 //    group 0 writes the [D] row as 16-byte stores in the value's dtype.  A
 //    CTA's 8 warps take neighbouring queries of one (n, h), whose corners
 //    overlap in L1.  The value must start on a 16-byte boundary (the
-//    wrapper refuses a view that does not).
+//    wrapper refuses a view that does not).  The body is
+//    deform::forward_gather (ms_deform_attn_common.cuh) with this kernel's
+//    blend, BilinearBlend; v1's kernel 9 (ms_deform_attn_v1.cu) runs it
+//    with v1's.
 //  * "channel", any D: one thread per (n, q, h, d) with lanes along D, so
 //    the 32 lanes of a warp read 32 consecutive channels of one texel, and
 //    the location/weight loads are the same address across the warp.  The
@@ -48,15 +51,12 @@ namespace {
 
 using deform::Corners;
 using deform::from_f32;
-using deform::kFull;
 using deform::kMaxLevels;
 using deform::Levels;
-using deform::load_corners;
 using deform::to_f32;
 
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kQTile = 32;  // queries a CTA of the grouped body takes
+static_assert(kThreads == 32 * deform::kForwardWarps, "one CTA of the gather");
 
 // value [N, S, H, D], loc [N, Q, H, L, P, 2] (x, y), weight [N, Q, H, L, P],
 // out [N, Q, H, D]; V is the value/output type, T the loc/weight type.
@@ -110,108 +110,51 @@ fwd_channel(const V* __restrict__ value, const T* __restrict__ loc,
   out[i] = from_f32<V>(acc);
 }
 
-// The "grouped" body: G lanes a sample, one 16-byte vector of each corner a
-// lane (D = G * 16 / sizeof(V)).  A CTA takes kQTile queries of one (n, h);
-// each warp one query at a time, its L*P samples in rounds of 32.
+// Kernel 1's blend for deform::forward_gather: the bilinear weights of
+// deform::corners times the attention weight (0 where a corner is out of
+// bounds), each corner's vector accumulated in row-major order.
+struct BilinearBlend {
+  __device__ static void setup(float lx, float ly, float aw, int hl, int wl,
+                               int* texel, unsigned* mask, float (&cw)[4]) {
+    const Corners k = deform::corners(lx, ly, hl, wl);
+    *texel = k.texel;
+    *mask = k.mask;
+    const float gx = 1.f - k.fx, gy = 1.f - k.fy;
+    cw[0] = k.mask & 1u ? gx * gy * aw : 0.f;
+    cw[1] = k.mask & 2u ? k.fx * gy * aw : 0.f;
+    cw[2] = k.mask & 4u ? gx * k.fy * aw : 0.f;
+    cw[3] = k.mask & 8u ? k.fx * k.fy * aw : 0.f;
+  }
+
+  template <int VW>
+  __device__ static void apply(const float (&cw)[4], const float (&f)[4][VW],
+                               float (&acc)[VW]) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+#pragma unroll
+      for (int v = 0; v < VW; ++v) acc[v] = fmaf(cw[c], f[c][v], acc[v]);
+  }
+};
+
+// The "grouped" body: deform::forward_gather with kernel 1's blend, G
+// lanes a sample, one 16-byte vector of each corner a lane (D = G * 16 /
+// sizeof(V)).
 template <typename V, typename T, int G>
 __global__ void __launch_bounds__(kThreads, 3)
 fwd_grouped(const V* __restrict__ value, const T* __restrict__ loc,
             const T* __restrict__ weight, V* __restrict__ out, int Q, int H,
             int S, int L, int P, int q_tiles,
             const __grid_constant__ Levels lv) {
-  constexpr int VW = 16 / (int)sizeof(V);
-  constexpr int D = G * VW;
-  constexpr int NG = 32 / G;  // samples a warp holds at once
-  __shared__ int s_h[kMaxLevels], s_w[kMaxLevels], s_start[kMaxLevels];
-  // constant indices: an indexed kernel parameter would go to local memory
-#pragma unroll
-  for (int i = 0; i < kMaxLevels; ++i) {
-    if (threadIdx.x == i) {
-      s_h[i] = lv.h[i];
-      s_w[i] = lv.w[i];
-      s_start[i] = lv.start[i];
-    }
-  }
-  __syncthreads();
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int grp = lane / G;
-  const int LP = L * P;
-  const int tile = blockIdx.x % q_tiles;
-  const int64_t nh = blockIdx.x / q_tiles;
-  const int h = (int)(nh % H);
-  const int64_t n = nh / H;
-  const int64_t row = (int64_t)H * D;
-  const V* vbase = value + n * (int64_t)S * row + (int64_t)h * D +
-                   (lane % G) * VW;
-  const int q_end = min(Q, (tile + 1) * kQTile);
-
-  for (int q = tile * kQTile + warp; q < q_end; q += kWarps) {
-    const int64_t nqh = (n * Q + q) * H + h;
-    float acc[VW];
-#pragma unroll
-    for (int v = 0; v < VW; ++v) acc[v] = 0.f;
-    for (int base = 0; base < LP; base += 32) {
-      const int R = min(32, LP - base);
-      const int iters = (R + NG - 1) / NG;
-      // lane j sets up sample base + j: its texel, and the four corner
-      // weights times the attention weight (0 where out of bounds)
-      Corners k = {0.f, 0.f, 0, 0u};
-      float cw[4] = {0.f, 0.f, 0.f, 0.f};
-      int wl = 0;
-      if (lane < R) {
-        const int64_t si = nqh * LP + base + lane;
-        const int l = (base + lane) / P;
-        wl = s_w[l];
-        k = deform::corners(to_f32(loc[2 * si]), to_f32(loc[2 * si + 1]),
-                            s_h[l], wl);
-        k.texel += s_start[l];
-        const float aw = to_f32(weight[si]);
-        const float gx = 1.f - k.fx, gy = 1.f - k.fy;
-        cw[0] = k.mask & 1u ? gx * gy * aw : 0.f;
-        cw[1] = k.mask & 2u ? k.fx * gy * aw : 0.f;
-        cw[2] = k.mask & 4u ? gx * k.fy * aw : 0.f;
-        cw[3] = k.mask & 8u ? k.fx * k.fy * aw : 0.f;
-      }
-      const int packed = wl << 4 | (int)k.mask;
-      // group grp takes samples grp * iters + it, in order
-      uint4 cur[4];
-      load_corners(vbase, row, k.texel, packed, grp * iters, cur);
-      for (int it = 0; it < iters; ++it) {
-        const int src = grp * iters + it;
-        uint4 nxt[4] = {};
-        if (it + 1 < iters)
-          load_corners(vbase, row, k.texel, packed, src + 1, nxt);
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const float w = __shfl_sync(kFull, cw[c], src);
-          float f[VW];
-          deform::widen(cur[c], f);
-#pragma unroll
-          for (int v = 0; v < VW; ++v) acc[v] = fmaf(w, f[v], acc[v]);
-        }
-#pragma unroll
-        for (int c = 0; c < 4; ++c) cur[c] = nxt[c];
-      }
-    }
-    // the groups' sums, folded in a fixed order
-#pragma unroll
-    for (int off = G; off < 32; off <<= 1) {
-#pragma unroll
-      for (int v = 0; v < VW; ++v)
-        acc[v] += __shfl_xor_sync(kFull, acc[v], off);
-    }
-    if (grp == 0)
-      *reinterpret_cast<uint4*>(out + nqh * D + lane * VW) =
-          deform::narrow(acc);
-  }
+  deform::forward_gather<BilinearBlend, V, T, G>(value, loc, weight, out, Q,
+                                                 H, S, L, P, q_tiles, lv);
 }
 
 template <typename V, typename T, int G>
 int launch_grouped(const void* value, const void* loc, const void* weight,
                    void* out, int N, int Q, int H, int S, int L, int P,
                    const Levels& lv, cudaStream_t stream) {
-  const int q_tiles = (Q + kQTile - 1) / kQTile;
+  const int q_tiles =
+      (Q + deform::kForwardQTile - 1) / deform::kForwardQTile;
   const int64_t blocks = (int64_t)N * H * q_tiles;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
   fwd_grouped<V, T, G><<<(unsigned)blocks, kThreads, 0, stream>>>(

@@ -16,7 +16,8 @@
 //      -1 .. W_l - 1 and y0 alike ((H_l + 1)(W_l + 1) cells a level; -1 for
 //      a sample with no corner in bounds), a thread a sample in the
 //      locations' order, written per (n, h, level) in sample order.
-//    - bin_samples, one CTA per (n, h, level): a stable counting sort of
+//    - bin_samples (ms_deform_attn_bin.cuh, shared with v4's value
+//      gradient), one CTA per (n, h, level): a stable counting sort of
 //      the level's sample ids by cell.  Each warp owns a contiguous run of
 //      the samples and a row of a [W, cells_l] table: it counts its samples
 //      per cell (integer atomics: a count does not depend on their order),
@@ -87,6 +88,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "ms_deform_attn_bin.cuh"
 #include "ms_deform_attn_common.cuh"
 
 namespace {
@@ -123,65 +125,6 @@ __device__ __forceinline__ float warp_sum(float v) {
 // --------------------------------------------------------------------------
 // the value gradient: binning, then the gather
 
-constexpr int kMaxBinWarps = 32;
-// steps of 32 samples whose loads a binning warp issues at once
-constexpr int kSteps = 16;
-// dynamic shared memory a binning block may take on sm_90 (227 KB, less
-// room for its static tables)
-constexpr int kMaxShared = 232448 - 1024;
-
-// q = n / d for 0 <= n < 2^31 by a multiply and a shift (d >= 1):
-// s = ceil(log2 d), m = floor(2^32 (2^s - d) / d) + 1, q = (hi(n m) + n) >> s
-struct FastDiv {
-  unsigned m;
-  int s;
-};
-
-FastDiv fast_div(int d) {
-  int s = 0;
-  while ((1LL << s) < d) ++s;
-  const unsigned long long m =
-      (1ULL << 32) * ((1ULL << s) - (unsigned long long)d) / d + 1;
-  return {(unsigned)m, s};
-}
-
-__device__ __forceinline__ int div_by(int n, FastDiv f) {
-  return (int)((__umulhi((unsigned)n, f.m) + (unsigned)n) >> f.s);
-}
-
-// Per level: where its [cells] block starts in an (n, h)'s cell tables
-// (cell), where its cell offsets start in the (n, h)'s row of cell_start
-// (slot: cell + l, each level keeps one end slot), and the first of its
-// gather's tiles (tile; tile[L] is an (n, h)'s count).
-struct CellLevels {
-  int cell[kMaxLevels];
-  int slot[kMaxLevels];
-  int tile[kMaxLevels + 1];
-};
-
-// The level tables of a block, in shared memory.
-struct LevelTables {
-  int h[kMaxLevels], w[kMaxLevels], start[kMaxLevels], cell[kMaxLevels],
-      slot[kMaxLevels], tile[kMaxLevels + 1];
-};
-
-__device__ __forceinline__ void load_tables(LevelTables& s, const Levels& lv,
-                                            const CellLevels& cl) {
-#pragma unroll
-  for (int i = 0; i < kMaxLevels; ++i) {
-    if (threadIdx.x == i) {
-      s.h[i] = lv.h[i];
-      s.w[i] = lv.w[i];
-      s.start[i] = lv.start[i];
-      s.cell[i] = cl.cell[i];
-      s.slot[i] = cl.slot[i];
-      s.tile[i] = cl.tile[i];
-    }
-  }
-  if (threadIdx.x == kMaxLevels) s.tile[kMaxLevels] = cl.tile[kMaxLevels];
-  __syncthreads();
-}
-
 // The cell of every sample (deform::cell_of; -1 for none): a thread a
 // sample i = q * L * P + l * P + p of one (n, h), so a warp reads whole
 // lines of the locations; written per (n, h, level) in sample order,
@@ -190,7 +133,7 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads)
 cell_keys(const T* __restrict__ loc, int* __restrict__ keys, int Q, int H,
           int L, int P, int per_nh, const __grid_constant__ Levels lv,
-          const __grid_constant__ CellLevels cl, FastDiv div_lp,
+          const __grid_constant__ BinLevels cl, FastDiv div_lp,
           FastDiv div_p) {
   __shared__ LevelTables s;
   load_tables(s, lv, cl);
@@ -206,121 +149,6 @@ cell_keys(const T* __restrict__ loc, int* __restrict__ keys, int Q, int H,
   const float2 xy = deform::load_xy(loc, ((n * Q + q) * H + h) * LP + lp);
   keys[(nh * L + l) * Q * P + q * P + (lp - l * P)] =
       deform::cell_of(xy.x, xy.y, s.h[l], s.w[l]);
-}
-
-// One CTA per (n, h, level), blockDim.x / 32 warps.  The level's Q*P
-// samples, i = q * P + p, are binned by their cells (from cell_keys): ids
-// [N*H, Q*L*P] holds, from l * Q * P on, the level's sample ids cell after
-// cell, each cell's in sample order; cell_start [N*H, cells + L] where
-// each cell's ids begin (from slot[l]; the level's last slot is its end).
-// table: null (the [W + 1, cells_l] table in dynamic shared memory) or a
-// device scratch of [N*H, W + 1, cells] (its level's block at (W + 1) *
-// cell[l]).
-__global__ void __launch_bounds__(kMaxBinWarps * 32)
-bin_samples(const int* __restrict__ keys, int* __restrict__ ids,
-            int* __restrict__ cell_start, int* __restrict__ gtable, int Q,
-            int L, int P, int cells_all,
-            const __grid_constant__ Levels lv,
-            const __grid_constant__ CellLevels cl) {
-  extern __shared__ int smem[];
-  __shared__ LevelTables s;
-  __shared__ int s_part[kMaxBinWarps];
-  load_tables(s, lv, cl);
-  const int W = blockDim.x >> 5;
-  const int l = (int)(blockIdx.x % L);
-  const int64_t nh = blockIdx.x / L;
-  const int hl = s.h[l], wl = s.w[l];
-  const int cells = (hl + 1) * (wl + 1);
-  int* table = gtable ? gtable + (nh * cells_all + s.cell[l]) * (W + 1)
-                      : smem;
-  int* total = table + (int64_t)W * cells;
-  for (int i = threadIdx.x; i < W * cells; i += blockDim.x) table[i] = 0;
-  __syncthreads();
-  const int QP = Q * P;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int seg = (QP + W - 1) / W;
-  const int s0 = min(QP, warp * seg);
-  const int s1 = min(QP, s0 + seg);
-  int* mine = table + (int64_t)warp * cells;
-  const int* kl = keys + (nh * L + l) * (int64_t)QP;  // this level's cells
-  // kSteps steps of 32 from base on: their cells (-1: none, or past the
-  // warp's run), loaded at once
-  auto keys_of = [&](int base, int (&key)[kSteps]) {
-#pragma unroll
-    for (int u = 0; u < kSteps; ++u) {
-      const int i = base + 32 * u + lane;
-      key[u] = i < s1 ? __ldg(kl + i) : -1;
-    }
-  };
-
-  // 1. each warp counts its samples per cell in its own row
-  for (int base = s0; base < s1; base += 32 * kSteps) {
-    int key[kSteps];
-    keys_of(base, key);
-#pragma unroll
-    for (int u = 0; u < kSteps; ++u)
-      if (key[u] >= 0) atomicAdd(mine + key[u], 1);
-  }
-  __syncthreads();
-  // 2. a cell's counts become the warps' offsets in it, in warp order
-  for (int c = threadIdx.x; c < cells; c += blockDim.x) {
-    int run = 0;
-    for (int w = 0; w < W; ++w) {
-      int* p = table + (int64_t)w * cells + c;
-      const int t = *p;
-      *p = run;
-      run += t;
-    }
-    total[c] = run;
-  }
-  __syncthreads();
-  // 3. the cells' starts: an exclusive scan of their totals, a thread a
-  // contiguous run of cells, after the level's l * Q * P; each warp's
-  // offsets become its cursors
-  const int per = (cells + blockDim.x - 1) / blockDim.x;
-  const int c0 = min(cells, (int)threadIdx.x * per);
-  const int c1 = min(cells, c0 + per);
-  int sum = 0;
-  for (int c = c0; c < c1; ++c) sum += total[c];
-  int incl = sum;
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const int v = __shfl_up_sync(kFull, incl, off);
-    if (lane >= off) incl += v;
-  }
-  if (lane == 31) s_part[warp] = incl;
-  __syncthreads();
-  int run = l * QP + incl - sum;
-  for (int w = 0; w < warp; ++w) run += s_part[w];
-  int* cs = cell_start + nh * (int64_t)(cells_all + L) + s.slot[l];
-  for (int c = c0; c < c1; ++c) {
-    const int t = total[c];
-    cs[c] = run;
-    for (int w = 0; w < W; ++w) table[(int64_t)w * cells + c] += run;
-    run += t;
-  }
-  if (threadIdx.x == blockDim.x - 1) cs[cells] = run;
-  __syncthreads();
-  // 4. each warp places its samples in sample order: a lane's rank among
-  // the lanes of its step that share its cell, after the cell's cursor
-  int* out = ids + nh * (int64_t)L * QP;
-  for (int base = s0; base < s1; base += 32 * kSteps) {
-    int key[kSteps];
-    keys_of(base, key);
-#pragma unroll
-    for (int u = 0; u < kSteps; ++u) {
-      if (base + 32 * u < s1) {  // the same for the whole warp
-        const unsigned peers = __match_any_sync(kFull, key[u]);
-        const int rank = __popc(peers & ((1u << lane) - 1u));
-        const int pos = key[u] >= 0 ? mine[key[u]] + rank : 0;
-        __syncwarp();
-        if (key[u] >= 0 && rank == 0) mine[key[u]] += __popc(peers);
-        __syncwarp();
-        if (key[u] >= 0) out[pos] = base + 32 * u + lane;
-      }
-    }
-  }
 }
 
 // The four cells a texel's gather walks, and where each one's samples
@@ -427,7 +255,7 @@ bwd_value_grouped(const T* __restrict__ loc, const T* __restrict__ weight,
                   V* __restrict__ grad_value, int Q, int H, int S, int L,
                   int P, int cells_all, int group_levels,
                   const __grid_constant__ Levels lv,
-                  const __grid_constant__ CellLevels cl, FastDiv div_p) {
+                  const __grid_constant__ BinLevels cl, FastDiv div_p) {
   constexpr int VW = 16 / (int)sizeof(V);
   constexpr int D = G * VW;
   constexpr int NG = 32 / G;  // groups a warp
@@ -568,7 +396,7 @@ bwd_value_lanes(const T* __restrict__ loc, const T* __restrict__ weight,
                 const int* __restrict__ cell_start,
                 V* __restrict__ grad_value, int Q, int H, int D, int S, int L,
                 int P, int cells_all, const __grid_constant__ Levels lv,
-                const __grid_constant__ CellLevels cl,
+                const __grid_constant__ BinLevels cl,
                 FastDiv div_p) {
   __shared__ LevelTables s;
   load_tables(s, lv, cl);
@@ -607,23 +435,6 @@ bwd_value_lanes(const T* __restrict__ loc, const T* __restrict__ weight,
   }
 }
 
-// Fills the per-level tables; returns the cells of all levels, or -1.
-int fill_cell_levels(const Levels& lv, int L, int group_levels, int ng,
-                     CellLevels* cl) {
-  int64_t cells = 0, tiles = 0;
-  for (int l = 0; l < L; ++l) {
-    cl->cell[l] = (int)cells;
-    cl->slot[l] = (int)cells + l;
-    cl->tile[l] = (int)tiles;
-    const int per = kWarps * (group_levels >> l & 1 ? ng : 1);
-    tiles += ((int64_t)lv.h[l] * lv.w[l] + per - 1) / per;
-    cells += (int64_t)(lv.h[l] + 1) * (lv.w[l] + 1);
-    if (cells > 0x7fffffffLL - kMaxLevels || tiles > 0x7fffffffLL) return -1;
-  }
-  cl->tile[L] = (int)tiles;
-  return (int)cells;
-}
-
 template <typename V, typename T>
 int launch_value(int bin_warps, int shared_table, int grouped,
                  int group_levels, const void* loc, const void* weight,
@@ -634,28 +445,18 @@ int launch_value(int bin_warps, int shared_table, int grouped,
   const T* wp = static_cast<const T*>(weight);
   const int g = grouped ? deform::group_lanes(D, (int)sizeof(V)) : 0;
   if (grouped && !g) return (int)cudaErrorInvalidValue;
-  CellLevels cl = {};
-  const int cells = fill_cell_levels(lv, L, grouped ? group_levels : 0,
-                                     g ? 32 / g : 1, &cl);
+  BinLevels cl = {};
+  const int cells = fill_bin_levels(
+      lv, L, grouped ? group_levels : 0, kWarps * (g ? 32 / g : 1), kWarps,
+      [](int h, int w) { return (h + 1) * (w + 1); }, &cl);
   if (cells < 0) return (int)cudaErrorInvalidValue;
   const int64_t nh = (int64_t)N * H;
-  if (nh * L > 0x7fffffffLL || nh * cl.tile[L] > 0x7fffffffLL)
+  if (nh * cl.tile[L] > 0x7fffffffLL)
     return (int)cudaErrorInvalidConfiguration;
-  if (bin_warps < 1 || bin_warps > kMaxBinWarps)
-    return (int)cudaErrorInvalidValue;
   const FastDiv div_p = fast_div(P);
   const int per_nh = (int)(((int64_t)Q * L * P + kThreads - 1) / kThreads);
   if (nh * per_nh > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  size_t smem = 0;
   if (shared_table) {
-    int most = 0;
-    for (int l = 0; l < L; ++l)
-      most = max(most, (lv.h[l] + 1) * (lv.w[l] + 1));
-    smem = (size_t)(bin_warps + 1) * most * sizeof(int);
-    if (smem > (size_t)kMaxShared) return (int)cudaErrorInvalidValue;
-    cudaError_t e = cudaFuncSetAttribute(
-        bin_samples, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
     table = nullptr;
   } else if (table == nullptr) {
     return (int)cudaErrorInvalidValue;
@@ -664,10 +465,9 @@ int launch_value(int bin_warps, int shared_table, int grouped,
     cell_keys<T><<<(unsigned)(nh * per_nh), kThreads, 0, stream>>>(
         lp, keys, Q, H, L, P, per_nh, lv, cl, fast_div(L * P), fast_div(P));
   }
-  bin_samples<<<(unsigned)(nh * L), bin_warps * 32, smem, stream>>>(
-      keys, ids, cell_start, table, Q, L, P, cells, lv, cl);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
+  const int e = launch_bins(bin_warps, table, keys, ids, cell_start, nh,
+                            Q * P, L, cells, lv, cl, stream);
+  if (e) return e;
   const unsigned blocks = (unsigned)(nh * cl.tile[L]);
   const V* dp = static_cast<const V*>(dout);
   V* out = static_cast<V*>(gv);

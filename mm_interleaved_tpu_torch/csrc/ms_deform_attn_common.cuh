@@ -1,10 +1,11 @@
 // Helpers shared by the deformable forward (ms_deform_attn.cu) and its
-// backward (ms_deform_attn_bwd.cu), and by the v4 kernels
-// (ms_deform_attn_v4.cuh): the level table, fp32 widening and narrowing of
-// 16-byte vectors, the group width of the Hopper bodies, the bilinear
-// geometry of one sample, a value row read in chunks of a lane, and the
-// location/weight gradient's gather, which kernel 3 and v4's kernel 8c run
-// with their own corner blends.
+// backward (ms_deform_attn_bwd.cu), and by the v1 and v4 kernels
+// (ms_deform_attn_v1.cu, ms_deform_attn_v4.cuh): the level table, fp32
+// widening and narrowing of 16-byte vectors, the group width of the Hopper
+// bodies, the bilinear geometry of one sample, a value row read in chunks
+// of a lane, the location/weight gradient's gather, which kernel 3 and v4's
+// kernel 8c run with their own corner blends, and the forward's gather,
+// which kernel 1 and v1's kernel 9 run with theirs.
 //
 // The geometry rounds as the plain version does (x = loc * W - 0.5 as a
 // product, then a difference, no fused multiply-add), in every kernel that
@@ -449,6 +450,115 @@ __device__ __forceinline__ void loc_weight_gather(
       if (own)
         Blend::finish(smp, aw, hl, wl, dA, si, grad_loc, grad_weight);
     }
+  }
+}
+
+constexpr int kForwardWarps = 8;   // warps of a forward gather CTA
+constexpr int kForwardQTile = 32;  // queries it takes
+
+// The deformable forward as a gather, for a blend of the four corners
+// ``Blend`` (kernel 1's bilinear weights, v1's separable rows and
+// columns): G lanes a sample, one 16-byte vector of each corner a lane
+// (D = G * 16 / sizeof(V)).  A CTA takes kForwardQTile neighbouring
+// queries of one (n, h) (blockIdx.x = (n * H + h) * q_tiles + tile), whose
+// corners overlap in L1; each warp one query at a time, its L*P samples in
+// rounds of 32.  Lane j sets sample j up (Blend::setup: the texel of its
+// corner (x0, y0) on its level, its in-grid corners as bits 0-3 in
+// row-major order (x0,y0), (x1,y0), (x0,y1), (x1,y1), and four
+// coefficients) and hands it to the groups by shuffle; all four corners'
+// loads issue before any math, and the next sample's loads are in flight
+// under the current one's FMAs.  Each group takes its samples in order and
+// Blend::apply adds each into the lane's fp32 sums; the groups' sums fold
+// by a fixed butterfly and group 0 writes the [D] row as 16-byte stores in
+// the value's dtype.  Every sum runs in a fixed order: the same bits every
+// run.  The value must start on a 16-byte boundary (the wrappers refuse a
+// view that does not).
+//
+// Blend provides ``setup(lx, ly, aw, hl, wl, &texel, &mask, coef)`` (coef:
+// float[4]) and ``apply(coef, f, acc)``: f[4][VW] the four corners'
+// widened vectors (zeros outside the grid), acc[VW] the lane's sums.
+template <typename Blend, typename V, typename T, int G>
+__device__ __forceinline__ void forward_gather(
+    const V* __restrict__ value, const T* __restrict__ loc,
+    const T* __restrict__ weight, V* __restrict__ out, int Q, int H, int S,
+    int L, int P, int q_tiles, const Levels& lv) {
+  constexpr int VW = 16 / (int)sizeof(V);
+  constexpr int D = G * VW;
+  constexpr int NG = 32 / G;  // samples a warp holds at once
+  __shared__ int s_h[kMaxLevels], s_w[kMaxLevels], s_start[kMaxLevels];
+  // constant indices: an indexed kernel parameter would go to local memory
+#pragma unroll
+  for (int i = 0; i < kMaxLevels; ++i) {
+    if (threadIdx.x == i) {
+      s_h[i] = lv.h[i];
+      s_w[i] = lv.w[i];
+      s_start[i] = lv.start[i];
+    }
+  }
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int grp = lane / G;
+  const int LP = L * P;
+  const int tile = blockIdx.x % q_tiles;
+  const int64_t nh = blockIdx.x / q_tiles;
+  const int h = (int)(nh % H);
+  const int64_t n = nh / H;
+  const int64_t row = (int64_t)H * D;
+  const V* vbase = value + n * (int64_t)S * row + (int64_t)h * D +
+                   (lane % G) * VW;
+  const int q_end = min(Q, (tile + 1) * kForwardQTile);
+
+  for (int q = tile * kForwardQTile + warp; q < q_end; q += kForwardWarps) {
+    const int64_t nqh = (n * Q + q) * H + h;
+    float acc[VW];
+#pragma unroll
+    for (int v = 0; v < VW; ++v) acc[v] = 0.f;
+    for (int base = 0; base < LP; base += 32) {
+      const int R = min(32, LP - base);
+      const int iters = (R + NG - 1) / NG;
+      // lane j sets up sample base + j: its texel and coefficients
+      int texel = 0, wl = 0;
+      unsigned mask = 0u;
+      float coef[4] = {0.f, 0.f, 0.f, 0.f};
+      if (lane < R) {
+        const int64_t si = nqh * LP + base + lane;
+        const int l = (base + lane) / P;
+        wl = s_w[l];
+        Blend::setup(to_f32(loc[2 * si]), to_f32(loc[2 * si + 1]),
+                     to_f32(weight[si]), s_h[l], wl, &texel, &mask, coef);
+        texel += s_start[l];
+      }
+      const int packed = wl << 4 | (int)mask;
+      // group grp takes samples grp * iters + it, in order
+      uint4 cur[4];
+      load_corners(vbase, row, texel, packed, grp * iters, cur);
+      for (int it = 0; it < iters; ++it) {
+        const int src = grp * iters + it;
+        uint4 nxt[4] = {};
+        if (it + 1 < iters)
+          load_corners(vbase, row, texel, packed, src + 1, nxt);
+        float c[4];
+        float f[4][VW];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          c[k] = __shfl_sync(kFull, coef[k], src);
+          widen(cur[k], f[k]);
+        }
+        Blend::apply(c, f, acc);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) cur[k] = nxt[k];
+      }
+    }
+    // the groups' sums, folded in a fixed order
+#pragma unroll
+    for (int off = G; off < 32; off <<= 1) {
+#pragma unroll
+      for (int v = 0; v < VW; ++v)
+        acc[v] += __shfl_xor_sync(kFull, acc[v], off);
+    }
+    if (grp == 0)
+      *reinterpret_cast<uint4*>(out + nqh * D + lane * VW) = narrow(acc);
   }
 }
 

@@ -49,15 +49,6 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kQTile = 32;   // queries a CTA takes
 constexpr int kInFlight = 4; // rows a group loads before its FMAs
 
-template <typename V>
-__device__ __forceinline__ float round_to(float x) {
-  if constexpr (std::is_same<V, __nv_bfloat16>::value) {
-    return __bfloat162float(__float2bfloat16(x));
-  } else {
-    return x;
-  }
-}
-
 // value [N, S, H, D], loc [N, Q, H, L, P, 2], weight [N, Q, H, L, P],
 // out [N, Q, H, D] in V.  Grid N * H * q_tiles, blockIdx.x = (n * H + h) *
 // q_tiles + tile.  Dynamic shared memory: kWarps * 4 arrays of 4P words.
@@ -124,10 +115,9 @@ v4_gather_fwd(const V* __restrict__ value, const T* __restrict__ loc,
             y0f <= (float)(hl - 1)) {
           const int x = (int)x0f + (c & 1), y = (int)y0f + (c >> 1);
           if (x >= 0 && x < wl && y >= 0 && y < hl) {
-            const float aw = to_f32(weight[s0 + p]);
-            const float wy = __fmul_rn(hat(__fsub_rn((float)y, ys)), aw);
             k = y * wl + x;
-            t = __fmul_rn(hat(__fsub_rn((float)x, xs)), wy);
+            t = corner_term((float)x, (float)y, xs, ys,
+                            to_f32(weight[s0 + p]));
           }
         }
         key[i] = k;

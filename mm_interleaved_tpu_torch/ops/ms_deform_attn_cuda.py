@@ -7,9 +7,10 @@ versions (counterpart of `mm_interleaved_tpu/ops/ms_deform_attn_pallas_v5.py`).
   runs on PyTorch's current stream, takes CUDA tensors only, raises on
   anything its kernel does not take, and counts its launches in
   ``.launches`` (one call a launch, whatever the kernels inside; a call
-  that raises is not counted).  `launch_forward` serves the benchmark's v1
-  and v4 forwards, which share one C signature (`ms_deform_attn_v1`,
-  `ms_deform_attn_v4`).
+  that raises is not counted).  `launch_gather_forward` also serves the
+  benchmark's v1 forward, whose kernel runs kernel 1's bodies.
+  `bin_plan`, `walk_plan` and `check_ids` are the binning rules kernel 2
+  shares with v4's value gradient.
 * Pure functions of the shapes pick each kernel's body: `forward_variant`
   ("grouped" or "channel"), `value_grad_plan` (where the value gradient's
   binning keeps its cell table, and "grouped" or "lanes") and
@@ -167,32 +168,6 @@ def _level_array(level_shapes):
         *[s for hw_ in level_shapes for s in hw_])
 
 
-def launch_forward(name, library, value, level_shapes, sampling_locations,
-                   attention_weights, check_dims=None):
-    """Launch the forward kernel ``mmi_<library>_fwd`` of
-    ``csrc/<library>.cu`` (the C signature of the v1 and v4 forwards);
-    ``check_dims(D, P, dtype)`` raises on head and point counts the kernel
-    does not take.  Returns ``[N, Q, H*D]`` in the value's dtype."""
-    N, S, Q, H, D, L, P = _check(name, value, level_shapes,
-                                 sampling_locations, attention_weights)
-    forbid_grad(name, value, sampling_locations, attention_weights)
-    if check_dims is not None:
-        check_dims(D, P, value.dtype)
-    fn = _c_function(library, f"mmi_{library}_fwd",
-                     [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4
-                     + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 2)
-    out = torch.empty((N, Q, H * D), dtype=value.dtype, device=value.device)
-    err = fn(
-        value.device.index, _DTYPE_CODE[value.dtype],
-        _DTYPE_CODE[sampling_locations.dtype],
-        value.data_ptr(), sampling_locations.data_ptr(),
-        attention_weights.data_ptr(), out.data_ptr(),
-        N, S, Q, H, D, L, P, _level_array(level_shapes), stream_of(value),
-    )
-    raise_on_error(name, err)
-    return out
-
-
 def _group_lanes(D: int, dtype: torch.dtype) -> int:
     """The lanes a sample (or a texel) takes in the grouped bodies: D's
     16-byte vectors where they are 4, 8 or 16, else 0 (``group_lanes`` of
@@ -216,21 +191,48 @@ SHARED_BYTES = 232448 - 1024
 
 
 class ValueGradPlan(NamedTuple):
-    """How the value gradient runs a call.  ``cells``: the bins of an
-    (n, h)'s samples, (h + 1) * (w + 1) a level.  The binning takes one CTA
-    per (n, h, level) of ``bin_warps`` warps, each warp a contiguous run of
-    the level's samples and a row of the level's cell table: ``table``
-    "shared" (the [bin_warps + 1, cells_l] table in shared memory) or
-    "global" (in a device scratch, where no 4 warps' rows fit).  ``body``:
-    "grouped" (G lanes a sample, 16-byte loads of dOut) or "lanes" (lanes
-    along D, any D).  ``walks``, per level: "group" (a group of G lanes a
-    texel, where the walk of a texel's four cells is 32 samples or fewer on
-    average) or "warp" (a warp a texel)."""
+    """How a value gradient runs a call.  ``cells``: the bins of an
+    (n, h)'s entries, (h + 1) * (w + 1) cells a level for kernel 2 (an
+    entry a sample), h * w texels for v4's 8b (an entry a corner).  The
+    binning takes one CTA per (n, h, level) of ``bin_warps`` warps, each
+    warp a contiguous run of the level's entries and a row of the level's
+    bin table: ``table`` "shared" (the [bin_warps + 1, cells_l] table in
+    shared memory) or "global" (in a device scratch, where no 4 warps' rows
+    fit).  ``body``: "grouped" (G lanes an entry or a row, 16-byte loads of
+    dOut) or "lanes" (lanes along D).  ``walks``, per level: "group" (a
+    group of G lanes a texel, where a texel's walk is 32 entries or fewer
+    on average) or "warp" (a warp a texel)."""
     cells: int
     table: str
     bin_warps: int
     body: str
     walks: Tuple[str, ...]
+
+
+def bin_plan(bins_per_level: Sequence[int]) -> Tuple[str, int]:
+    """Where a value gradient's binning keeps its table, and its warps a
+    CTA, for levels of ``bins_per_level`` bins: "shared" with as many warps
+    as fit (at most 32) where 4 warps' rows of the largest level fit in
+    `SHARED_BYTES`, else "global" with 8."""
+    fit = SHARED_BYTES // (4 * max(bins_per_level)) - 1
+    return ("shared", min(32, fit)) if fit >= 4 else ("global", 8)
+
+
+def walk_plan(bins_per_level: Sequence[int], Q: int,
+              P: int) -> Tuple[str, ...]:
+    """Per level, "group" (a group of lanes a texel) where a texel's walk
+    averages 32 entries or fewer, else "warp" (a warp a texel).  A texel
+    walks four of kernel 2's cells of Q*P samples, or one of v4's texel
+    bins of 4*Q*P corners: either way 4*Q*P / bins entries on average."""
+    return tuple("group" if Q * P <= 8 * c else "warp"
+                 for c in bins_per_level)
+
+
+def check_ids(n: int, what: str) -> None:
+    """Refuse ``n`` entry ids of an (n, h) that do not fit in int32."""
+    if n > 2 ** 31 - 1:
+        raise ValueError(f"value gradient: {what} = {n} entry ids of an "
+                         "(n, h) do not fit in int32")
 
 
 def value_grad_plan(level_shapes: Sequence[Tuple[int, int]], Q: int, L: int,
@@ -240,17 +242,14 @@ def value_grad_plan(level_shapes: Sequence[Tuple[int, int]], Q: int, L: int,
     int32."""
     if len(level_shapes) != L:
         raise ValueError(f"{L} levels, level_shapes {level_shapes}")
-    if Q * L * P > 2 ** 31 - 1:
-        raise ValueError(f"value gradient: Q*L*P = {Q * L * P} sample ids "
-                         "of an (n, h) do not fit in int32")
+    check_ids(Q * L * P, "Q*L*P")
     per_level = [(h + 1) * (w + 1) for h, w in level_shapes]
-    fit = SHARED_BYTES // (4 * max(per_level)) - 1
-    table, warps = ("shared", min(32, fit)) if fit >= 4 else ("global", 8)
+    table, warps = bin_plan(per_level)
     if not _group_lanes(D, dtype):
         return ValueGradPlan(sum(per_level), table, warps, "lanes",
                              ("warp",) * L)
-    walks = tuple("group" if Q * P <= 8 * c else "warp" for c in per_level)
-    return ValueGradPlan(sum(per_level), table, warps, "grouped", walks)
+    return ValueGradPlan(sum(per_level), table, warps, "grouped",
+                         walk_plan(per_level, Q, P))
 
 
 def _refuse_misaligned(name, t, what, D, dtype):
@@ -259,11 +258,13 @@ def _refuse_misaligned(name, t, what, D, dtype):
                          f"at D = {D} ({dtype})")
 
 
-def _launch(value, level_shapes, sampling_locations, attention_weights):
-    """Launch the forward kernel; raises on input it does not take.  The
-    "grouped" body loads 16-byte vectors of the value: there a value off a
-    16-byte boundary is refused before any launch."""
-    name = "ms_deform_attn_cuda"
+def launch_gather_forward(name, library, value, level_shapes,
+                          sampling_locations, attention_weights):
+    """Launch ``mmi_<library>_fwd`` of ``csrc/<library>.cu``, a forward
+    with kernel 1's two bodies (kernel 1, and v1's kernel 9): the body
+    `forward_variant` picks.  The "grouped" body loads 16-byte vectors of
+    the value: there a value off a 16-byte boundary is refused before any
+    launch.  Returns ``[N, Q, H*D]`` in the value's dtype."""
     variant = (forward_variant(value.shape[-1], value.dtype)
                if value.dtype in _DTYPE_CODE else "channel")
     if variant == "grouped":
@@ -271,7 +272,7 @@ def _launch(value, level_shapes, sampling_locations, attention_weights):
     N, S, Q, H, D, L, P = _check(name, value, level_shapes,
                                  sampling_locations, attention_weights)
     forbid_grad(name, value, sampling_locations, attention_weights)
-    fn = _c_function("ms_deform_attn", "mmi_ms_deform_attn_fwd",
+    fn = _c_function(library, f"mmi_{library}_fwd",
                      [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4
                      + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 2)
     out = torch.empty((N, Q, H * D), dtype=value.dtype, device=value.device)
@@ -283,6 +284,15 @@ def _launch(value, level_shapes, sampling_locations, attention_weights):
              stream_of(value))
     raise_on_error(name, err)
     return out
+
+
+def _launch(value, level_shapes, sampling_locations, attention_weights):
+    """Launch the forward kernel; raises on input it does not take (a
+    value off a 16-byte boundary where the "grouped" body takes the
+    call)."""
+    return launch_gather_forward("ms_deform_attn_cuda", "ms_deform_attn",
+                                 value, level_shapes, sampling_locations,
+                                 attention_weights)
 
 
 def _launch_bwd_value(value, level_shapes, sampling_locations,

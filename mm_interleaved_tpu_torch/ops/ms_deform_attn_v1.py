@@ -11,7 +11,12 @@ or column outside the grid contributes zero, as in `ms_deform_attn`.
 * `ms_deform_attn_v1_plain`: that arithmetic in plain PyTorch, one gather
   per corner.
 * `ms_deform_attn_v1_cuda`: the kernel ``csrc/ms_deform_attn_v1.cu``
-  (counted, CUDA tensors only, no gradient).
+  (counted, CUDA tensors only, no gradient).  Where `forward_variant`
+  says "grouped" it runs kernel 1's gather body (a group of lanes a
+  sample, 16-byte loads) with v1's per-sample blend, summing the samples
+  in that body's fixed order rather than points then levels; a value off
+  a 16-byte boundary is refused there before any launch.  Elsewhere a
+  thread a channel.
 * `ms_deform_attn_v1`: the plain version for CPU tensors, the kernel for
   CUDA tensors.
 
@@ -27,7 +32,7 @@ from typing import Sequence, Tuple
 import torch
 
 from .cuda_build import CountedKernel
-from .ms_deform_attn_cuda import launch_forward
+from .ms_deform_attn_cuda import launch_gather_forward
 
 
 def ms_deform_attn_v1_plain(
@@ -80,9 +85,9 @@ def ms_deform_attn_v1_plain(
 
 def _launch(value, level_shapes, sampling_locations, attention_weights):
     """Launch the v1 forward kernel; raises on input it does not take."""
-    return launch_forward("ms_deform_attn_v1_cuda", "ms_deform_attn_v1",
-                          value, level_shapes, sampling_locations,
-                          attention_weights)
+    return launch_gather_forward("ms_deform_attn_v1_cuda",
+                                 "ms_deform_attn_v1", value, level_shapes,
+                                 sampling_locations, attention_weights)
 
 
 ms_deform_attn_v1_cuda = CountedKernel(_launch)

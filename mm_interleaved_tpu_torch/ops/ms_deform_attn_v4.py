@@ -33,10 +33,14 @@ same in y; then ``d loc_x = d_xs * w`` and ``d loc_y = d_ys * h``.
   `ms_deform_attn_v4_bwd_value_cuda` (8b) and
   `ms_deform_attn_v4_bwd_loc_weight_cuda` (8c, both in
   ``csrc/ms_deform_attn_v4_bwd.cu``): the kernels (counted, CUDA tensors
-  only).  8a and 8c are per-query gathers: a sample's hats are non-zero
-  only at its 2 x 2 corner texels, so they form only those entries of A
-  and dA (8a merges a query's corners by texel before it rounds A); 8b
-  still builds the dense matrix.
+  only).  A sample's hats are non-zero only at its 2 x 2 corner texels,
+  so the kernels form only those entries of A and dA.  8a and 8c are
+  per-query gathers (8a merges a query's corners by texel before it
+  rounds A); 8b is a texel-major gather: each sample's four corner keys,
+  a stable sort of the corners by texel (kernel 2's binning), then per
+  texel the first corner of each query sums its terms in point order,
+  rounds A as 8a does and adds A times the query's dOut row
+  (`value_grad_plan` picks its table and walks).
 * `MSDeformAttnV4Function`: the op on the card, the forward kernel and the
   backward kernels for the gradients autograd asks for.
 * `ms_deform_attn_v4`: the plain forward for CPU tensors (autograd
@@ -56,9 +60,11 @@ from typing import Sequence, Tuple
 
 import torch
 
-from .cuda_build import CountedKernel, load_library, raise_on_error, stream_of
-from .ms_deform_attn_cuda import (_DTYPE_CODE, _check, _level_array,
-                                  launch_forward)
+from .cuda_build import CountedKernel, forbid_grad, raise_on_error, stream_of
+from .ms_deform_attn_cuda import (_DTYPE_CODE, _c_function, _check,
+                                  _level_array, _refuse_misaligned,
+                                  ValueGradPlan, bin_plan, check_ids,
+                                  walk_plan)
 
 # A chunk of the plain version's bilinear matrix stays under this many bytes
 _CHUNK_BYTES = 1 << 28
@@ -232,34 +238,85 @@ def _launch(value, level_shapes, sampling_locations, attention_weights):
     """Launch the v4 forward kernel (a warp a query: its corners merged by
     texel, A rounded, the rows gathered); raises on input it does not
     take."""
-    return launch_forward("ms_deform_attn_v4_cuda", "ms_deform_attn_v4",
-                          value, level_shapes, sampling_locations,
-                          attention_weights, _dims)
+    name = "ms_deform_attn_v4_cuda"
+    N, S, Q, H, D, L, P = _check(name, value, level_shapes,
+                                 sampling_locations, attention_weights)
+    forbid_grad(name, value, sampling_locations, attention_weights)
+    _dims(D, P, value.dtype)
+    fn = _c_function("ms_deform_attn_v4", "mmi_ms_deform_attn_v4_fwd",
+                     [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4
+                     + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 2)
+    out = torch.empty((N, Q, H * D), dtype=value.dtype, device=value.device)
+    err = fn(value.device.index, _DTYPE_CODE[value.dtype],
+             _DTYPE_CODE[sampling_locations.dtype], value.data_ptr(),
+             sampling_locations.data_ptr(), attention_weights.data_ptr(),
+             out.data_ptr(), N, S, Q, H, D, L, P, _level_array(level_shapes),
+             stream_of(value))
+    raise_on_error(name, err)
+    return out
 
 
-def _bwd_fn(symbol, n_ptrs):
-    fn = getattr(load_library("ms_deform_attn_v4_bwd"), symbol)
-    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * n_ptrs \
-        + [ctypes.c_int] * 7 + [ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+def value_grad_plan(level_shapes: Sequence[Tuple[int, int]], Q: int, L: int,
+                    P: int, D: int, dtype: torch.dtype) -> ValueGradPlan:
+    """8b's plan for a call (a pure function of the shapes): h * w texel
+    bins a level (``cells``), 4 corner entries a sample, the binning table
+    by kernel 2's rule (`bin_plan`); body "grouped" where a row of D is
+    whole 16-byte vectors (a group of as many lanes as it has vectors, 2 to
+    32, reads a row), else "lanes" (single elements, lanes along D, a warp
+    a texel); walks by kernel 2's rule (`walk_plan`).  Raises where an
+    (n, h)'s 4*Q*L*P entry ids do not fit in int32."""
+    if len(level_shapes) != L:
+        raise ValueError(f"{L} levels, level_shapes {level_shapes}")
+    check_ids(4 * Q * L * P, "4*Q*L*P")
+    per_level = [h * w for h, w in level_shapes]
+    table, warps = bin_plan(per_level)
+    if D * (torch.finfo(dtype).bits // 8) % 16:
+        return ValueGradPlan(sum(per_level), table, warps, "lanes",
+                             ("warp",) * L)
+    return ValueGradPlan(sum(per_level), table, warps, "grouped",
+                         walk_plan(per_level, Q, P))
 
 
 def _launch_bwd_value(value, level_shapes, sampling_locations,
                       attention_weights, grad_out):
-    """Launch the v4 value-gradient kernel: each block owns one 64-texel
-    chunk of a level and writes it once, in the value's dtype."""
+    """Launch the v4 value gradient (each sample's corner keys, their stable
+    binning by texel, then the gather by texel: three kernels, no float
+    atomics); returns ``[N, S, H, D]`` in the value's dtype.  The
+    "grouped" body loads 16-byte vectors of dOut: there a grad_out off a
+    16-byte boundary is refused before any launch."""
     name = "ms_deform_attn_v4_bwd_value"
+    D = value.shape[-1]
+    if value.dtype in _DTYPE_CODE and D * value.element_size() % 16 == 0:
+        _refuse_misaligned(name, grad_out, "grad_out", D, value.dtype)
     N, S, Q, H, D, L, P = _check(name, value, level_shapes,
                                  sampling_locations, attention_weights,
                                  grad_out)
     _dims(D, P, value.dtype)
+    plan = value_grad_plan(level_shapes, Q, L, P, D, value.dtype)
+    fn = _c_function("ms_deform_attn_v4_bwd",
+                     "mmi_ms_deform_attn_v4_bwd_value",
+                     [ctypes.c_int] * 6 + [ctypes.c_void_p] * 8
+                     + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 2)
+    dev = value.device
+    keys = torch.empty((N * H, L, 4 * Q * P), dtype=torch.int32, device=dev)
+    ids = torch.empty((N * H, L * 4 * Q * P), dtype=torch.int32, device=dev)
+    bin_start = torch.empty((N * H, plan.cells + L), dtype=torch.int32,
+                            device=dev)
+    table = (torch.empty((N * H, plan.bin_warps + 1, plan.cells),
+                         dtype=torch.int32, device=dev)
+             if plan.table == "global" else None)
     grad = torch.empty_like(value)
-    err = _bwd_fn("mmi_ms_deform_attn_v4_bwd_value", 4)(
-        value.device.index, _DTYPE_CODE[value.dtype],
-        _DTYPE_CODE[sampling_locations.dtype], sampling_locations.data_ptr(),
-        attention_weights.data_ptr(), grad_out.data_ptr(), grad.data_ptr(),
-        N, S, Q, H, D, L, P, _level_array(level_shapes), stream_of(value))
+    group_levels = sum(1 << l for l, w in enumerate(plan.walks)
+                       if w == "group")
+    err = fn(dev.index, _DTYPE_CODE[value.dtype],
+             _DTYPE_CODE[sampling_locations.dtype], plan.bin_warps,
+             int(plan.table == "shared"), group_levels,
+             sampling_locations.data_ptr(), attention_weights.data_ptr(),
+             grad_out.data_ptr(), keys.data_ptr(), ids.data_ptr(),
+             bin_start.data_ptr(),
+             None if table is None else table.data_ptr(), grad.data_ptr(),
+             N, S, Q, H, D, L, P, _level_array(level_shapes),
+             stream_of(value))
     raise_on_error(name, err)
     return grad
 
@@ -277,7 +334,11 @@ def _launch_bwd_loc_weight(value, level_shapes, sampling_locations,
     dev = value.device
     d_loc = torch.empty((N, Q, H, L, P, 2), dtype=torch.float32, device=dev)
     d_w = torch.empty((N, Q, H, L, P), dtype=torch.float32, device=dev)
-    err = _bwd_fn("mmi_ms_deform_attn_v4_bwd_loc_weight", 6)(
+    fn = _c_function("ms_deform_attn_v4_bwd",
+                     "mmi_ms_deform_attn_v4_bwd_loc_weight",
+                     [ctypes.c_int] * 3 + [ctypes.c_void_p] * 6
+                     + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 2)
+    err = fn(
         dev.index, _DTYPE_CODE[value.dtype],
         _DTYPE_CODE[sampling_locations.dtype], value.data_ptr(),
         sampling_locations.data_ptr(), attention_weights.data_ptr(),

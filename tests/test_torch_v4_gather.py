@@ -11,12 +11,22 @@ order, rounds the sum to the value's dtype and takes A * V[texel].  The
 location/weight gradient takes, per sample, the four corners' dot products
 dA_c = g . V_c and blends them with the corners' hats and slopes.
 
+The value gradient (8b, the value kernel of `csrc/ms_deform_attn_v4_bwd.cu`)
+is texel-major: each sample's four corner keys at slot 4 (q P + p) + c
+(the corner's texel, -1 outside the grid), a stable sort of the entries by
+texel, then per texel the first entry of each query sums the query's terms
+one after another in point order, rounds the sum to the value's dtype,
+drops it if it is 0, and adds A times the query's dOut row (fp32).
+
 Checked: every non-zero entry of the dense fp32 A of a (query, level) is
 a merged entry with the same bits, before rounding, and every merged entry
 is the dense one; the gather forward and the gather d_loc / d_w within
 1e-6 of the dense plain versions' scale in fp32 (the same terms summed in
 another order); the merged, rounded A equal to the dense rounded A bit for
-bit in bf16.  Cases: locations over [-0.2, 1.2] (corners outside the
+bit in bf16; 8b's texel-major walk lists each (query, texel) entry of the
+dense A once, bit for bit before and after rounding, and its dV is within
+1e-6 of the dense plain version's scale in fp32 (within one bf16 ulp of it
+in bf16).  Cases: locations over [-0.2, 1.2] (corners outside the
 grid), coordinates on whole texels (the hat's kinks, where the far corner
 sits at |t| = 1 exactly), every point of a query on one texel, P = 1, 8, 9
 and 64, non-square levels, Q off any tile (the kernels take 32 queries a
@@ -32,6 +42,7 @@ import pytest
 import torch
 
 from mm_interleaved_tpu_torch import bench_v4_kernels as bench
+from mm_interleaved_tpu_torch.ops import ms_deform_attn_cuda as dk
 from mm_interleaved_tpu_torch.ops import ms_deform_attn_v4 as v4
 
 _DX = torch.tensor([0.0, 1.0, 0.0, 1.0])
@@ -165,6 +176,64 @@ def gather_loc_weight(value, shapes, loc, w, grad_out):
     return d_loc.contiguous(), d_w.contiguous()
 
 
+def texel_walk(texel, term, P):
+    """8b's walk of one level: ``texel`` / ``term`` ``[M, Q, P, 4]`` (M
+    rows, one per (n, h)), the entries at slot 4 (q P + p) + c.  The
+    entries sorted stably by texel (``bin_samples``: ties keep entry order,
+    so by query and within a query by point), then each run of one query
+    within a texel summed one term after another from 0 in fp32, the first
+    entry leading.  Returns ``(row, q, texel, A)`` of every (query, texel)
+    pair, A before rounding."""
+    M = texel.shape[0]
+    key = texel.reshape(M, -1)
+    val = term.reshape(M, -1)
+    n = key.shape[1]
+    big = torch.iinfo(torch.int64).max
+    order = torch.sort(torch.where(key >= 0, key, big), dim=1,
+                       stable=True).indices
+    k = torch.gather(key, 1, order)
+    t = torch.gather(val, 1, order)
+    q = order // (4 * P)
+    live = k >= 0
+    # a pair starts where the texel or the query changes
+    start = torch.ones_like(live)
+    start[:, 1:] = (k[:, 1:] != k[:, :-1]) | (q[:, 1:] != q[:, :-1])
+    start &= live
+    seg = torch.cumsum(start.flatten().long(), 0).view(M, n) - 1
+    idx = torch.arange(n).expand(M, n)
+    pos = idx - torch.cummax(torch.where(start, idx, torch.zeros_like(idx)),
+                             dim=1).values
+    sums = torch.zeros(int(start.sum()))
+    for j in range(int(pos[live].max()) + 1 if bool(live.any()) else 0):
+        at = live & (pos == j)  # one entry of each pair a step: in order
+        sums[seg[at]] = sums[seg[at]] + t[at]
+    rows = torch.arange(M)[:, None].expand(M, n)
+    return rows[start], q[start], k[start], sums
+
+
+def gather_bwd_value(value, shapes, loc, w, grad_out):
+    """8b's arithmetic: the walk's (query, texel) sums rounded to the
+    value's dtype (zeros dropped), times the queries' dOut rows, summed per
+    texel in fp32; ``[N, S, H, D]`` in the value's dtype."""
+    N, S, H, D = value.shape
+    P = loc.shape[4]
+    g = v4._grad_rows(grad_out, value)  # [BH, Q, D]
+    dv = torch.zeros(N * H, S, D)
+    start = 0
+    for lid in range(len(shapes)):
+        (xs, ys, aw), (h, w_) = _level((value, shapes, loc, w), lid)
+        texel, term = corners(xs, ys, aw, h, w_)
+        row, q, k, a = texel_walk(texel, term, P)
+        a = a.to(value.dtype).float()
+        keep = a != 0
+        row, q, k, a = row[keep], q[keep], k[keep], a[keep]
+        dv.index_put_((row, start + k), a[:, None] * g[row, q],
+                      accumulate=True)
+        start += h * w_
+    dv = dv.view(N, H, S, D).permute(0, 2, 1, 3)
+    return dv.to(value.dtype).contiguous()
+
+
 def _assert_rel(got, want, rel):
     scale = float(want.abs().max())
     err = float((got.float() - want.float()).abs().max())
@@ -239,6 +308,134 @@ def test_gather_loc_weight_matches_dense_plain(case):
         assert not bool(got[0].any()) and not bool(want[0].any())
 
 
+@pytest.mark.parametrize("case", CASES)
+def test_texel_walk_lists_the_dense_matrix_bit_for_bit(case):
+    """Binned by texel and merged a query at a time, the corners give every
+    (query, texel) entry of the dense fp32 A once, with its bits (zeros
+    included), and so the dense A rounded in bf16: the matrix 8b
+    transposes is the one 8a and the plain version multiply."""
+    shapes, Q, P, draw = CASES[case]
+    args = _inputs(shapes, Q, P, draw)
+    for lid in range(len(shapes)):
+        (xs, ys, aw), (h, w) = _level(args, lid)
+        dense = v4._bilinear(xs, ys, aw, h, w)
+        texel, term = corners(xs, ys, aw, h, w)
+        row, q, k, a = texel_walk(texel, term, P)
+        pairs = set(zip(row.tolist(), q.tolist(), k.tolist()))
+        assert len(pairs) == len(row), case  # each pair listed once
+        got = torch.zeros_like(dense)
+        got.index_put_((row, q, k), a)
+        assert bool((got == dense).all()), case
+        assert torch.equal(got.bfloat16(), dense.bfloat16()), case
+        # and every texel a query's corners touch is listed for it
+        touched = torch.zeros(dense.shape, dtype=torch.bool)
+        flat = texel.flatten(2)
+        rr = torch.arange(flat.shape[0])[:, None, None].expand_as(flat)
+        qq = torch.arange(flat.shape[1])[None, :, None].expand_as(flat)
+        inside = flat >= 0
+        touched[rr[inside], qq[inside], flat[inside]] = True
+        assert len(pairs) == int(touched.sum()), case
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_gather_bwd_value_matches_dense_plain(case):
+    """fp32: the texel-major sums of the same products as the dense A^T g,
+    in another order."""
+    shapes, Q, P, draw = CASES[case]
+    args = _inputs(shapes, Q, P, draw, seed=4)
+    want = v4.ms_deform_attn_v4_plain_bwd_value(*args)
+    got = gather_bwd_value(*args)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    _assert_rel(got, want, 1e-6)
+
+
+@pytest.mark.parametrize("case", ["out_of_grid", "kinks", "one_texel", "p9"])
+def test_gather_bwd_value_rounds_a_as_the_dense_plain_in_bf16(case):
+    """bf16 values and dOut: A rounded after the point sum in both, so only
+    the order of the fp32 sums over queries differs (within one bf16 ulp
+    of the scale)."""
+    shapes, Q, P, draw = CASES[case]
+    args = _inputs(shapes, Q, P, draw, seed=5)
+    args = (args[0].bfloat16(),) + args[1:4] + (args[4].bfloat16(),)
+    want = v4.ms_deform_attn_v4_plain_bwd_value(*args)
+    got = gather_bwd_value(*args)
+    assert got.dtype == torch.bfloat16
+    _assert_rel(got, want, 2.0 ** -8)
+
+
+BF16, FP32 = torch.bfloat16, torch.float32
+
+
+@pytest.mark.parametrize("shapes,Q,P,D,dtype,want", [
+    # the v5 benchmark's unet and prefill: the texel table of the 64 x 64
+    # level takes 13 warps' rows in shared memory
+    (((64, 64), (32, 32), (16, 16), (8, 8)), 4096, 8, 64, BF16,
+     (5440, "shared", 13, "grouped", ("group", "warp", "warp", "warp"))),
+    (((32, 32), (16, 16), (8, 8)), 512, 8, 64, BF16,
+     (1344, "shared", 32, "grouped", ("group", "warp", "warp"))),
+    # a level whose table does not fit four warps' rows: device memory
+    (((128, 128),), 300, 4, 64, BF16,
+     (16384, "global", 8, "grouped", ("group",))),
+    (((96, 96),), 300, 4, 64, BF16,
+     (9216, "shared", 5, "grouped", ("group",))),
+    # rows of whole 16-byte vectors, 2 to 32 of them, and rows that are not
+    (((16, 16),), 300, 4, 16, BF16, (256, "shared", 32, "grouped",
+                                     ("group",))),
+    (((16, 16),), 300, 4, 128, FP32, (256, "shared", 32, "grouped",
+                                      ("group",))),
+    (((16, 16),), 300, 4, 20, FP32, (256, "shared", 32, "grouped",
+                                     ("group",))),
+    (((16, 16), (4, 4)), 300, 4, 18, FP32, (272, "shared", 32, "lanes",
+                                            ("warp", "warp"))),
+])
+def test_value_grad_plan(shapes, Q, P, D, dtype, want):
+    """8b's plan: h * w texel bins a level, kernel 2's table and walk
+    rules on them, "lanes" where a row is not whole 16-byte vectors."""
+    plan = v4.value_grad_plan(shapes, Q, len(shapes), P, D, dtype)
+    assert tuple(plan) == want
+    assert plan.cells == sum(h * w for h, w in shapes)
+    if plan.table == "shared":
+        most = max(h * w for h, w in shapes)
+        assert (plan.bin_warps + 1) * most * 4 <= dk.SHARED_BYTES
+
+
+def test_value_grad_plan_refuses_ids_past_int32():
+    """Four entries a sample: 8b refuses an (n, h) of 2^31 entry ids that
+    kernel 2, an entry a sample, still takes."""
+    with pytest.raises(ValueError, match="int32"):
+        v4.value_grad_plan(((8, 8),), 2 ** 27, 1, 4, 64, BF16)
+    v4.value_grad_plan(((8, 8),), 2 ** 27 - 1, 1, 4, 64, BF16)
+    dk.value_grad_plan(((8, 8),), 2 ** 27, 1, 4, 64, BF16)
+    with pytest.raises(ValueError, match="levels"):
+        v4.value_grad_plan(((8, 8),), 4, 2, 2, 64, BF16)
+
+
+def _misaligned(x):
+    buf = torch.zeros(x.numel() + 16, dtype=x.dtype)
+    start = next(i for i in range(1, 16)
+                 if (buf.data_ptr() + i * x.element_size()) % 16)
+    return buf[start:start + x.numel()].view(x.shape).copy_(x)
+
+
+@pytest.mark.parametrize("D,dtype,match", [
+    (64, BF16, "16-byte"), (16, BF16, "16-byte"), (20, FP32, "16-byte"),
+    (18, FP32, "CUDA"),  # lanes along D: any alignment of dOut
+])
+def test_value_grad_refuses_misaligned_grad_out_before_any_launch(
+        D, dtype, match):
+    """8b's grouped body reads dOut rows as 16-byte vectors: a grad_out off
+    a 16-byte boundary raises before the device check and counts
+    nothing."""
+    args = (torch.zeros(1, 16, 2, D, dtype=dtype), ((4, 4),),
+            torch.zeros(1, 3, 2, 1, 2, 2), torch.zeros(1, 3, 2, 1, 2),
+            _misaligned(torch.zeros(1, 3, 2 * D, dtype=dtype)))
+    kernel = v4.ms_deform_attn_v4_bwd_value_cuda
+    before = kernel.launches
+    with pytest.raises(ValueError, match=match):
+        kernel(*args)
+    assert kernel.launches == before
+
+
 def test_cases_cover_the_edges():
     """The draws reach what they are named for: corners outside the grid,
     whole-texel coordinates, one texel a query."""
@@ -273,10 +470,11 @@ def _gather_body(D, dtype, misaligned):
 
 
 def test_smoke_v4_edges_reach_every_body():
-    """`chip_smoke.py`'s `V4_EDGES` reach every body of both gathers in
-    each dtype (2-16 lanes a row in bf16, 4-32 in fp32, single elements),
+    """`chip_smoke.py`'s `V4_EDGES` reach every body of the three gathers
+    in each dtype (2-16 lanes a row in bf16, 4-32 in fp32, single elements),
     P = 1, 8, 9 and 64, whole-texel coordinates, one spot a query, bf16
-    locations, and a non-square level."""
+    locations, and a non-square level; for 8b both walks, the texel table
+    in shared and in device memory, and its "lanes" body."""
     path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
     spec = importlib.util.spec_from_file_location("chip_smoke", path)
     smoke = importlib.util.module_from_spec(spec)
@@ -291,12 +489,20 @@ def test_smoke_v4_edges_reach_every_body():
                  f"loc={kw.get('loc_dtype', 'float32')}"}
         if any(h != w for h, w in kw.get("shapes", ())):
             seen.add("non-square")
+        shapes = kw.get("shapes", ((16, 16), (8, 8), (4, 4)))
+        plan = v4.value_grad_plan(shapes, kw.get("Q", 300), len(shapes),
+                                  kw.get("P", 4), kw.get("D", 64),
+                                  getattr(torch, dtype))
+        seen |= {f"8b/{plan.body}", f"8b/table={plan.table}",
+                 *(f"8b/walk={w}" for w in plan.walks)}
     assert seen >= {"bfloat16/2_lanes", "bfloat16/4_lanes",
                     "bfloat16/8_lanes", "bfloat16/16_lanes",
                     "bfloat16/single", "float32/4_lanes", "float32/8_lanes",
                     "float32/16_lanes", "float32/32_lanes", "P=1", "P=8",
                     "P=9", "P=64", "draw=whole", "draw=one", "draw=wide",
-                    "loc=bfloat16", "loc=float32", "non-square"}
+                    "loc=bfloat16", "loc=float32", "non-square",
+                    "8b/grouped", "8b/lanes", "8b/table=shared",
+                    "8b/table=global", "8b/walk=group", "8b/walk=warp"}
 
 
 def test_bench_v4_kernels_runs_on_the_cpu():
