@@ -145,8 +145,8 @@ Phases, each of which raises (and exits nonzero) on failure:
    checkpoint gives step 3's metrics, masters and moments bit for bit as
    an uninterrupted run;
 12. the interleaved-turn benchmark (`mm_interleaved_tpu_torch.bench.run`)
-   at its defaults (base preset, B = 2, 32 tokens, 25 CFG steps, 3 timed
-   turns, decode at B = 8): its line printed, every value finite and
+   at its defaults but one timed turn (base preset, B = 2, 32 tokens, 25
+   CFG steps, decode at B = 8): its line printed, every value finite and
    positive, both utilisation estimates under 1.05, every kernel's
    launches equal to the count derived from the base config, over the run
    and over the first timed turn, whose counts are read in a window of
@@ -163,7 +163,8 @@ Phases, each of which raises (and exits nonzero) on failure:
    point (`mm_interleaved_tpu_torch.inference.main`) on
    ``build/smoke_inference.yaml``, text -> image -> text over two synthetic
    jpgs, its PNG at 512 px, each turn's wall and launches against the
-   derived counts; (c) the evaluation entry point
+   derived counts (10 denoise steps, `SERVE_STEPS`, here and in 16d); (c)
+   the evaluation entry point
    (`mm_interleaved_tpu_torch.evaluate.main`) on ``build/smoke_eval.yaml``:
    captions (5 beams), VQA (3 beams), VisDial ranking, grounding, text to
    image with CLIP-FID and storytelling on synthetic files, one finite
@@ -212,13 +213,27 @@ Phases, each of which raises (and exits nonzero) on failure:
    65, 257 and 512; K = 16, 48 and 5136; bias present and absent; a
    misaligned view refused); (e) RICES over 16 seeded images with
    a seeded ViT-L/14 in fp32: features within 1e-4 of their scale of the
-   CPU's, the CPU's picks.
+   CPU's, the CPU's picks;
+17. the sharded runtime (`parallel.inference.ShardedGenerator`): (a) at
+   world size 1 on the flagship (a nccl group of one rank, ``make_mesh(1,
+   1, 1)``): greedy tokens and the denoise of row 0's two images equal
+   `LocalGenerator`'s on the same model bit for bit, each launch window
+   its derived count; (b) tensor = 2 over two gloo processes on the card
+   (``chip_smoke.py --tensor-rank R PORT DIR``), the flagship's widths
+   with 8 LLM layers (2 MMFS): the teacher-forced and prompt logits no
+   farther from the same weights' fp32 logits than 1.5 times the
+   one-process bf16 run's distance, the first greedy token equal, each
+   rank's cut weights half of the one-process bytes within 2%, kernels 1,
+   5 and the int8 kernel held against their plain versions at the
+   local-head and local-K shapes.
 
 Prints a ``{"kernels": [...]}`` line (all fourteen kernels, each with its
 launches in the measured bench turn, its mean launches a train-entry
-step, its launches over phase 14's counted runs, over phase 15's and over
-phase 16's; the flash forward with its CLIP-text site, the int8 kernel
-with its edge cases), the
+step, its launches over phase 14's counted runs, over phase 15's, over
+phase 16's, over phase 17a's sharded run and over phase 17b's rank 0; the
+flash forward with its CLIP-text site, the int8 kernel with its edge
+cases, kernels 1, 5 and the int8 kernel with their tensor-parallel sites),
+the
 ``nvidia-smi`` name/power line, and last ``{"ok": true, "device":
 {...}}``.  Needs one CUDA card and the
 repository checkout around it; imports no JAX.
@@ -600,7 +615,8 @@ def teacher_forced_logits(model, text_ids, images, n_img, att, tokens):
         cache = KVCache.create(model.cfg.llm, text_ids.shape[0],
                                text_ids.shape[1] + tokens.shape[1],
                                device=text_ids.device,
-                               dtype=model.soi_token.dtype)
+                               dtype=model.soi_token.dtype,
+                               kv_heads=model.mm_decoder.kv_heads)
         logits, _, cache, values = model.lm_prefill(
             prep["mm_embeds"], att, prep["mmfs_values"],
             prep["cross_attention_mask"], cache,
@@ -3473,8 +3489,14 @@ def bench_text_launches(cfg, n_decode: int) -> dict:
     return out
 
 
+# the bench turns phase 12 times (the benchmark's default is 3; the smoke
+# checks the path, the benchmark PR measures it)
+BENCH_TURNS = 1
+
+
 def run_bench_turn() -> dict:
-    """Phase 12: `bench.run("cuda")` at its defaults with every count at 0
+    """Phase 12: `bench.run("cuda")` at its defaults but ``BENCH_TURNS``
+    timed turns, with every count at 0
     just before it: its line's values finite and positive, both
     utilisation estimates under 1.05, and every kernel's launches equal to
     the count derived from the base config for its warm-up and timed
@@ -3486,7 +3508,7 @@ def run_bench_turn() -> dict:
 
     from mm_interleaved_tpu_torch import bench
 
-    reps, B, n_decode, n_denoise = 3, 2, 32, 25
+    reps, B, n_decode, n_denoise = BENCH_TURNS, 2, 32, 25
     cfg = bench.PRESETS["base"]()
     text = bench_text_launches(cfg, n_decode)
     image = expected_image_launches(cfg, n_denoise, B)
@@ -3509,12 +3531,14 @@ def run_bench_turn() -> dict:
         return out
 
     bench.text_half, bench.image_half = windowed_text, windowed_image
+    os.environ["BENCH_REPS"] = str(reps)
     reset_counts()
     t0 = time.perf_counter()
     try:
         res = bench.run("cuda")
     finally:
         bench.text_half, bench.image_half = text_half, image_half
+        del os.environ["BENCH_REPS"]
     launches = read_counts()
     wall_s = time.perf_counter() - t0
     turn = {k: window["after"][k] - window["before"][k] for k in KERNELS}
@@ -3573,7 +3597,9 @@ CAPTION_BEAM = dict(max_new_tokens=20, min_new_tokens=8, num_beams=5,
                     length_penalty=1.0)
 VQA_BEAM = dict(max_new_tokens=10, min_new_tokens=0, num_beams=3,
                 length_penalty=0.0)
-SERVE_STEPS = 25
+# denoise steps of the serving phases' image turns and routes (14, 16d);
+# the path is the same at any count
+SERVE_STEPS = 10
 # the grounding route decodes 24 greedy tokens; `generate_scores` runs the
 # options in chunks of 4 rows; the synthetic VisDial rows have 4 options
 GROUNDING_TOKENS = 24
@@ -3722,9 +3748,10 @@ def recording(cls, names, calls):
 def run_serving_inference(model) -> dict:
     """Phase 14b: `inference.main` on ``build/smoke_inference.yaml``
     (`configs/inference.yaml` at the flagship, 3 turns, an image forced
-    after each text turn, 25 steps) over an annt.json of two synthetic
-    jpgs: a text, image, text run whose PNG decodes to the decoder's size;
-    each turn's wall and launches against the derived counts (a text turn:
+    after each text turn, `SERVE_STEPS` steps) over an annt.json of two
+    synthetic jpgs: a text, image, text run whose PNG decodes to the
+    decoder's size; each turn's wall and launches against the derived
+    counts (a text turn:
     the encoder, the prefill and ``max_new_tokens - 1`` decode steps; an
     image turn: `expected_image_launches` for one row)."""
     import torch
@@ -4961,7 +4988,8 @@ def bench_route_launches(cfg) -> dict:
 def run_bench_eval(sites) -> dict:
     """Phase 16d: `evaluate.main` at the flagship (seeded bf16) on the nine
     stanzas of `write_bench_assets` (the eight `datasets_bench` types, VIST
-    twice), one batch of 2 each, 25 steps, CLIP-FID on: one finite row a
+    twice), one batch of 2 each, `SERVE_STEPS` steps, CLIP-FID on: one
+    finite row a
     route, each route's launches the derived count, its samples/s; the
     ade20k row without mIoU (the entry passes no segmenter, as JAX's);
     then `Evaluator.evaluate_segm2img` on the ade20k batches with the
@@ -5150,6 +5178,379 @@ def run_quant_phase(greedy_tokens, bf16_peak_gb: float,
     return dict(tiny=tiny, flagship=flag, bench_eval=bench_eval,
                 sites=recs, edges=edges, rices=rices,
                 wall_s=time.perf_counter() - t0)
+
+
+# --------------------------------------------------------------------------
+# the sharded runtime (phase 17)
+
+# phase 17b's model: the flagship's widths with TP_LAYERS LLM layers (2 of
+# them MMFS: cross_attention_frequency 4), no image decoder
+TP_LAYERS = 8
+TP_TOKENS = 4
+# phase 17a's denoise of the first two images of row 0
+SHARD_STEPS = 5
+TP_TIMEOUT = 600
+# the two-rank run's logits against the same weights' fp32 one-process
+# logits: the row-parallel sums round each rank's bf16 partial before the
+# sum, so its error is held to that of the one-process bf16 run (max and
+# mean over the logits), within this factor
+TP_ERR_FACTOR = 1.5
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        return sk.getsockname()[1]
+
+
+def param_bytes(model, pattern: str) -> int:
+    import re
+
+    return sum(p.numel() * p.element_size()
+               for n, p in model.named_parameters() if re.search(pattern, n))
+
+
+def cut_bytes(model) -> int:
+    """The bytes of the weights the plan cuts over tensor (the LLM's
+    attention, MLP and MMFS projections, by head or column): each rank
+    holds half of them at tensor = 2."""
+    from mm_interleaved_tpu_torch.parallel.partition import placement_for
+
+    return sum(p.numel() * p.element_size()
+               for n, p in model.named_parameters()
+               if placement_for(n, p.shape, {"tensor": 2}).tensor is not None)
+
+
+def run_sharded_one() -> dict:
+    """Phase 17a: the sharded runtime at world size 1 on the flagship (full
+    width and depth, bf16, phase 4's seed and config): a nccl group of one
+    rank, ``make_mesh(1, 1, 1)``, `ShardedGenerator`; greedy tokens
+    (phase 5's settings) and the denoise of row 0's two images
+    (``SHARD_STEPS`` steps, one seeded generator) against
+    `LocalGenerator`'s on the same model, bit for bit, every launch window
+    (counts at 0 before, read after) its count derived from the config."""
+    import torch
+    import torch.distributed as dist
+
+    from mm_interleaved_tpu_torch.configs import flagship_config
+    from mm_interleaved_tpu_torch.generation.text import TextGenerationConfig
+    from mm_interleaved_tpu_torch.models.mm_interleaved import build_model
+    from mm_interleaved_tpu_torch.parallel.inference import (
+        LocalGenerator, ShardedGenerator)
+    from mm_interleaved_tpu_torch.parallel.partition import make_mesh
+
+    t0 = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        cfg = flagship_config(max_num_images=N_IMG)
+        model = build_model(cfg, "cuda", torch.bfloat16, seed=SEED)
+        perturb_zero_inits(model, SEED + 1)
+        ids, images, n_img, att = prompt_inputs(cfg, "cuda")
+        gen = TextGenerationConfig(max_new_tokens=NEW_TOKENS,
+                                   eos_token_ids=(),
+                                   pad_token_id=cfg.special.pad_token_id)
+
+        def first_images(rt):
+            inp = rt.generate_image_inputs(ids, images, n_img, att)
+            g = torch.Generator(device="cuda")
+            g.manual_seed(SEED + 7)
+            return rt.denoise(*(x[:2] for x in inp), g,
+                              num_inference_steps=SHARD_STEPS,
+                              guidance_scale=GUIDANCE)
+
+        out = {}
+        for name, rt in (("local", lambda: LocalGenerator(model)),
+                         ("sharded", lambda: ShardedGenerator(
+                             model, make_mesh(1, 1, 1, "cuda")))):
+            rt = rt()
+            reset_counts()
+            tokens, text_ms, _ = timed(rt.generate_texts, ids, images, n_img,
+                                       att, gen)
+            text = read_counts()
+            reset_counts()
+            imgs, image_ms, _ = timed(first_images, rt)
+            image = read_counts()
+            out[name] = dict(tokens=tokens, images=imgs, text=text,
+                             image=image, text_ms=text_ms,
+                             image_ms=image_ms)
+        want = dict(text=bench_text_launches(cfg, NEW_TOKENS),
+                    image=expected_image_launches(cfg, SHARD_STEPS, 2))
+        for name in out:
+            for part in ("text", "image"):
+                if out[name][part] != want[part]:
+                    raise AssertionError(
+                        f"17a {name} {part} launches {out[name][part]} != "
+                        f"{want[part]}")
+        loc, sh = out["local"], out["sharded"]
+        if not torch.equal(sh["tokens"], loc["tokens"]):
+            raise AssertionError("17a: the sharded greedy tokens differ from "
+                                 "LocalGenerator's")
+        if not torch.equal(sh["images"], loc["images"]):
+            raise AssertionError("17a: the sharded images differ from "
+                                 "LocalGenerator's")
+        if not torch.isfinite(sh["images"]).all():
+            raise AssertionError("17a: non-finite images")
+        del model
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    return dict(tokens=sh["tokens"], launches=add_launches(sh["text"],
+                                                           sh["image"]),
+                text_ms=(loc["text_ms"], sh["text_ms"]),
+                image_ms=(loc["image_ms"], sh["image_ms"]),
+                wall_s=time.perf_counter() - t0)
+
+
+def tp_config():
+    import dataclasses as dc
+
+    from mm_interleaved_tpu_torch.configs import flagship_config
+
+    cfg = flagship_config(max_num_images=N_IMG)
+    return dc.replace(cfg, image_decoder=None, llm=dc.replace(
+        cfg.llm, num_hidden_layers=TP_LAYERS))
+
+
+def tp_model():
+    import torch
+
+    from mm_interleaved_tpu_torch.models.mm_interleaved import build_model
+
+    model = build_model(tp_config(), "cuda", torch.bfloat16, seed=SEED)
+    perturb_zero_inits(model, SEED + 1)
+    return model
+
+
+def tp_forward(rt, cases=None) -> dict:
+    """Through the runtime ``rt``: ``TP_TOKENS`` greedy tokens on the phase
+    5 prompt (counts at 0 before, read after); with its model, the
+    teacher-forced logits along them and the cache-free causal forward's
+    logits of the whole prompt (kernel 5 at the LLM's heads), kernels 1
+    and 5 captured into ``cases`` when given."""
+    import torch
+
+    from mm_interleaved_tpu_torch.generation.text import TextGenerationConfig
+
+    model = rt.model
+    cfg = model.cfg
+    ids, images, n_img, att = prompt_inputs(cfg, "cuda")
+    gen = TextGenerationConfig(max_new_tokens=TP_TOKENS, eos_token_ids=(),
+                               pad_token_id=cfg.special.pad_token_id)
+    reset_counts()
+    tokens = rt.generate_texts(ids, images, n_img, att, gen)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    with (contextlib.nullcontext() if cases is None else capture(
+            ["ms_deform_attn_fwd", "flash_attention_fwd"], cases)):
+        tf = teacher_forced_logits(model, ids, images, n_img, att, tokens)
+        with torch.no_grad():
+            prep = model.prepare_mm_embeds(ids, images, n_img)
+            hidden, _, _ = model.mm_decoder(
+                prep["mm_embeds"], attention_mask=att,
+                vision_hidden_states=prep["mmfs_values"],
+                cross_attention_mask=prep["cross_attention_mask"])
+            full = model.text_decoder(hidden).float()
+    return dict(tokens=tokens.cpu(), tf=tf.cpu(), full=full.cpu(),
+                launches=launches)
+
+
+def tensor_rank_main(rank: str, port: str, out_dir: str) -> int:
+    """One rank of phase 17b (``chip_smoke.py --tensor-rank R PORT DIR``):
+    gloo over two processes on the one card, ``make_mesh(1, 1, 2)``; the
+    seeded 8-layer model cut by `ShardedGenerator` (its cut weights'
+    bytes), `tp_forward` with kernels 1 and 5 captured; then a second build
+    quantized whole and cut (``quantize="int8"``), its greedy tokens with
+    the int8 kernel's decode calls captured.  Rank 0 holds each captured
+    kernel against its plain version at the local-head and local-K shapes.
+    Saves ``DIR/rank{R}.pt``."""
+    import torch
+    import torch.distributed as dist
+
+    from mm_interleaved_tpu_torch.parallel.inference import ShardedGenerator
+    from mm_interleaved_tpu_torch.parallel.partition import make_mesh
+
+    r = int(rank)
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=2, rank=r)
+    # gloo carries the CUDA tensors' collectives between the two ranks
+    x = torch.full((4,), float(r + 1), device="cuda")
+    dist.all_reduce(x)
+    y = torch.full((4,), float(r + 1), device="cuda")
+    dist.broadcast(y, 0)
+    parts = [torch.empty(2, device="cuda") for _ in range(2)]
+    dist.all_gather(parts, torch.full((2,), float(r), device="cuda"))
+    gloo = dict(all_reduce=x.tolist() == [3.0] * 4,
+                broadcast=y.tolist() == [1.0] * 4,
+                all_gather=[t.tolist() for t in parts] == [[0.0] * 2,
+                                                           [1.0] * 2])
+    mesh = make_mesh(1, 1, 2, "cuda")
+    rt = ShardedGenerator(tp_model(), mesh)
+    res = dict(gloo_cuda=gloo, cut_bytes=cut_bytes(rt.model),
+               layers_bytes=param_bytes(rt.model, r"^mm_decoder\.layers\."))
+    cases = {}
+    res.update(tp_forward(rt, cases))
+    del rt
+    torch.cuda.empty_cache()
+    rt = ShardedGenerator(tp_model(), mesh, quantize="int8")
+    from mm_interleaved_tpu_torch.generation.text import TextGenerationConfig
+
+    cfg = rt.model.cfg
+    ids, images, n_img, att = prompt_inputs(cfg, "cuda")
+    sites = {}
+    reset_counts()
+    with int8_capture(sites, "tp", max_rows=B):
+        res["int8_tokens"] = rt.generate_texts(
+            ids, images, n_img, att, TextGenerationConfig(
+                max_new_tokens=TP_TOKENS, eos_token_ids=(),
+                pad_token_id=cfg.special.pad_token_id)).cpu()
+    torch.cuda.synchronize()
+    res["int8_launches"] = read_counts()
+    dist.barrier()
+    dist.destroy_process_group()
+    del rt
+    if r == 0:
+        heads = {"ms_deform_attn_fwd": cfg.llm.mmfs_heads // 2,
+                 "flash_attention_fwd": cfg.llm.num_attention_heads // 2}
+        tp_sites = {"ms_deform_attn_fwd": ["mmfs_prefill", "mmfs_decode"],
+                    "flash_attention_fwd": ["llm_prefix"]}
+        for name, want in tp_sites.items():
+            for site in want:
+                q = cases[name][site][0][0]
+                if q.shape[-2] != heads[name]:
+                    raise AssertionError(f"17b {name} {site}: {q.shape[-2]} "
+                                         f"heads, not {heads[name]}")
+            res[name] = compare_kernel(name, cases[name], want)
+        res["int8_linear"] = compare_int8(sites)
+    torch.save(res, Path(out_dir) / f"rank{r}.pt")
+    return 0
+
+
+def run_tensor_parallel() -> dict:
+    """Phase 17b: `ShardedGenerator` with tensor = 2 over two gloo
+    processes on the one card (NCCL refuses two ranks on one device), the
+    flagship's widths with ``TP_LAYERS`` LLM layers (each rank first checks
+    that gloo carries CUDA tensors' ``all_reduce``, ``broadcast`` and
+    ``all_gather``), against the one-process
+    run of the same seeded model here: the teacher-forced logits and the
+    prompt's (at its real tokens) no farther from the same weights' fp32
+    logits than ``TP_ERR_FACTOR`` times the one-process bf16 run's
+    distance (max and mean), the two ranks' equal, the first greedy token
+    the one-process run's; each rank's cut weights half of their
+    one-process bytes within 2%; each rank's launches the count derived
+    from the config; kernels 1, 5 and the int8 kernel at the local-head
+    and local-K shapes against their plain versions (rank 0).  Every
+    failure is gathered; the phase fails after the last check.  Each
+    rank's log is under ``build/smoke_tp/``."""
+    import subprocess
+
+    import torch
+
+    from mm_interleaved_tpu_torch.parallel.inference import LocalGenerator
+
+    t0 = time.perf_counter()
+    model = tp_model()
+    one = tp_forward(LocalGenerator(model))
+    one_bytes = dict(cut=cut_bytes(model),
+                     layers=param_bytes(model, r"^mm_decoder\.layers\."))
+    one["int8_tokens"] = tp_forward(LocalGenerator(
+        model, quantize="int8"))["tokens"]
+    del model
+    torch.cuda.empty_cache()
+    # the same weights in fp32: the yardstick of both bf16 runs' rounding
+    model = tp_model().float()
+    ref = tp_forward(LocalGenerator(model))
+    del model
+    torch.cuda.empty_cache()
+    out_dir = Path("build/smoke_tp")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    port = str(free_port())
+    logs = [open(out_dir / f"rank{r}.log", "w") for r in range(2)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--tensor-rank", str(r),
+         port, str(out_dir)], stdout=logs[r], stderr=subprocess.STDOUT)
+        for r in range(2)]
+    try:
+        deadline = time.monotonic() + TP_TIMEOUT
+        for r, p in enumerate(procs):
+            rc = p.wait(timeout=max(1.0, deadline - time.monotonic()))
+            if rc:
+                raise AssertionError(f"17b rank {r} exited {rc}: see "
+                                     f"{out_dir}/rank{r}.log")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    ranks = [torch.load(out_dir / f"rank{r}.pt", weights_only=False)
+             for r in range(2)]
+    res = dict(one_bytes=one_bytes, gloo_cuda=[rk["gloo_cuda"]
+                                               for rk in ranks])
+    fails = [f"rank {r}: gloo refused or garbled CUDA {k}"
+             for r, rk in enumerate(ranks)
+             for k, ok in rk["gloo_cuda"].items() if not ok]
+    # the prompt logits at the real tokens (a padded slot's are noise)
+    _, _, _, att = prompt_inputs(tp_config(), "cpu")
+    valid = att.bool()
+    for key in ("tf", "full"):
+        sel = (lambda x: x[valid]) if key == "full" else (lambda x: x)
+        want = sel(ref[key])
+        for who, got in (("one", one[key]), ("tp", ranks[0][key])):
+            err = (sel(got) - want).abs()
+            res[f"{key}_{who}_max_err"] = float(err.max())
+            res[f"{key}_{who}_mean_err"] = float(err.mean())
+        res[f"{key}_scale"] = float(want.abs().max())
+        res[f"{key}_tp_vs_one_max"] = float(
+            (sel(ranks[0][key]) - sel(one[key])).abs().max())
+        for stat in ("max", "mean"):
+            tp_err = res[f"{key}_tp_{stat}_err"]
+            one_err = res[f"{key}_one_{stat}_err"]
+            if not tp_err <= TP_ERR_FACTOR * one_err:
+                fails.append(f"{key} logits' {stat} error against fp32 "
+                             f"{tp_err} over {TP_ERR_FACTOR} x the one-"
+                             f"process bf16 run's {one_err}")
+        if not torch.equal(ranks[1][key], ranks[0][key]):
+            fails.append(f"{key} logits differ between ranks")
+    top2 = one["tf"][:, 0].topk(2, dim=-1).values
+    res["first_token_margin"] = float((top2[:, 0] - top2[:, 1]).min())
+    if not torch.equal(ranks[0]["tokens"][:, 0], one["tokens"][:, 0]):
+        fails.append(f"first greedy token {ranks[0]['tokens'][:, 0]} != "
+                     f"{one['tokens'][:, 0]}")
+    res["tokens_equal"] = float((ranks[0]["tokens"] == one["tokens"])
+                                .float().mean())
+    res["int8_tokens_equal"] = float((ranks[0]["int8_tokens"]
+                                      == one["int8_tokens"]).float().mean())
+    for r, rk in enumerate(ranks):
+        for key in ("cut", "layers"):
+            res[f"rank{r}_{key}_ratio"] = rk[f"{key}_bytes"] / one_bytes[key]
+        if abs(res[f"rank{r}_cut_ratio"] / 0.5 - 1) > 0.02:
+            fails.append(f"rank {r}: cut weights {rk['cut_bytes']} B, not "
+                         f"half of {one_bytes['cut']}")
+    want = bench_text_launches(tp_config(), TP_TOKENS)
+    for r, rk in enumerate(ranks):
+        if rk["launches"] != want:
+            fails.append(f"rank {r} launches {rk['launches']} != {want}")
+    if ranks[0]["int8_launches"]["int8_linear"] == 0:
+        fails.append("the int8 kernel was not launched")
+    if fails:
+        log(f"phase 17b: {json.dumps(res)}")
+        raise AssertionError("17b: " + "; ".join(fails))
+    res.update(launches=ranks[0]["launches"],
+               int8_launches=ranks[0]["int8_launches"],
+               sites={k: ranks[0][k] for k in ("ms_deform_attn_fwd",
+                                               "flash_attention_fwd",
+                                               "int8_linear")},
+               tokens=ranks[0]["tokens"][:, :TP_TOKENS].tolist(),
+               wall_s=time.perf_counter() - t0)
+    return res
 
 
 def main() -> int:
@@ -5438,7 +5839,39 @@ def main() -> int:
     lines.append(int8_line)
     quant_launches = add_launches(f16["launches"], be["launches"])
     line_of["flash_attention_fwd"]["clip_text_site"] = clip["site"]
+    # 17. the sharded runtime: (a) world size 1 at the flagship, (b) tensor
+    # = 2 over two processes on the card
+    sh = run_sharded_one()
+    log(f"sharded runtime, world size 1 (nccl, mesh (1, 1, 1), flagship): "
+        f"greedy tokens and the first two images of row 0 equal "
+        f"LocalGenerator's bit for bit; text {sh['text_ms'][1]:.1f} ms "
+        f"(local {sh['text_ms'][0]:.1f}), {SHARD_STEPS}-step denoise "
+        f"{sh['image_ms'][1]:.1f} ms (local {sh['image_ms'][0]:.1f}) | "
+        f"{smi}; launches {json.dumps(sh['launches'])}; phase 17a "
+        f"{sh['wall_s']:.1f} s")
+    tp = run_tensor_parallel()
+    errs = {k: v for k, v in tp.items() if k.startswith(("tf_", "full_"))}
+    log(f"tensor parallel, tensor = 2 (gloo, two processes on the card, "
+        f"{TP_LAYERS} LLM layers at the flagship's widths): logits against "
+        f"the fp32 one-process run {json.dumps(errs)}; first greedy token "
+        f"equal (top-2 "
+        f"margin {tp['first_token_margin']:.4g}), {TP_TOKENS} tokens equal "
+        f"at {tp['tokens_equal']:.3f} of positions, int8 at "
+        f"{tp['int8_tokens_equal']:.3f}; cut weights a rank "
+        f"{tp['rank0_cut_ratio']:.4f} / {tp['rank1_cut_ratio']:.4f} of "
+        f"{tp['one_bytes']['cut'] / 1e9:.3f} GB, the layers' "
+        f"{tp['rank0_layers_ratio']:.4f} of "
+        f"{tp['one_bytes']['layers'] / 1e9:.3f} GB; gloo's CUDA "
+        f"collectives {json.dumps(tp['gloo_cuda'])} | {smi}; launches "
+        f"{json.dumps(tp['launches'])}, int8 "
+        f"{json.dumps(tp['int8_launches'])}; phase 17b {tp['wall_s']:.1f} s")
+    for name in ("ms_deform_attn_fwd", "flash_attention_fwd"):
+        line_of[name]["tensor_parallel_sites"] = tp["sites"][name]
+    int8_line["tensor_parallel_sites"] = tp["sites"]["int8_linear"]
     for line in lines:
+        line["sharded_launches"] = sh["launches"][line["name"]]
+        line["tensor_parallel_launches"] = (
+            tp["launches"][line["name"]] + tp["int8_launches"][line["name"]])
         line["quant_launches"] = quant_launches[line["name"]]
         line["weights_launches"] = wt["launches"][line["name"]]
         line["serving_launches"] = serving[line["name"]]
@@ -5455,4 +5888,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--tensor-rank"]:
+        sys.exit(tensor_rank_main(*sys.argv[2:]))
     sys.exit(main())

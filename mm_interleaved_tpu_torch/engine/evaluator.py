@@ -17,9 +17,13 @@ runtime takes them.  Results append to ``eval_metrics.jsonl``.
 Differences from the JAX harness: draws come from `torch.Generator`s (a
 t2i candidate's seeded from its (batch, candidate), a storytelling
 round's from its (batch, round), a segmentation-to-image batch's from its
-batch index) in place of ``fold_in`` / ``split``; `gather_predictions` is
-the identity in one process and refuses a larger `torch.distributed` world
-(multi-GPU, ROADMAP.md §1 item 6).
+batch index) in place of ``fold_in`` / ``split``.
+
+Under a sharded runtime (`parallel.inference.ShardedGenerator`) every rank
+runs every route on the whole batch and gets every row back; rank 0 alone
+writes images and metrics.  `gather_predictions` merges the predictions of
+every rank of the `torch.distributed` world, as the JAX harness merges
+those of every host.
 """
 
 from __future__ import annotations
@@ -165,7 +169,9 @@ class Evaluator:
         return result
 
     def _out_dir(self, dataset_name: str, save: bool = True):
-        if not (save and self.cfg.output_dir):
+        """The route's image directory; None where images are not saved,
+        and on every rank but 0."""
+        if not (save and self.cfg.output_dir) or rank() != 0:
             return None
         out_dir = os.path.join(self.cfg.output_dir, dataset_name)
         os.makedirs(out_dir, exist_ok=True)
@@ -318,7 +324,7 @@ class Evaluator:
                 batch["options_mask"], batch["image_tensors"],
                 batch["num_image_per_seq"], batch["attention_mask"],
             )
-            all_scores.append(scores)
+            all_scores.append(scores.float().cpu().numpy())
             all_rel.append(batch["relevance"].cpu().numpy())
         scores = np.concatenate(all_scores)
         rel = np.concatenate(all_rel)
@@ -399,17 +405,22 @@ class Evaluator:
 
     @staticmethod
     def gather_predictions(local: Dict) -> Dict:
-        """The predictions of every process: the identity in one process.
-        A larger `torch.distributed` world is refused (the JAX harness
-        all-gathers across hosts; multi-GPU is ROADMAP.md §1 item 6)."""
+        """The predictions of every rank merged (replaces the reference's
+        per-rank JSON files and barrier, caption_collect.py:7,
+        lmm_trainer.py:1871-1891): the ranks may hold different keys and
+        different counts; on a key two ranks hold, the higher rank's value
+        wins, as in the JAX harness.  The identity in one process."""
         import torch.distributed as dist
 
-        if dist.is_available() and dist.is_initialized() \
-                and dist.get_world_size() > 1:
-            raise NotImplementedError(
-                "gather_predictions across processes is not ported yet "
-                "(ROADMAP.md §1 item 6)")
-        return local
+        if not (dist.is_available() and dist.is_initialized()) \
+                or dist.get_world_size() == 1:
+            return local
+        parts = [None] * dist.get_world_size()
+        dist.all_gather_object(parts, dict(local))
+        merged: Dict = {}
+        for part in parts:
+            merged.update(part)
+        return merged
 
     def _sink(self, dataset_name: str, result: Dict):
         """Append to eval_metrics.jsonl (reference lmm_trainer.py:2165-2177)."""

@@ -19,10 +19,21 @@ flintstones to storytelling (vist with ``collate_mode: generate_texts`` to
 captioning its last frame); ade20k to segmentation to image, with no
 segmenter (``num_generated`` only, as in the JAX entry).
 ``evaluation.quantize: int8`` runs the LLM with int8 weights
-(`ops.quant`).  A ``mesh:`` over more than one device (ROADMAP.md §1 item
-6) and an orbax checkpoint are refused (``--checkpoint`` takes the port's
-own checkpoints: ``python -m mm_interleaved_tpu_torch.convert_checkpoint``
-writes one from the released weights).
+(`ops.quant`).  An orbax checkpoint is refused (``--checkpoint`` takes the
+port's own checkpoints: ``python -m
+mm_interleaved_tpu_torch.convert_checkpoint`` writes one from the released
+weights).
+
+A ``mesh:`` stanza over more than one device (``{fsdp: 4, tensor: 2}``)
+runs the sharded runtime (`parallel.inference.ShardedGenerator`), one
+process a device under torchrun::
+
+    torchrun --nproc_per_node 8 -m mm_interleaved_tpu_torch.evaluate \
+        --config configs/eval.yaml
+
+(nccl on the card, rank r on ``cuda:LOCAL_RANK``; gloo with ``--device
+cpu``).  Every rank runs every batch; rank 0 alone writes the images and
+``eval_metrics.jsonl``.
 
 The t2i rerank (a stanza's ``rerank_by_clip`` with ``num_candidates > 1``)
 reads ``evaluation.clip_text_path``, an HF CLIP directory: both its towers
@@ -309,7 +320,8 @@ def main(argv=None, model=None) -> Dict[str, Any]:
     from .data.datasets import iterate_dataset
     from .data.tokenizer import load_tokenizer
     from .engine.evaluator import EvalConfig, Evaluator
-    from .parallel.inference import build_generation_runtime, check_runtime
+    from .parallel.inference import (build_generation_runtime, check_runtime,
+                                     init_distributed)
     from .utils.checkpoint import entry_model
     from .utils.config import build_model_config, load_config
     from .utils.device import resolve_device
@@ -317,8 +329,8 @@ def main(argv=None, model=None) -> Dict[str, Any]:
     cfg = load_config(args.config)
     output_dir = args.output_dir or cfg.get("output_dir", "OUTPUT/eval")
     ev_cfg = cfg.get("evaluation", {}) or {}
+    device = init_distributed(resolve_device(args.device))
     check_runtime(cfg.get("mesh"), ev_cfg.get("quantize"))
-    device = resolve_device(args.device)
     model_cfg = build_model_config(cfg["model"])
     val = (cfg.get("data", {}) or {}).get("val", []) or []
     tokenizer = load_tokenizer(

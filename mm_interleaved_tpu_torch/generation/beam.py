@@ -51,7 +51,7 @@ def gather_rows(ids: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
     return torch.gather(ids, 1, sel[:, :, None].expand(-1, -1, ids.shape[2]))
 
 
-@torch.inference_mode()
+@torch.no_grad()
 def beam_search(
     model,
     mm_embeds: torch.Tensor,  # [B, L, C]
@@ -74,7 +74,8 @@ def beam_search(
 
     # the prefill on B rows, then its state tiled to B*K
     cache = KVCache.create(model.cfg.llm, B, L + T, device=dev,
-                           dtype=model.soi_token.dtype)
+                           dtype=model.soi_token.dtype,
+                           kv_heads=model.mm_decoder.kv_heads)
     logits, _, cache, vision_values = model.lm_prefill(
         mm_embeds, attention_mask, mmfs_values, cross_attention_mask, cache
     )

@@ -7,7 +7,9 @@ image side (value projections, masks and delta tables of every block) is
 computed once, before the loop, at the pre-CFG batch; the UNet's
 factorised kernel reads it for both halves.  The VAE decode runs at the
 end.  ``latents`` and ``noises`` (``[steps, B, h, w, 4]``) may be injected
-instead of drawn from ``generator``.
+instead of drawn from ``generator``; `draw_noise` draws them, all before
+the loop, so that a shard of the batch can take its rows of the draws made
+at the global batch (`parallel.inference.ShardedGenerator`).
 """
 
 from __future__ import annotations
@@ -17,7 +19,29 @@ from typing import Optional
 import torch
 
 
-@torch.inference_mode()
+def draw_noise(model, batch: int, num_inference_steps: int, sampler: str,
+               generator: Optional[torch.Generator] = None, device=None,
+               latents: Optional[torch.Tensor] = None,
+               noises: Optional[torch.Tensor] = None):
+    """``(latents [B, h, w, 4], noises [steps, B, h, w, 4] or None)`` for
+    ``batch`` rows: the given ones, the rest drawn from ``generator`` in
+    the loop's order (the latents, then one draw a DDPM step; DDIM draws
+    no noise)."""
+    cfg = model.cfg.image_decoder
+    shape = (batch, cfg.latent_size, cfg.latent_size,
+             cfg.vae.latent_channels)
+    if latents is None:
+        latents = torch.randn(shape, generator=generator, device=device,
+                              dtype=torch.float32)
+    if sampler == "ddpm" and noises is None:
+        noises = torch.stack([
+            torch.randn(shape, generator=generator, device=device,
+                        dtype=torch.float32)
+            for _ in range(num_inference_steps)])
+    return latents, noises
+
+
+@torch.no_grad()
 def generate_images(
     model,
     context_features: torch.Tensor,  # [B, L_ctx, C_llm]
@@ -44,10 +68,8 @@ def generate_images(
     do_cfg = guidance_scale > 1.0
     ctx_in = torch.cat([neg, ctx]) if do_cfg else ctx
 
-    shape = (B, cfg.latent_size, cfg.latent_size, cfg.vae.latent_channels)
-    if latents is None:
-        latents = torch.randn(shape, generator=generator, device=dev,
-                              dtype=torch.float32)
+    latents, noises = draw_noise(model, B, num_inference_steps, sampler,
+                                 generator, dev, latents, noises)
     latents = latents.to(dev, torch.float32)
 
     prepared = None
@@ -66,12 +88,8 @@ def generate_images(
             uncond, cond = pred.chunk(2)
             pred = uncond + guidance_scale * (cond - uncond)
         if sampler == "ddpm":
-            if noises is not None:
-                noise = noises[i].to(dev, torch.float32)
-            else:
-                noise = torch.randn(shape, generator=generator, device=dev,
-                                    dtype=torch.float32)
-            latents = sched.ddpm_step(pred, t, t_prev, latents, noise)
+            latents = sched.ddpm_step(pred, t, t_prev, latents,
+                                      noises[i].to(dev, torch.float32))
         else:
             latents = sched.ddim_step(pred, t, t_prev, latents)
     return dec.vae_decode(latents)

@@ -10,11 +10,10 @@ chunk runs at its own size: there is no recompile to avoid.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 
-@torch.inference_mode()
+@torch.no_grad()
 def generate_scores(
     model,
     text_ids: torch.Tensor,  # [B, L] shared context
@@ -24,8 +23,9 @@ def generate_scores(
     num_image_per_seq: torch.Tensor,  # [B]
     attention_mask: torch.Tensor,  # [B, L]
     mini_bs: int = 4,
-) -> np.ndarray:
-    """Returns ``[B, n_opt]`` option log-prob scores (fp32)."""
+) -> torch.Tensor:
+    """Returns ``[B, n_opt]`` option log-prob scores (fp32, on the model's
+    device)."""
     B, L = text_ids.shape
     n_opt, Lo = options_ids.shape[1], options_ids.shape[2]
     full_ids = torch.cat(
@@ -55,4 +55,4 @@ def generate_scores(
         logp = torch.log_softmax(logits[:, L - 1:L + Lo - 1].float(), dim=-1)
         tok_logp = torch.gather(logp, 2, ids[:, L:L + Lo, None].long())[..., 0]
         scores.append((tok_logp * mask[:, L:L + Lo].float()).sum(dim=-1))
-    return torch.cat(scores).cpu().numpy().reshape(B, n_opt)
+    return torch.cat(scores).reshape(B, n_opt)

@@ -5,7 +5,8 @@ number of decode steps (counterpart of `mm_interleaved_tpu/generation/text.py`).
     mask, and reuse the prefill's MMFS value projections;
   * stopping on any of ``eos_token_ids``; the result holds only the new
     tokens, padded with ``pad_token_id`` after the first stop token;
-  * greedy or temperature/nucleus sampling (with a `torch.Generator`), the
+  * greedy or temperature/nucleus sampling (uniforms drawn at once from a
+    `torch.Generator`, or given, each row's CDF inverted at its own), the
     repetition penalty on generated tokens only, and the eos mask before
     ``min_new_tokens``; ``num_beams > 1`` routes to the beam search of
     :mod:`.beam`.
@@ -58,9 +59,21 @@ def mask_eos_before_min(logits, new_len: int, cfg: TextGenerationConfig):
     return logits
 
 
+def sample_uniforms(cfg: TextGenerationConfig, batch: int,
+                    generator: Optional[torch.Generator] = None,
+                    device=None) -> torch.Tensor:
+    """Nucleus sampling's draws, one uniform a step and row, ``[steps,
+    batch]``, made at once at the global batch: a shard of the batch takes
+    its columns of the same draws (`parallel.inference.ShardedGenerator`)."""
+    return torch.rand((cfg.max_new_tokens, batch), generator=generator,
+                      device=device)
+
+
 def sample_token(logits, cfg: TextGenerationConfig,
-                 generator: Optional[torch.Generator] = None):
-    """logits: [B, V] fp32 -> [B] int64."""
+                 generator: Optional[torch.Generator] = None,
+                 u: Optional[torch.Tensor] = None):
+    """logits: [B, V] fp32 -> [B] int64.  Sampling inverts each row's CDF
+    at its uniform ``u [B]`` (drawn from ``generator`` when not given)."""
     if not cfg.do_sample:
         return logits.argmax(dim=-1)
     logits = logits / max(cfg.temperature, 1e-6)
@@ -79,10 +92,17 @@ def sample_token(logits, cfg: TextGenerationConfig,
                              torch.full_like(logits, torch.finfo(logits.dtype).min),
                              logits)
     probs = torch.softmax(logits, dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+    if u is None:
+        u = torch.rand(probs.shape[0], generator=generator,
+                       device=probs.device)
+    cdf = probs.cumsum(dim=-1)
+    # the first token whose CDF passes u * total: never one of mass 0
+    tok = torch.searchsorted(cdf, (u.to(cdf.dtype) * cdf[:, -1])[:, None],
+                             right=True)[:, 0]
+    return tok.clamp_(max=probs.shape[-1] - 1)
 
 
-@torch.inference_mode()
+@torch.no_grad()
 def generate_tokens(
     model,
     mm_embeds: torch.Tensor,  # [B, L, C]
@@ -91,13 +111,19 @@ def generate_tokens(
     cross_attention_mask: Optional[torch.Tensor],  # [B, L, n_img]
     cfg: TextGenerationConfig,
     generator: Optional[torch.Generator] = None,
+    uniforms: Optional[torch.Tensor] = None,  # [max_new_tokens, B]
 ) -> torch.Tensor:
-    """Greedy or nucleus decoding; returns ``[B, max_new_tokens]``."""
+    """Greedy or nucleus decoding; returns ``[B, max_new_tokens]``.
+    Sampling reads ``uniforms`` (`sample_uniforms`), drawn from
+    ``generator`` when not given."""
     B, L, _ = mm_embeds.shape
     dev = mm_embeds.device
     vocab = model.cfg.llm.vocab_size
+    if cfg.do_sample and uniforms is None:
+        uniforms = sample_uniforms(cfg, B, generator, dev)
     cache = KVCache.create(model.cfg.llm, B, L + cfg.max_new_tokens,
-                           device=dev, dtype=model.soi_token.dtype)
+                           device=dev, dtype=model.soi_token.dtype,
+                           kv_heads=model.mm_decoder.kv_heads)
     logits, _, cache, vision_values = model.lm_prefill(
         mm_embeds, attention_mask, mmfs_values, cross_attention_mask, cache
     )
@@ -114,7 +140,8 @@ def generate_tokens(
             step_logits.float(), presence, cfg.repetition_penalty
         )
         step_logits = mask_eos_before_min(step_logits, new_len, cfg)
-        return sample_token(step_logits, cfg, generator)
+        return sample_token(step_logits, cfg,
+                            u=None if uniforms is None else uniforms[new_len])
 
     tok = pick(logits[:, -1], 0)
     finished = torch.isin(tok, eos)
@@ -139,7 +166,7 @@ def generate_tokens(
     return torch.where(after, torch.full_like(out, cfg.pad_token_id), out)
 
 
-@torch.inference_mode()
+@torch.no_grad()
 def generate_texts(
     model,
     text_ids: torch.Tensor,
@@ -148,8 +175,10 @@ def generate_texts(
     attention_mask: Optional[torch.Tensor] = None,
     cfg: TextGenerationConfig = TextGenerationConfig(),
     generator: Optional[torch.Generator] = None,
+    uniforms: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Encode the images, scatter them into the prompt, decode new tokens."""
+    """Encode the images, scatter them into the prompt, decode new tokens
+    (``uniforms``: `generate_tokens`'s)."""
     if attention_mask is None:
         attention_mask = (text_ids != model.cfg.special.pad_token_id).int()
     prep = model.prepare_mm_embeds(text_ids, image_tensors, num_image_per_seq)
@@ -160,5 +189,5 @@ def generate_texts(
         )
     return generate_tokens(
         model, prep["mm_embeds"], attention_mask, prep["mmfs_values"],
-        prep["cross_attention_mask"], cfg, generator,
+        prep["cross_attention_mask"], cfg, generator, uniforms,
     )

@@ -13,9 +13,12 @@ mm_interleaved_tpu_torch.convert_checkpoint`` writes one from the released
 weights) or a checkpoint of the port's `Trainer` (`utils.checkpoint`).
 
 ``inference.quantize: int8`` runs the LLM with int8 weights (`ops.quant`).
-Runs on the card; ``--device cpu`` runs on the CPU.  A ``mesh:`` over more
-than one device (ROADMAP.md §1 item 6) and an orbax checkpoint directory
-are refused.
+Runs on the card; ``--device cpu`` runs on the CPU.  An orbax checkpoint
+directory is refused.  A ``mesh:`` stanza over more than one device runs
+the sharded runtime (`parallel.inference.ShardedGenerator`), one process a
+device under ``torchrun --nproc_per_node N -m
+mm_interleaved_tpu_torch.inference ...``; rank 0 alone writes the images
+and the results file.
 """
 
 from __future__ import annotations
@@ -31,10 +34,12 @@ from PIL import Image
 
 from .data.tokenizer import load_tokenizer
 from .inference_loop import InferenceConfig, InterleavedInferencePipeline
-from .parallel.inference import build_generation_runtime, check_runtime
+from .parallel.inference import (build_generation_runtime, check_runtime,
+                                 init_distributed)
 from .utils.checkpoint import entry_model
 from .utils.config import build_model_config, load_config
 from .utils.device import resolve_device
+from .utils.logging import rank
 
 
 def main(argv=None, model=None) -> Dict[str, Any]:
@@ -52,8 +57,9 @@ def main(argv=None, model=None) -> Dict[str, Any]:
 
     cfg = load_config(args.config)
     inf = cfg.get("inference", {}) or {}
+    device = init_distributed(resolve_device(args.device))
     check_runtime(cfg.get("mesh"), inf.get("quantize"))
-    device = resolve_device(args.device)
+    writer = rank() == 0
     model_cfg = build_model_config(cfg["model"])
     model = entry_model(model_cfg, device, args.checkpoint, model)
     runtime = build_generation_runtime(model, cfg.get("mesh"),
@@ -74,25 +80,31 @@ def main(argv=None, model=None) -> Dict[str, Any]:
         ),
     )
 
-    os.makedirs(args.output_dir, exist_ok=True)
+    if writer:
+        os.makedirs(args.output_dir, exist_ok=True)
     results, paths = [], []
     for si, sample in enumerate(pipe.load_annt_data(args.annt_path,
                                                     args.image_root)):
         out = pipe.run(sample)
         for ii, img in enumerate(out["images"]):
             path = os.path.join(args.output_dir, f"sample{si}_img{ii}.png")
-            Image.fromarray((np.asarray(img) * 255).astype(np.uint8)).save(
-                path)
+            if writer:
+                Image.fromarray((np.asarray(img) * 255).astype(np.uint8)
+                                ).save(path)
             paths.append(path)
         results.append({"sample": si, "texts": out["texts"],
                         "num_images": len(out["images"])})
-        print(f"[{si}] texts={out['texts']} images={len(out['images'])}",
-              flush=True)
+        if writer:
+            print(f"[{si}] texts={out['texts']} images="
+                  f"{len(out['images'])}", flush=True)
 
-    ts = time.strftime("%Y%m%d%H%M%S")
-    results_file = os.path.join(args.output_dir, f"eval_results_{ts}.json")
-    with open(results_file, "w") as f:
-        json.dump(results, f, indent=2)
+    results_file = None
+    if writer:
+        ts = time.strftime("%Y%m%d%H%M%S")
+        results_file = os.path.join(args.output_dir,
+                                    f"eval_results_{ts}.json")
+        with open(results_file, "w") as f:
+            json.dump(results, f, indent=2)
     return dict(results=results, images=paths, results_file=results_file)
 
 

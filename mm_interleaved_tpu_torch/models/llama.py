@@ -6,7 +6,10 @@ of `mm_interleaved_tpu/models/llama.py`).
   * a preallocated `KVCache` with a ``valid`` mask and a ``length`` counter,
     written in place (the JAX cache is functional); beam search tiles it
     along batch and reorders it into a second buffer;
-  * fp32 softmax attention, GQA, and left-padded positions.
+  * fp32 softmax attention, GQA, and left-padded positions;
+  * tensor parallelism (`parallel.tensor`): the head counts come from the
+    projections' widths, which a cut makes this rank's, and a row-parallel
+    output is summed over the module's ``tensor_group`` (None: whole).
 
 The stack is one unrolled list of layers; the JAX ``scan_layers`` layout
 is unstacked by the weight bridge (`utils/from_flax.py`), and
@@ -27,6 +30,7 @@ import torch.nn.functional as F
 from ..ops.attention import dot_product_attention
 from ..ops.rmsnorm import rms_norm
 from ..ops.rotary import apply_rotary_embedding, rotary_cos_sin
+from ..parallel.tensor import tensor_all_reduce
 from .mmfs import MMFS
 from .remat import remat_call
 
@@ -88,9 +92,13 @@ class KVCache:
 
     @classmethod
     def create(cls, config: LlamaConfig, batch: int, max_len: int,
-               device=None, dtype: Optional[torch.dtype] = None) -> "KVCache":
-        shape = (config.num_hidden_layers, batch, max_len, config.kv_heads,
-                 config.head_dim)
+               device=None, dtype: Optional[torch.dtype] = None,
+               kv_heads: Optional[int] = None) -> "KVCache":
+        """An empty cache; ``kv_heads`` is the model's own (`LlamaModel.
+        kv_heads`: this rank's under tensor parallelism), default the
+        config's."""
+        shape = (config.num_hidden_layers, batch, max_len,
+                 kv_heads or config.kv_heads, config.head_dim)
         dtype = dtype or config.compute_dtype
         return cls(
             k=torch.zeros(shape, dtype=dtype, device=device),
@@ -144,9 +152,12 @@ class LlamaMLP(nn.Module):
                                  bias=False)
         self.down_proj = nn.Linear(cfg.intermediate_size, cfg.hidden_size,
                                    bias=False)
+        self.tensor_group = None
 
     def forward(self, x):
-        return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
+        return tensor_all_reduce(
+            self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x)),
+            self.tensor_group)
 
 
 class LlamaAttention(nn.Module):
@@ -159,6 +170,16 @@ class LlamaAttention(nn.Module):
         self.k_proj = nn.Linear(c, cfg.kv_heads * hd, bias=False)
         self.v_proj = nn.Linear(c, cfg.kv_heads * hd, bias=False)
         self.o_proj = nn.Linear(cfg.num_attention_heads * hd, c, bias=False)
+        self.tensor_group = None
+
+    @property
+    def n_q(self) -> int:
+        """The query heads this module holds (all, or this rank's)."""
+        return self.q_proj.out_features // self.cfg.head_dim
+
+    @property
+    def n_kv(self) -> int:
+        return self.k_proj.out_features // self.cfg.head_dim
 
     def forward(self, x, positions, rope, attn_mask,
                 cache_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
@@ -166,7 +187,7 @@ class LlamaAttention(nn.Module):
                 segment_ids: Optional[torch.Tensor] = None):
         cfg = self.cfg
         B, T, _ = x.shape
-        n_q, n_kv, hd = cfg.num_attention_heads, cfg.kv_heads, cfg.head_dim
+        n_q, n_kv, hd = self.n_q, self.n_kv, cfg.head_dim
         q = self.q_proj(x).view(B, T, n_q, hd)
         k = self.k_proj(x).view(B, T, n_kv, hd)
         v = self.v_proj(x).view(B, T, n_kv, hd)
@@ -186,7 +207,8 @@ class LlamaAttention(nn.Module):
             q, k, v, mask=attn_mask, causal=causal,
             q_segment_ids=segment_ids, kv_segment_ids=segment_ids,
         )
-        return self.o_proj(out.reshape(B, T, n_q * hd))
+        return tensor_all_reduce(self.o_proj(out.reshape(B, T, n_q * hd)),
+                                 self.tensor_group)
 
 
 class LlamaMMFSCrossAttention(nn.Module):
@@ -284,6 +306,11 @@ class LlamaModel(nn.Module):
 
     def init_weights(self, g: torch.Generator) -> None:
         self.embed_tokens.weight.data.normal_(0.0, 0.02, generator=g)
+
+    @property
+    def kv_heads(self) -> int:
+        """The key/value heads a layer holds (all, or this rank's)."""
+        return self.layers[0].self_attn.n_kv
 
     def embed(self, text_ids: torch.Tensor) -> torch.Tensor:
         return self.embed_tokens(text_ids)

@@ -246,7 +246,7 @@ class MMInterleaved(nn.Module):
         out["loss"] = out["loss"] + loss_img * c.loss_img_weight
         return out
 
-    @torch.inference_mode()
+    @torch.no_grad()
     def generate_image_inputs(self, text_ids, image_tensors,
                               num_image_per_seq, attention_mask=None):
         """The cache-free prefix forward (causal, with the padding as

@@ -30,6 +30,11 @@ Two branches, chosen by whether `forward` is given an image side:
     package's non-factorised route instead (``off_q + off_img`` and the
     wide weights ``Eq * Et * rZ`` through `ms_deform_attn_multi_image`, the
     differentiable deformable op).
+
+The head count and the value width are read from the projections'
+widths: the LLM's MMFS cut over ``tensor`` (`parallel.tensor`) holds this
+rank's heads, sums its output projection over ``tensor_group`` and adds
+the bias once, after the sum.  The UNet's MMFSNet is never cut.
 """
 
 from __future__ import annotations
@@ -38,11 +43,13 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
+import torch.nn.functional as F
 from einops import rearrange
 
 from ..ops.cuda_build import needs_grad
 from ..ops.ms_deform_attn import ms_deform_attn_multi_image
 from ..ops.ms_deform_attn_mi import build_delta, mmfs_deform_factorized
+from ..parallel.tensor import tensor_all_reduce
 
 
 def image_relpos_from_mask(mask: torch.Tensor,
@@ -73,8 +80,7 @@ class MMFS(nn.Module):
         super().__init__()
         self.d_query = d_query if d_query > 0 else d_model
         self.d_out = d_out if d_out > 0 else d_model
-        self.d_val_proj = int(d_model * ratio)
-        self.n_heads = n_heads
+        d_val_proj = int(d_model * ratio)
         self.n_points = n_points
         self.offset_init_magnitude = offset_init_magnitude
         self.level_shapes = tuple(tuple(s) for s in level_shapes)
@@ -82,13 +88,23 @@ class MMFS(nn.Module):
         self.max_num_image_per_seq = max_num_image_per_seq
         L = len(self.level_shapes)
         H, P = n_heads, n_points
-        self.value_proj = nn.Linear(d_value, self.d_val_proj)
+        self.value_proj = nn.Linear(d_value, d_val_proj)
         self.dynamic_offset_mask = nn.Linear(self.d_query, self.d_query)
         self.query_relpos = nn.Embedding(max_num_image_per_seq, self.d_query)
         self.sampling_offsets = nn.Linear(self.d_query, H * P * 2)
         self.attention_weights = nn.Linear(self.d_query, H * L * (P + 1))
-        self.ignore_token = nn.Parameter(torch.empty(self.d_val_proj))
-        self.output_proj = nn.Linear(self.d_val_proj, self.d_out)
+        self.ignore_token = nn.Parameter(torch.empty(d_val_proj))
+        self.output_proj = nn.Linear(d_val_proj, self.d_out)
+        self.tensor_group = None
+
+    @property
+    def n_heads(self) -> int:
+        """The heads this module holds (all, or this rank's)."""
+        return self.sampling_offsets.out_features // (2 * self.n_points)
+
+    @property
+    def d_val_proj(self) -> int:
+        return self.value_proj.out_features
 
     def init_weights(self, g: torch.Generator) -> None:
         w = self.query_relpos.weight.data
@@ -216,10 +232,18 @@ class MMFS(nn.Module):
         )
 
     def _finish(self, out, w_ignore_tot):
-        out = self.output_proj(out)
+        proj = self.output_proj
+        if self.tensor_group is None:
+            out = proj(out)
+        else:
+            out = F.linear(out, proj.weight)
         tok_w = self._ignore_table(out.dtype, out.device)
-        return out + torch.einsum("bqh,ho->bqo", w_ignore_tot.to(tok_w.dtype),
-                                  tok_w)
+        out = out + torch.einsum("bqh,ho->bqo", w_ignore_tot.to(tok_w.dtype),
+                                 tok_w)
+        if self.tensor_group is None:
+            return out
+        out = tensor_all_reduce(out, self.tensor_group)
+        return out + proj.bias.to(out.dtype)
 
     def _forward_image_mask(self, query, reference_points, side):
         B, Lq, _ = query.shape

@@ -7,11 +7,11 @@ dtype.  The port's Linear weight is ``[out, in]``, so the reduction runs
 over ``in`` and the scale is fp32 ``[out]`` (the JAX kernel is ``[in,
 out]`` with the scale over axis -2: the same numbers, transposed).
 
-* `QLinear` is the counterpart of `QDense`: an int8 ``weight`` buffer, an
-  fp32 ``scale`` buffer and the optional ``bias``.  Its forward is ``y = x
-  @ (q * s)^T + b`` with the dequantized weight ``q.to(dtype) *
-  s.to(dtype)`` as JAX rounds it (``dequantize_int8``), then ``+ b`` in the
-  dtype, as `QDense` adds it.
+* `QLinear` is the counterpart of `QDense`: an int8 ``weight``, an fp32
+  ``scale`` and the optional ``bias``, parameters without gradient.  Its
+  forward is ``y = x @ (q * s)^T + b`` with the dequantized weight
+  ``q.to(dtype) * s.to(dtype)`` as JAX rounds it (``dequantize_int8``),
+  then ``+ b`` in the dtype, as `QDense` adds it.
 * `int8_linear_cuda` launches ``csrc/int8_linear.cu`` (``.launches``
   counts its launches): the JAX package gets the dequantization fused into
   the dot's operand read from XLA (`QDense`, :85-97); the port gets it from
@@ -280,9 +280,15 @@ def int8_linear(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
     return out.view(*x.shape[:-1], q.shape[0])
 
 
+def _frozen(t: torch.Tensor) -> nn.Parameter:
+    return nn.Parameter(t, requires_grad=False)
+
+
 class QLinear(nn.Module):
     """A Linear layer with int8 weights: ``weight`` int8 ``[out, in]`` and
-    ``scale`` fp32 ``[out]`` (buffers), ``bias`` as the Linear's."""
+    ``scale`` fp32 ``[out]``, ``bias`` as the Linear's, all three
+    parameters that need no gradient (FSDP2 shards parameters; a buffer it
+    would keep whole on every rank)."""
 
     def __init__(self, in_features: int, out_features: int,
                  bias: bool = True, device=None,
@@ -290,13 +296,12 @@ class QLinear(nn.Module):
         super().__init__()
         self.in_features = in_features
         self.out_features = out_features
-        self.register_buffer("weight", torch.zeros(
+        self.weight = _frozen(torch.zeros(
             (out_features, in_features), dtype=torch.int8, device=device))
-        self.register_buffer("scale", torch.ones(
+        self.scale = _frozen(torch.ones(
             out_features, dtype=torch.float32, device=device))
-        self.bias = (nn.Parameter(torch.zeros(out_features, dtype=dtype,
-                                              device=device),
-                                  requires_grad=False) if bias else None)
+        self.bias = (_frozen(torch.zeros(out_features, dtype=dtype,
+                                         device=device)) if bias else None)
 
     @classmethod
     def from_linear(cls, linear: nn.Linear) -> "QLinear":
@@ -304,7 +309,8 @@ class QLinear(nn.Module):
         out = cls(linear.in_features, linear.out_features,
                   bias=linear.bias is not None, device=w.device,
                   dtype=w.dtype)
-        out.weight, out.scale = quantize_int8(w)
+        q, scale = quantize_int8(w)
+        out.weight, out.scale = _frozen(q), _frozen(scale)
         if linear.bias is not None:
             out.bias.data.copy_(linear.bias.data)
         return out

@@ -29,7 +29,7 @@ takes it.
 
 Runs on the card; ``--device cpu`` runs on the CPU.  It refuses what the
 port cannot do yet rather than ignore it: a mesh of more than one device
-and ``distributed.initialize`` (multi-GPU sharding, ROADMAP.md §1 item 6).
+and ``distributed.initialize`` (the sharded Trainer, ROADMAP.md §1 item 6b).
 Errors propagate: a failed run exits nonzero.
 """
 
@@ -70,11 +70,12 @@ def check_supported(cfg: Dict[str, Any]) -> None:
     if axes["fsdp"] > 1 or axes["tensor"] > 1 or axes["data"] > 1:
         raise NotImplementedError(
             f"mesh {axes} asks for more than one device; the port trains on "
-            "one (multi-GPU sharding is ROADMAP.md §1 item 6)")
+            "one (the sharded Trainer is ROADMAP.md §1 item 6b; serving "
+            "runs sharded)")
     if (cfg.get("distributed", {}) or {}).get("initialize", False):
         raise NotImplementedError(
-            "distributed.initialize: the port runs one process (multi-GPU "
-            "sharding is ROADMAP.md §1 item 6)")
+            "distributed.initialize: the port trains in one process (the "
+            "sharded Trainer is ROADMAP.md §1 item 6b)")
 
 
 def print_parameter_counts(model) -> None:

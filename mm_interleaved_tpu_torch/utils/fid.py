@@ -78,7 +78,7 @@ class CLIPViTFeatures:
         self.projected = projected
         self.image_size = image_size or encoder.embeddings.config.image_size
 
-    @torch.inference_mode()
+    @torch.no_grad()
     def features(self, images: torch.Tensor) -> torch.Tensor:
         """``[N, S, S, 3]`` in [0, 1] at the ViT's resolution -> the cls
         (or projected) features ``[N, D]`` in fp32."""

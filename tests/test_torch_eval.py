@@ -423,14 +423,15 @@ def test_load_model_reads_a_trainer_checkpoint(tmp_path):
 
 
 def test_refusals_raise_and_name_the_roadmap_item(assets, tmp_path):
-    """Nothing falls back: a mesh over more than one device raises, naming
-    its ROADMAP.md item (6); an unknown ``quantize`` mode raises
+    """Nothing falls back: a mesh over more than one device with no process
+    group raises (the sharded runtime needs one rank a device); an
+    unknown ``quantize`` mode raises
     `ValueError`, as JAX's runtimes do; an orbax checkpoint names the
     converter; ``--device cuda`` without a GPU raises.  ``quantize: int8``
     and the CLIP rerank's directory are accepted."""
     model = build_model(tcfg.tiny_config(with_image_decoder=False), "cpu",
                         torch.float32)
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(RuntimeError, match="no process group"):
         build_generation_runtime(model, {"fsdp": 2})
     with pytest.raises(ValueError, match="unknown quantize mode"):
         build_generation_runtime(model, None, quantize="fp8")
@@ -453,7 +454,8 @@ def test_refusals_raise_and_name_the_roadmap_item(assets, tmp_path):
                                                      val=[]))
     cpu = ("--device", "cpu")
     for mod, key in ((evaluate, "evaluation"), (inference, "inference")):
-        entry_raises(mod, dict(base, mesh={"data": 2}), "item 6", *cpu)
+        entry_raises(mod, dict(base, mesh={"data": 2}), "no process group",
+                     *cpu)
         entry_raises(mod, dict(base, **{key: {"quantize": "int4"}}),
                      "unknown quantize mode", *cpu, errors=ValueError)
         if not torch.cuda.is_available():

@@ -56,5 +56,6 @@ def test_port_imports_without_jax():
                  "utils.convert_ref", "utils.inception_v3",
                  "models.clip_text", "data.datasets_bench", "data.rices",
                  "prepare_ade20k", "ops.quant", "bench_int8_kernel",
-                 "bench_v4_kernels"):
+                 "bench_v4_kernels", "parallel.partition",
+                 "parallel.tensor"):
         assert f"mm_interleaved_tpu_torch.{name}" in imported, name

@@ -205,8 +205,8 @@ def test_kernel_python_half_and_refusals(monkeypatch):
     """The body by M, N, K and dtype, the vector-load rule, the CPU
     dispatch to the plain version, and every refusal before any launch:
     inputs off the card, dtypes and shapes the kernel does not take, a view
-    off a 16-byte boundary, an unknown quantize mode, a mesh (ROADMAP.md §1
-    item 6)."""
+    off a 16-byte boundary, an unknown quantize mode, a mesh with no
+    process group."""
     bf16, fp32 = torch.bfloat16, torch.float32
     # bf16 with K % 16 == 0 (every LLM projection): the Hopper body
     assert [int8_linear_body(m, 5120, 5120, bf16)
@@ -255,7 +255,7 @@ def test_kernel_python_half_and_refusals(monkeypatch):
 
     with pytest.raises(ValueError, match="unknown quantize mode"):
         check_runtime(None, "int4")
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(RuntimeError, match="no process group"):
         check_runtime({"tensor": 2}, "int8")
 
 
