@@ -227,12 +227,34 @@ Phases, each of which raises (and exits nonzero) on failure:
    5 and the int8 kernel held against their plain versions at the
    local-head and local-K shapes.
 
+18. the sharded Trainer (`engine.trainer.Trainer` on a mesh): (a) the
+   flagship's training form at world size 1 (a nccl group of one rank,
+   ``make_mesh(1, 1, 1)``), one step on phase 8b's batch against the
+   one-process `Trainer` on the same seeded weights, built again: the
+   loss, the gradient norm and every master and both moments (by digest)
+   bit for bit, each run's launches the derived count; (b) tensor = 2 over
+   two gloo processes on the card (``chip_smoke.py --train-tensor-rank R
+   PORT DIR``), the flagship's widths with 8 LLM layers (2 MMFS) and the
+   image decoder, one step on one row: the loss, the norm and each
+   trainable group's gradient no farther from the same weights' fp32 step
+   than 1.5 times the one-process bf16 step, every gradient of a leaf
+   whole over ``tensor`` the same bits on both ranks, kernels 1, 2, 3, 5
+   and 5b at the local heads against their plain versions.
+
+Phase 14 ends (14d) with the native image kernels' pixels on a seeded
+image held to the CPU's digest, then the inference entry's first text
+turn run again in a fresh process (``chip_smoke.py --turn-probe OUT``):
+its text equal to 14b's in this process, and where the traced records
+part, the first differing call logged.
+
 Prints a ``{"kernels": [...]}`` line (all fourteen kernels, each with its
 launches in the measured bench turn, its mean launches a train-entry
 step, its launches over phase 14's counted runs, over phase 15's, over
-phase 16's, over phase 17a's sharded run and over phase 17b's rank 0; the
+phase 16's, over phase 17a's sharded run, over phase 17b's rank 0, over
+phase 18a's sharded step and over phase 18b's rank 0; the
 flash forward with its CLIP-text site, the int8 kernel with its edge
-cases, kernels 1, 5 and the int8 kernel with their tensor-parallel sites),
+cases, kernels 1, 5 and the int8 kernel with their tensor-parallel sites,
+kernels 1, 2, 3, 5 and 5b with their tensor-parallel training sites),
 the
 ``nvidia-smi`` name/power line, and last ``{"ok": true, "device":
 {...}}``.  Needs one CUDA card and the
@@ -2512,8 +2534,9 @@ def save_sites(cases, names) -> str:
     return str(path)
 
 
-def compare_backward(name, sites_cases) -> list:
-    """Each backward kernel at each captured site, its inputs rounded to
+def compare_backward(name, sites_cases, sites=None) -> list:
+    """Each backward kernel at each captured site (of ``sites``, by default
+    every site the path must have), its inputs rounded to
     bf16 or kept fp32, against autograd through a reference on the same
     inputs: the plain version in fp32 for the deformable kernels, attention
     in fp64 for flash attention (with `check_training_forward` on its
@@ -2535,8 +2558,8 @@ def compare_backward(name, sites_cases) -> list:
     kernel = kernel_of(name)
     flash = name == "flash_attention_bwd"
     ulps = 4 if flash else 2
-    sites, fails = [], []
-    for site in WANT_SITES[name]:
+    recs, fails = [], []
+    for site in sites or WANT_SITES[name]:
         args, kw = sites_cases[site]
         kw = {k: v for k, v in kw.items() if k != "return_lse"}
         rec = dict(site=site, shapes=[list(x.shape) for x in args
@@ -2612,12 +2635,12 @@ def compare_backward(name, sites_cases) -> list:
                     rec["library_device_ms"] = device_ms(lib)
                     rec["library_queued_ms"] = queued_ms(lib)
             del got, ref, plain, a, fwd
-        sites.append(rec)
+        recs.append(rec)
         log(f"kernel vs plain, {name} {site}: {json.dumps(rec)}")
         torch.cuda.empty_cache()
     if fails:
         raise AssertionError(f"{len(fails)} failed checks: {fails}")
-    return sites
+    return recs
 
 
 def device_sums(sites) -> dict:
@@ -3775,16 +3798,33 @@ def run_serving_inference(model) -> dict:
     path = BUILD_DIR.parent / "smoke_inference.yaml"
     path.write_text(yaml.safe_dump(config))
     calls = []
+    params = {n: int(_digest(p)) for n, p in model.named_parameters()}
+    traced, margins = [], []
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
     with recording(LocalGenerator, ("generate_texts", "generate_image_inputs",
-                                    "denoise"), calls):
-        res = inference.main(["--config", str(path), "--annt_path", annt,
-                              "--image_root", str(root / "inputs"),
-                              "--output_dir", str(root / "out"),
-                              "--device", "cuda"], model=model)
+                                    "denoise"), calls), \
+            turn_trace(model, traced, margins) as stop:
+        gen = LocalGenerator.generate_texts  # the recorded one
+
+        def first_turn_traced(self, *a, **kw):
+            try:
+                return gen(self, *a, **kw)
+            finally:
+                stop()
+
+        LocalGenerator.generate_texts = first_turn_traced
+        try:
+            res = inference.main(["--config", str(path), "--annt_path", annt,
+                                  "--image_root", str(root / "inputs"),
+                                  "--output_dir", str(root / "out"),
+                                  "--device", "cuda"], model=model)
+        finally:
+            LocalGenerator.generate_texts = gen
     wall_s = time.perf_counter() - t0
+    turn = dict(text=res["results"][0]["texts"][0], params=params,
+                **trace_record(traced, margins))
     launches = read_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     cfg = model.cfg
@@ -3815,9 +3855,206 @@ def run_serving_inference(model) -> dict:
     if png.shape != (size, size, 3):
         raise AssertionError(f"inference PNG {png.shape}")
     return dict(turns=[{"kind": t["kind"], "ms": t["ms"]} for t in turns],
+                turn_record=turn,
                 texts=res["results"][0]["texts"], png_shape=list(png.shape),
                 launches=launches, text_turn=text, image_turn=image,
                 peak_gb=peak_gb, wall_s=wall_s)
+
+
+def _digest(t):
+    """An int64 digest of a tensor's bits (on its device, no sync)."""
+    import torch
+
+    bits = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+    x = t.detach().contiguous().reshape(-1)
+    if x.dtype == torch.bool:
+        x = x.to(torch.uint8)
+    if x.is_floating_point():
+        x = x.view(bits[x.element_size()])
+    v = x.to(torch.int64)
+    return v.sum() + 31 * (v * v).sum()
+
+
+def _aligns(obj):
+    """Each tensor's data pointer modulo 256 (a GEMM takes another kernel
+    for an input off a 16-byte boundary)."""
+    import torch
+
+    if isinstance(obj, torch.Tensor):
+        return [obj.data_ptr() % 256]
+    if isinstance(obj, (tuple, list)):
+        return [a for o in obj for a in _aligns(o)]
+    return []
+
+
+def _digests(obj):
+    import torch
+
+    if isinstance(obj, torch.Tensor):
+        return [_digest(obj)]
+    if isinstance(obj, (tuple, list)):
+        return [d for o in obj for d in _digests(o)]
+    if isinstance(obj, dict):
+        return [d for k in sorted(obj) for d in _digests(obj[k])]
+    return []
+
+
+# the digest (sha256, first 16 hex digits) of the native image kernel's
+# pixels on a seeded image (`native_pixels`), as the CPU computes them: a
+# host whose build computes other pixels fails phase 14d
+NATIVE_PIXELS = "c2bd2af92f231119"
+
+
+def native_pixels() -> str:
+    """The digest of `data.native.crop_resize_to_f32` on a seeded 480 x 640
+    image, cropped and resized to 448 px, on this host's build."""
+    import hashlib
+
+    from mm_interleaved_tpu_torch.data import native
+
+    if not native.is_available():
+        raise AssertionError("the native image kernels did not build")
+    rs = np.random.RandomState(0)
+    src = rs.randint(0, 256, (480, 640, 3)).astype(np.uint8)
+    out = native.crop_resize_to_f32(src, 10, 20, 460, 600, 448, 448)
+    return hashlib.sha256(out.tobytes()).hexdigest()[:16]
+
+
+def probe_config_path() -> tuple:
+    """Phase 14b's YAML and inputs cut to its first text turn: returns
+    ``(yaml path, annt path, image root)`` under ``build/``."""
+    import yaml
+
+    from mm_interleaved_tpu_torch.data.synthetic_eval import (
+        write_inference_assets)
+    from mm_interleaved_tpu_torch.ops.cuda_build import BUILD_DIR
+
+    root = BUILD_DIR.parent / "smoke_turn_probe"
+    annt = write_inference_assets(str(root / "inputs"))
+    with open("configs/inference.yaml") as f:
+        config = yaml.safe_load(f)
+    config["model"] = {"preset": "flagship"}
+    config["inference"].update(num_iter=1)
+    path = root / "turn.yaml"
+    path.write_text(yaml.safe_dump(config))
+    return str(path), annt, str(root / "inputs")
+
+
+@contextlib.contextmanager
+def turn_trace(model, calls: list, margins: list):
+    """While open (or until the ``stop`` it yields is called): in call
+    order in ``calls``, each module's inputs' alignments (`_aligns`) and
+    its output's digest, and the digests of the inputs and outputs of
+    every kernel call and of the LLM's rotary embedding and attention
+    (plain where a dense mask is given, as in the KV-cache prefill); each
+    text-head call's top-2 margin at its last position in ``margins``."""
+    from mm_interleaved_tpu_torch.models import llama
+    from mm_interleaved_tpu_torch.ops import cuda_build
+
+    hooks = [mod.register_forward_hook(
+        lambda m, a, o, name=name: calls.append(
+            (name, _aligns(a), _digests(o))))
+        for name, mod in model.named_modules()]
+    funcs = {n: getattr(llama, n) for n in ("apply_rotary_embedding",
+                                            "dot_product_attention")}
+
+    def traced(name, fn):
+        def call(*a, **kw):
+            out = fn(*a, **kw)
+            calls.append((name, _digests(list(a)) + _aligns(list(a)),
+                          _digests(out)))
+            return out
+        return call
+
+    for n, fn in funcs.items():
+        setattr(llama, n, traced(n, fn))
+    hooks.append(model.text_decoder.register_forward_hook(
+        lambda m, a, o: margins.append(
+            (lambda t: t[0] - t[1])(o[0, -1].float().topk(2).values))))
+    launch = cuda_build.CountedKernel.__call__
+
+    def counted(self, *a, **kw):
+        out = launch(self, *a, **kw)
+        calls.append((getattr(self._launch, "__name__", "kernel"),
+                      _digests(list(a)), _digests(out)))
+        return out
+
+    def stop():
+        cuda_build.CountedKernel.__call__ = launch
+        for n, fn in funcs.items():
+            setattr(llama, n, fn)
+        for h in hooks:
+            h.remove()
+        hooks.clear()
+
+    cuda_build.CountedKernel.__call__ = counted
+    try:
+        yield stop
+    finally:
+        stop()
+
+
+def trace_record(calls: list, margins: list) -> dict:
+    import torch
+
+    torch.cuda.synchronize()
+    return dict(margins=[float(m) for m in margins],
+                calls=[(n, [int(x) for x in a], [int(x) for x in o])
+                       for n, a, o in calls])
+
+
+def turn_probe_main(out_path: str) -> int:
+    """``chip_smoke.py --turn-probe OUT``: in this fresh process, the
+    flagship of phase 14 (its seeded weights, bf16), then the inference
+    entry point's first text turn (64 greedy tokens) on phase 14b's
+    inputs.  Saves to ``OUT``: the turn's text, a
+    digest of every parameter and `turn_trace`'s record of the turn (the
+    first call of each name is the prefill)."""
+    import torch
+
+    from mm_interleaved_tpu_torch import inference
+    from mm_interleaved_tpu_torch.configs import flagship_config
+    from mm_interleaved_tpu_torch.models.mm_interleaved import build_model
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    model = build_model(flagship_config(), "cuda", torch.bfloat16, seed=SEED)
+    perturb_zero_inits(model, SEED + 1)
+    params = {n: int(_digest(p)) for n, p in model.named_parameters()}
+    calls, margins = [], []
+    path, annt, root = probe_config_path()
+    with turn_trace(model, calls, margins):
+        res = inference.main(["--config", path, "--annt_path", annt,
+                              "--image_root", root, "--output_dir",
+                              str(Path(path).parent / "out"), "--device",
+                              "cuda"], model=model)
+    torch.save(dict(text=res["results"][0]["texts"][0], params=params,
+                    **trace_record(calls, margins)), out_path)
+    return 0
+
+
+def compare_turns(here: dict, fresh: dict) -> dict:
+    """Phase 14b's first text turn in this process against the same turn
+    in a fresh process (`turn_probe_main`): the texts, the parameters'
+    digests, the first traced call that differs with its inputs' record in
+    both processes (digests and alignments, or a module's alignments) and
+    the calls before it."""
+    out = dict(text_here=here["text"], text_fresh=fresh["text"],
+               equal=here["text"] == fresh["text"],
+               params_differ=sorted(n for n, d in fresh["params"].items()
+                                    if here["params"].get(n) != d)[:8])
+    n = min(len(here["calls"]), len(fresh["calls"]))
+    first = next((i for i in range(n)
+                  if here["calls"][i] != fresh["calls"][i]), None)
+    out["calls_compared"] = n
+    if first is not None:
+        a, b = here["calls"][first], fresh["calls"][first]
+        out["first_differing_call"] = dict(
+            index=first, name=a[0], fresh_name=b[0],
+            inputs=dict(here=a[1], fresh=b[1]),
+            previous=[c[0] for c in here["calls"][max(0, first - 4):first]])
+    out["margins"] = dict(here=here["margins"][:4], fresh=fresh["margins"][:4])
+    return out
 
 
 EVAL_ROUTES = ("evaluate_caption", "evaluate_vqa", "evaluate_ranking",
@@ -3932,8 +4169,45 @@ def run_serving(greedy_tokens) -> dict:
     del model
     gc.collect()
     torch.cuda.empty_cache()
+    turn = run_turn_probe(inf.pop("turn_record"))
     return dict(build_s=build_s, beam=beam, inference=inf, eval=ev,
-                wall_s=time.perf_counter() - t0)
+                turn=turn, wall_s=time.perf_counter() - t0)
+
+
+def run_turn_probe(here: dict) -> dict:
+    """Phase 14d: this host's build of the native image kernels computes
+    the CPU's pixels (`NATIVE_PIXELS`: the first turn's image tensors, and
+    its tied greedy token, followed the machine that built the library,
+    ROADMAP.md §3); then the inference entry's first text turn again, in a
+    fresh process (``chip_smoke.py --turn-probe``), against phase 14b's in
+    this one (`compare_turns`): the texts must be equal; where the traced
+    records part, the first differing call is logged."""
+    import subprocess
+
+    import torch
+
+    pixels = native_pixels()
+    if pixels != NATIVE_PIXELS:
+        raise AssertionError(f"14d: this host's native image kernels give "
+                             f"pixels {pixels}, the CPU's {NATIVE_PIXELS}")
+    out = Path("build/smoke_turn_probe")
+    out.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    with open(out / "fresh.log", "w") as f:
+        rc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                             "--turn-probe", str(out / "fresh.pt")],
+                            stdout=f, stderr=subprocess.STDOUT,
+                            timeout=TP_TIMEOUT).returncode
+    if rc:
+        raise AssertionError(f"14d: the fresh process exited {rc}: see "
+                             f"{out}/fresh.log")
+    res = compare_turns(here, torch.load(out / "fresh.pt",
+                                         weights_only=False))
+    res.update(native_pixels=pixels, wall_s=time.perf_counter() - t0)
+    if not res["equal"]:
+        raise AssertionError(f"14d: the first turn differs between two "
+                             f"processes: {json.dumps(res)}")
+    return res
 
 
 # weights from files (phase 15)
@@ -5553,6 +5827,342 @@ def run_tensor_parallel() -> dict:
     return res
 
 
+# --------------------------------------------------------------------------
+# the sharded Trainer (phase 18)
+
+# 18b's batch: phase 8b's prompt cut to its first row (both tensor ranks
+# run every row), its two target images at 512 px
+TRAIN_TP_ROWS = 1
+
+
+def _grad_spy(trainer, keep: dict):
+    """Record ``trainer``'s fp32 gradients after the sums over the ranks
+    (on the host, by leaf name) in ``keep``."""
+    stats = trainer._global_stats
+
+    def spy(loss, aux, grads):
+        keep.update((n, g.detach().to("cpu", copy=True))
+                    for n, g in zip(trainer.optimizer.names, grads))
+        return stats(loss, aux, grads)
+
+    trainer._global_stats = spy
+
+
+def state_digests(trainer) -> dict:
+    """A digest of every master and both moments of ``trainer``."""
+    opt = trainer.optimizer
+    out = {}
+    for i, n in enumerate(opt.names):
+        for kind, x in (("master", opt.masters[i]), ("m", opt.m[i]),
+                        ("v", opt.v[i])):
+            out[f"{kind} {n}"] = int(_digest(x))
+    return out
+
+
+def run_sharded_train_one() -> dict:
+    """Phase 18a: the flagship's training form (phase 8's seed, config and
+    batch) through `Trainer` on ``make_mesh(1, 1, 1)`` (a nccl group of one
+    rank), one step, then the same step through the one-process `Trainer`
+    on a model built again from the same seed: the loss, the gradient norm
+    and every master and both moments (by digest) the same bits, each
+    run's launches the count derived from the config.  Each model is freed
+    before the next is built (the step peaks near 55 GB)."""
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from mm_interleaved_tpu_torch.configs import flagship_config
+    from mm_interleaved_tpu_torch.engine.optim import OptimConfig
+    from mm_interleaved_tpu_torch.engine.trainer import Trainer, TrainerConfig
+    from mm_interleaved_tpu_torch.models.mm_interleaved import build_model
+    from mm_interleaved_tpu_torch.parallel.partition import make_mesh
+
+    t0 = time.perf_counter()
+    cfg = flagship_config(max_num_images=N_IMG)
+    optim = OptimConfig(warmup_steps=0)
+    want = expected_train_launches(cfg, B * N_IMG)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", world_size=1, rank=0)
+    out = {}
+    try:
+        for name in ("sharded", "local"):
+            model = build_model(cfg, "cuda", torch.bfloat16, seed=SEED,
+                                optim=optim)
+            perturb_zero_inits(model, SEED + 1)
+            mesh = make_mesh(1, 1, 1, "cuda") if name == "sharded" else None
+            trainer = Trainer(model, TrainerConfig(optim=optim), "cuda",
+                              mesh=mesh)
+            batch = train_inputs(cfg, "cuda")
+            torch.cuda.synchronize()
+            reset_counts()
+            t = time.perf_counter()
+            metrics = trainer.train_step(batch)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+            launches = read_counts()
+            if launches != want:
+                raise AssertionError(f"18a {name} launches {launches} != "
+                                     f"{want}")
+            out[name] = dict(metrics=metrics, ms=ms, launches=launches,
+                             digests=state_digests(trainer),
+                             peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+            del model, trainer, batch
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+    finally:
+        dist.destroy_process_group()
+    sh, loc = out["sharded"], out["local"]
+    for k in ("loss", "grad_norm", "loss_txt", "loss_img"):
+        if sh["metrics"][k] != loc["metrics"][k]:
+            raise AssertionError(f"18a {k}: sharded {sh['metrics'][k]!r} != "
+                                 f"one-process {loc['metrics'][k]!r}")
+    differ = [k for k, d in loc["digests"].items()
+              if sh["digests"].get(k) != d]
+    if differ or set(sh["digests"]) != set(loc["digests"]):
+        raise AssertionError(f"18a: {len(differ)} masters/moments differ "
+                             f"from the one-process step's: {differ[:4]}")
+    if not all(np.isfinite(v) for v in sh["metrics"].values()):
+        raise AssertionError(f"18a: non-finite metrics {sh['metrics']}")
+    return dict(metrics=sh["metrics"], ms=(loc["ms"], sh["ms"]),
+                peak_gb=(loc["peak_gb"], sh["peak_gb"]),
+                launches=sh["launches"], leaves=len(loc["digests"]) // 3,
+                wall_s=time.perf_counter() - t0)
+
+
+def train_tp_config():
+    """18b's model: the flagship's widths with ``TP_LAYERS`` LLM layers (2
+    MMFS) and its image decoder."""
+    import dataclasses as dc
+
+    from mm_interleaved_tpu_torch.configs import flagship_config
+
+    cfg = flagship_config(max_num_images=N_IMG)
+    return dc.replace(cfg, llm=dc.replace(cfg.llm,
+                                          num_hidden_layers=TP_LAYERS))
+
+
+def train_tp_step(dtype, mesh=None, cases=None) -> dict:
+    """One step of 18b's seeded model (built in bf16, then cast to
+    ``dtype``) on the first ``TRAIN_TP_ROWS`` rows of phase 8b's batch, by
+    `Trainer` (on ``mesh`` when given): the metrics, the summed fp32
+    gradients by leaf (host), the launches (counts at 0 before, read after)
+    and the cut leaves' names; kernels 1, 2, 3, 5 and 5b captured at the
+    LLM's sites into ``cases`` when given."""
+    import torch
+
+    from mm_interleaved_tpu_torch.engine.optim import OptimConfig
+    from mm_interleaved_tpu_torch.engine.trainer import Trainer, TrainerConfig
+    from mm_interleaved_tpu_torch.models.mm_interleaved import build_model
+
+    cfg = train_tp_config()
+    optim = OptimConfig(warmup_steps=0)
+    model = build_model(cfg, "cuda", torch.bfloat16, seed=SEED, optim=optim)
+    perturb_zero_inits(model, SEED + 1)
+    model = model.to(dtype)
+    trainer = Trainer(model, TrainerConfig(optim=optim), "cuda", mesh=mesh)
+    rows = slice(0, TRAIN_TP_ROWS)
+    batch = {k: v[rows] for k, v in train_inputs(cfg, "cuda").items()}
+    grads = {}
+    _grad_spy(trainer, grads)
+    names = ["ms_deform_attn_fwd", "flash_attention_fwd", *BACKWARD]
+    torch.cuda.synchronize()
+    reset_counts()
+    with (contextlib.nullcontext() if cases is None
+          else capture(names, cases)):
+        metrics = trainer.train_step(batch)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    cuts = sorted(trainer.layout.cuts) if trainer.layout is not None else []
+    res = dict(metrics=metrics, grads=grads, launches=launches, cuts=cuts,
+               labels=dict(zip(trainer.optimizer.names,
+                               trainer.optimizer.labels)))
+    if trainer.layout is not None:
+        # the cut leaves' gradients whole (a collective on both ranks)
+        for n in cuts:
+            if n in grads:
+                grads[n] = trainer.layout.gather(
+                    n, grads[n].to("cuda")).to("cpu")
+    del model, trainer
+    torch.cuda.empty_cache()
+    return res
+
+
+def train_tensor_rank_main(rank: str, port: str, out_dir: str) -> int:
+    """One rank of phase 18b (``chip_smoke.py --train-tensor-rank R PORT
+    DIR``): gloo over two processes on the one card, ``make_mesh(1, 1,
+    2)``, `train_tp_step` in bf16 with kernels 1, 2, 3, 5 and 5b captured;
+    rank 0 holds each against its plain version at the LLM's local-head
+    sites and saves its gradients; each rank saves a digest of each
+    gradient of a leaf the plan keeps whole over ``tensor``, to
+    ``DIR/rank{R}.pt``."""
+    import torch
+    import torch.distributed as dist
+
+    from mm_interleaved_tpu_torch.parallel.partition import make_mesh
+
+    r = int(rank)
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=2, rank=r)
+    cases = {}
+    res = train_tp_step(torch.bfloat16, make_mesh(1, 1, 2, "cuda"), cases)
+    dist.barrier()
+    dist.destroy_process_group()
+    res["whole_digests"] = {n: int(_digest(g)) for n, g in
+                            res["grads"].items() if n not in res["cuts"]}
+    if r == 0:
+        cfg = train_tp_config()
+        heads = {"ms_deform_attn": cfg.llm.mmfs_heads // 2,
+                 "flash_attention": cfg.llm.num_attention_heads // 2}
+        sites = {"ms_deform_attn_fwd": "mmfs_prefill",
+                 "flash_attention_fwd": "llm_prefix",
+                 "ms_deform_attn_bwd_value": "mmfs_llm",
+                 "ms_deform_attn_bwd_loc_weight": "mmfs_llm",
+                 "flash_attention_bwd": "llm_prefix"}
+        for name, site in sites.items():
+            args = cases[name][site][0]
+            h = (args[2].shape[2] if name.startswith("ms_deform")
+                 else args[0].shape[-2])
+            want = heads["flash_attention" if name.startswith("flash")
+                         else "ms_deform_attn"]
+            if h != want:
+                raise AssertionError(f"18b {name} {site}: {h} heads, not "
+                                     f"{want}")
+            # the training forward keeps its LSE for the backward; the
+            # comparison is of the output
+            args, kw = cases[name][site]
+            one = {site: (args, {k: v for k, v in kw.items()
+                                 if k != "return_lse"})}
+            compare = compare_kernel if name in FORWARD else compare_backward
+            res[name] = compare(name, one, [site])
+    else:
+        res.pop("grads")
+    torch.save(res, Path(out_dir) / f"rank{r}.pt")
+    return 0
+
+
+def _errs(got: dict, want: dict, names) -> tuple:
+    """The max and mean absolute differences over the leaves ``names``."""
+    mx, tot, n = 0.0, 0.0, 0
+    for k in names:
+        d = (got[k].double() - want[k].double()).abs()
+        mx = max(mx, float(d.max()))
+        tot += float(d.sum())
+        n += d.numel()
+    return mx, tot / max(n, 1)
+
+
+def run_train_tensor_parallel() -> dict:
+    """Phase 18b: `Trainer` with tensor = 2 over two gloo processes on the
+    card (``train_tensor_rank_main``), 18b's model (the flagship's widths,
+    ``TP_LAYERS`` LLM layers, the image decoder), one step on one row of
+    phase 8b's batch, against the one-process step of the same seeded
+    weights in bf16 and in fp32 (the yardstick): the loss, the gradient
+    norm and each trainable group's summed gradient (max and mean
+    difference) no farther from the fp32 step than ``TP_ERR_FACTOR`` times
+    the bf16 one-process step (a scalar at least half a bf16 ulp of its
+    value: one scalar's bf16 distance may be near 0 by chance, where a
+    group's max and mean over many entries are not); the gradient of every
+    leaf
+    kept whole over ``tensor`` the same bits on both ranks; each rank's
+    launches the one-process step's, which are the count derived from the
+    config; kernels 1, 2, 3, 5 and 5b at the local
+    heads against their plain versions (rank 0).  Every failure is
+    gathered; the phase fails after the last check.  Rank logs under
+    ``build/smoke_train_tp/``."""
+    import subprocess
+
+    import torch
+
+    t0 = time.perf_counter()
+    one = train_tp_step(torch.bfloat16)
+    ref = train_tp_step(torch.float32)
+    out_dir = Path("build/smoke_train_tp")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    port = str(free_port())
+    logs = [open(out_dir / f"rank{r}.log", "w") for r in range(2)]
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--train-tensor-rank",
+         str(r), port, str(out_dir)], stdout=logs[r],
+        stderr=subprocess.STDOUT) for r in range(2)]
+    try:
+        deadline = time.monotonic() + TP_TIMEOUT
+        for r, p in enumerate(procs):
+            rc = p.wait(timeout=max(1.0, deadline - time.monotonic()))
+            if rc:
+                raise AssertionError(f"18b rank {r} exited {rc}: see "
+                                     f"{out_dir}/rank{r}.log")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    ranks = [torch.load(out_dir / f"rank{r}.pt", weights_only=False)
+             for r in range(2)]
+    tp = ranks[0]
+    fails = []
+    res = dict(metrics=dict(tp=tp["metrics"], one=one["metrics"],
+                            fp32=ref["metrics"]))
+    for k in ("loss", "grad_norm"):
+        want = ref["metrics"][k]
+        tp_err = abs(tp["metrics"][k] - want)
+        one_err = abs(one["metrics"][k] - want)
+        floor = _ulps(abs(want), 0.5)
+        res[f"{k}_err"] = dict(tp=tp_err, one=one_err, floor=floor)
+        if not tp_err <= max(TP_ERR_FACTOR * one_err, floor):
+            fails.append(f"{k} {tp['metrics'][k]!r}: {tp_err} from fp32 over "
+                         f"{TP_ERR_FACTOR} x the one-process bf16 step's "
+                         f"{one_err} (floor {floor})")
+    groups = {}
+    for n, lab in one["labels"].items():
+        groups.setdefault(lab, []).append(n)
+    res["groups"] = {}
+    for lab, names in sorted(groups.items()):
+        t_max, t_mean = _errs(tp["grads"], ref["grads"], names)
+        o_max, o_mean = _errs(one["grads"], ref["grads"], names)
+        res["groups"][lab] = dict(leaves=len(names), tp_max=t_max,
+                                  one_max=o_max, tp_mean=t_mean,
+                                  one_mean=o_mean)
+        for stat, t, o in (("max", t_max, o_max), ("mean", t_mean, o_mean)):
+            if not t <= TP_ERR_FACTOR * o:
+                fails.append(f"group {lab} gradient {stat} error {t} over "
+                             f"{TP_ERR_FACTOR} x the one-process bf16 "
+                             f"step's {o}")
+    d0, d1 = ranks[0]["whole_digests"], ranks[1]["whole_digests"]
+    res["whole_leaves"] = len(d0)
+    uneq = sorted(n for n in d0 if d1.get(n) != d0[n])
+    if uneq or set(d0) != set(d1):
+        fails.append(f"{len(uneq)} gradients of leaves whole over tensor "
+                     f"differ between the ranks: {uneq[:4]}")
+    towers = [n for n in d0 if n.startswith(("visual_tokenizer.",
+                                             "image_decoder."))]
+    if not towers:
+        fails.append("no tower gradient was compared between the ranks")
+    derived = expected_train_launches(train_tp_config(),
+                                      TRAIN_TP_ROWS * N_IMG)
+    if one["launches"] != derived:
+        fails.append(f"one-process launches {one['launches']} != {derived}")
+    for r, rk in enumerate(ranks):
+        if rk["launches"] != one["launches"]:
+            fails.append(f"rank {r} launches {rk['launches']} != the one-"
+                         f"process step's {one['launches']}")
+    if fails:
+        log(f"phase 18b: {json.dumps(res)}")
+        raise AssertionError("18b: " + "; ".join(fails))
+    res.update(launches=tp["launches"], cut_leaves=len(tp["cuts"]),
+               sites={k: tp[k] for k in ("ms_deform_attn_fwd",
+                                         "flash_attention_fwd", *BACKWARD)},
+               wall_s=time.perf_counter() - t0)
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -5571,6 +6181,14 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    walls, t_lap = {}, [time.perf_counter()]
+
+    def lap(name):
+        """The wall of the phase that ends here."""
+        now = time.perf_counter()
+        walls[name] = round(now - t_lap[0], 1)
+        t_lap[0] = now
+
     # 2. build
     from mm_interleaved_tpu_torch.ops import cuda_build
 
@@ -5580,6 +6198,7 @@ def main() -> int:
 
     shutil.rmtree(sites_dir(), ignore_errors=True)
 
+    lap("2 build")
     # 3. small reference
     cases = {}
     ref = small_reference(cases)
@@ -5588,6 +6207,7 @@ def main() -> int:
     log(f"small training reference (tiny, fp32, one AdamW step, card vs "
         f"CPU): {json.dumps(tref)}")
 
+    lap("3 small reference")
     # 4. the flagship model with its image decoder
     cfg = flagship_config(max_num_images=N_IMG)
     t0 = time.perf_counter()
@@ -5629,6 +6249,7 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
 
+    lap("4-6 flagship slices")
     # 7. each kernel against its plain version at the captured shapes
     launches = dict(img["launches"])
     launches["ms_deform_attn_fwd"] = res["launches"]["ms_deform_attn_fwd"]
@@ -5655,6 +6276,7 @@ def main() -> int:
                 for a in args if isinstance(a, torch.Tensor))
     log(f"captured GroupNorm inputs freed: {freed / 1e9:.3f} GB")
 
+    lap("7 kernels vs plain")
     # 8. the flagship training step, then the backward kernels against
     # their plain versions at the captured shapes
     tr = run_training("cuda", cases)
@@ -5689,10 +6311,13 @@ def main() -> int:
         + save_sites(cases, ("ms_deform_attn_fwd", "ms_deform_attn_bwd_value",
                              "ms_deform_attn_bwd_loc_weight")))
 
+    lap("8 training step and backward kernels")
     # 9. the deformable-kernel benchmark
     lines += run_bench_phase()
+    lap("9 deformable benchmark")
     # 10. the v4-against-v5 benchmark, forward and backward
     lines += run_v5_bench_phase()
+    lap("10 v4 against v5")
     # the captured inputs are compared and saved: free them for the
     # entry points
     cases.clear()
@@ -5715,17 +6340,20 @@ def main() -> int:
         f"resume from step 2, step 3 the same bits: "
         f"{json.dumps(te['resume'])} ({te['resume_s']:.1f} s); phase 11 "
         f"{te['wall_s']:.1f} s")
+    lap("11 train entry")
     # 12. the interleaved-turn benchmark at the base preset
     bt = run_bench_turn()
     log(f"bench: {json.dumps(bt['line'])}")
     log(f"bench launches {json.dumps(bt['launches'])}, one timed turn "
         f"(measured) {json.dumps(bt['turn'])}; phase 12 "
         f"{bt['wall_s']:.1f} s")
+    lap("12 bench turn")
     # 13. the training-step benchmark, small and base
     btr = run_bench_train()
     log(f"bench_train: {json.dumps(btr['line'])}")
     log(f"bench_train launches {json.dumps(btr['launches'])}; phase 13 "
         f"{btr['wall_s']:.1f} s")
+    lap("13 bench_train")
     # 14. the serving path at the flagship: beam search, the inference
     # entry point, the evaluation entry point
     sv = run_serving(res["tokens"])
@@ -5760,6 +6388,10 @@ def main() -> int:
         *(r["launches"] for k, r in sv["beam"].items()
           if k != "k1_equals_greedy"),
         inf["launches"], sv["eval"]["launches"])
+    log(f"inference entry's first text turn, this process against a fresh "
+        f"one (the texts equal; the native pixels the CPU's): "
+        f"{json.dumps(sv['turn'])}")
+    lap("14 serving")
     # 15. weights from files: the converter in both modes, load_model, the
     # warm start, the CLIP towers of the rerank, InceptionV3
     wt = run_weights_phase()
@@ -5803,6 +6435,7 @@ def main() -> int:
         f"{inc['max_abs_err']} at scale {inc['scale']} (limit 1e-5 of it; "
         f"with cuDNN's TF32 convolutions {inc['tf32_max_abs_err']}); phase 15 "
         f"{wt['wall_s']:.1f} s")
+    lap("15 weights")
     # 16. int8 weight-only decode, the benchmark datasets, RICES
     qp = run_quant_phase(res["tokens"], res["peak_gb"], res["decode_ms"])
     t16, f16 = qp["tiny"], qp["flagship"]
@@ -5839,6 +6472,7 @@ def main() -> int:
     lines.append(int8_line)
     quant_launches = add_launches(f16["launches"], be["launches"])
     line_of["flash_attention_fwd"]["clip_text_site"] = clip["site"]
+    lap("16 int8 and datasets")
     # 17. the sharded runtime: (a) world size 1 at the flagship, (b) tensor
     # = 2 over two processes on the card
     sh = run_sharded_one()
@@ -5868,8 +6502,37 @@ def main() -> int:
     for name in ("ms_deform_attn_fwd", "flash_attention_fwd"):
         line_of[name]["tensor_parallel_sites"] = tp["sites"][name]
     int8_line["tensor_parallel_sites"] = tp["sites"]["int8_linear"]
+    lap("17 sharded runtime")
+    # 18. the sharded Trainer: (a) world size 1 at the flagship against the
+    # one-process Trainer, (b) tensor = 2 over two processes on the card
+    st = run_sharded_train_one()
+    log(f"sharded Trainer, world size 1 (nccl, mesh (1, 1, 1), flagship "
+        f"training form, phase 8b's batch, 1 step): loss, grad norm and the "
+        f"masters and moments of {st['leaves']} leaves equal the one-"
+        f"process Trainer's bit for bit; metrics {json.dumps(st['metrics'])};"
+        f" step {st['ms'][1]:.1f} ms (one-process {st['ms'][0]:.1f}), peak "
+        f"{st['peak_gb'][1]:.2f} GB (one-process {st['peak_gb'][0]:.2f}) | "
+        f"{smi}; launches {json.dumps(st['launches'])}; phase 18a "
+        f"{st['wall_s']:.1f} s")
+    ttp = run_train_tensor_parallel()
+    log(f"sharded Trainer, tensor = 2 (gloo, two processes on the card, "
+        f"{TP_LAYERS} LLM layers at the flagship's widths with the image "
+        f"decoder, {TRAIN_TP_ROWS} row): loss and grad norm against the fp32 "
+        f"one-process step {json.dumps({k: ttp[k] for k in ('loss_err', 'grad_norm_err')})}; "
+        f"each group's gradient {json.dumps(ttp['groups'])}; "
+        f"{ttp['whole_leaves']} leaves whole over tensor, the same gradient "
+        f"bits on both ranks; {ttp['cut_leaves']} cut; metrics "
+        f"{json.dumps(ttp['metrics'])} | {smi}; launches "
+        f"{json.dumps(ttp['launches'])}; phase 18b {ttp['wall_s']:.1f} s")
+    for name, recs in ttp["sites"].items():
+        line_of[name]["train_tensor_parallel_sites"] = recs
+    lap("18 sharded Trainer")
+    log(f"phase walls (s): {json.dumps(walls)}; in all "
+        f"{sum(walls.values()):.1f} s")
     for line in lines:
         line["sharded_launches"] = sh["launches"][line["name"]]
+        line["sharded_train_launches"] = st["launches"][line["name"]]
+        line["train_tensor_parallel_launches"] = ttp["launches"][line["name"]]
         line["tensor_parallel_launches"] = (
             tp["launches"][line["name"]] + tp["int8_launches"][line["name"]])
         line["quant_launches"] = quant_launches[line["name"]]
@@ -5890,4 +6553,8 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--tensor-rank"]:
         sys.exit(tensor_rank_main(*sys.argv[2:]))
+    if sys.argv[1:2] == ["--turn-probe"]:
+        sys.exit(turn_probe_main(*sys.argv[2:]))
+    if sys.argv[1:2] == ["--train-tensor-rank"]:
+        sys.exit(train_tensor_rank_main(*sys.argv[2:]))
     sys.exit(main())

@@ -4,7 +4,14 @@ Built on demand with g++ (no pybind11 in this image — plain extern "C" +
 ctypes).  All entry points have numpy fallbacks so the pipeline works without
 a toolchain; `is_available()` reports which path is active.  The library
 builds into ``build/native/`` of the checkout (``MMI_NATIVE_CACHE``
-overrides it).
+overrides it), named by a hash of the source and `FLAGS`.
+
+`FLAGS` ask for IEEE float arithmetic with no FMA contraction and no
+host-specific code, so every x86-64 host and compiler computes the same
+pixels: a ``-march=native`` build contracts the resampler's ``acc += w *
+px`` into FMAs, which round differently, and the image tensors, and with
+them a near tie of greedy tokens, then depended on the machine that built
+the library.
 
 The port's copy of `mm_interleaved_tpu/data/native.py` (the port imports
 nothing of the JAX package).
@@ -13,6 +20,7 @@ nothing of the JAX package).
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
 import threading
@@ -20,6 +28,7 @@ from typing import Optional
 
 import numpy as np
 
+FLAGS = ("-O3", "-ffp-contract=off", "-shared", "-fPIC")
 _LOCK = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
 _TRIED = False
@@ -42,17 +51,14 @@ def _build_and_load() -> Optional[ctypes.CDLL]:
             "MMI_NATIVE_CACHE", os.path.join(_repo_root(), "build", "native"),
         )
         os.makedirs(cache, exist_ok=True)
-        so = os.path.join(cache, "libmmi_native.so")
-        if not os.path.exists(so) or (
-            os.path.getmtime(so) < os.path.getmtime(src)
-        ):
+        with open(src, "rb") as f:
+            key = hashlib.sha256(f.read() + " ".join(FLAGS).encode())
+        so = os.path.join(cache, f"libmmi_native-{key.hexdigest()[:12]}.so")
+        if not os.path.exists(so):
             tmp = f"{so}.{os.getpid()}.tmp"  # processes may build at once
             try:
-                subprocess.run(
-                    ["g++", "-O3", "-march=native", "-shared", "-fPIC",
-                     src, "-o", tmp],
-                    check=True, capture_output=True,
-                )
+                subprocess.run(["g++", *FLAGS, src, "-o", tmp], check=True,
+                               capture_output=True)
                 os.replace(tmp, so)
             except (OSError, subprocess.CalledProcessError):
                 return None

@@ -20,7 +20,10 @@ Masters: the optimizer keeps fp32 masters of the trainable parameters
 (the parameter itself where it is fp32) and the fp32 moments; after each
 update the model's parameters take the masters' values in their own dtype
 (bf16 compute weights on the card, as flax casts fp32 params to its compute
-dtype at each use).
+dtype at each use).  On a rank of a mesh a parameter is this rank's part
+(`local_part`: an FSDP2 `DTensor`'s local shard, a tensor-parallel cut as
+it is), and so are its master, its moments and its gradient; the global
+norm and the clip are the trainer's (`engine.trainer.Trainer`).
 """
 
 from __future__ import annotations
@@ -130,6 +133,13 @@ def freeze(model: nn.Module, cfg: OptimConfig) -> Dict[str, str]:
     return labels
 
 
+def local_part(p: torch.Tensor) -> torch.Tensor:
+    """The tensor of this rank's part of parameter ``p``, sharing its
+    storage: an FSDP2 `DTensor`'s local shard, else ``p``'s data."""
+    with torch.no_grad():
+        return p.to_local() if hasattr(p, "to_local") else p.data
+
+
 class AdamW:
     """AdamW over ``(name, param, label)`` of the trainable leaves, with
     fp32 masters and moments (see the module docstring)."""
@@ -145,8 +155,9 @@ class AdamW:
         for i, (_, scale, wd) in enumerate(cfg.param_groups):
             groups[f"group_{i}"] = (scale, wd)
         self.group_of = [groups[lab] for lab in self.labels]
-        self.masters = [p.data if p.dtype == torch.float32
-                        else p.detach().float().clone() for p in self.params]
+        self.locals = [local_part(p) for p in self.params]
+        self.masters = [x if x.dtype == torch.float32 else x.float()
+                        for x in self.locals]
         self.m = [torch.zeros_like(x) for x in self.masters]
         self.v = [torch.zeros_like(x) for x in self.masters]
         self.count = 0
@@ -173,8 +184,8 @@ class AdamW:
             u = (m / bc1) / ((v / bc2).sqrt_() + c.eps)
             u.add_(x, alpha=c.weight_decay if wd is None else wd)
             x.add_(u, alpha=-lr * scale)
-            if x is not self.params[i].data:
-                self.params[i].data.copy_(x)
+            if x is not self.locals[i]:
+                self.locals[i].copy_(x)
         self.count = t
 
     def state_dict(self) -> dict:
@@ -184,10 +195,17 @@ class AdamW:
 
     @torch.no_grad()
     def load_state_dict(self, state: dict, masters: Dict[str, torch.Tensor]):
+        """The count, and each leaf's moments and master (this rank's
+        parts), the parameter taking the master's value."""
         self.count = int(state["count"])
         for i, n in enumerate(self.names):
             self.m[i].copy_(state["m"][n])
             self.v[i].copy_(state["v"][n])
-            self.masters[i].copy_(masters[n])
-            if self.masters[i] is not self.params[i].data:
-                self.params[i].data.copy_(self.masters[i])
+            self.set_master(i, masters[n])
+
+    @torch.no_grad()
+    def set_master(self, i: int, value: torch.Tensor) -> None:
+        """Master ``i`` from ``value`` (fp32 or not), and its parameter."""
+        self.masters[i].copy_(value)
+        if self.masters[i] is not self.locals[i]:
+            self.locals[i].copy_(self.masters[i])

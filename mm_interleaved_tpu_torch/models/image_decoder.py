@@ -12,7 +12,7 @@ package's own draws.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 from torch import nn
@@ -21,6 +21,7 @@ from .perceiver import PerceiverConfig, PerceiverResampler
 from .sd.scheduler import DiffusionSchedule
 from .sd.unet import UNet2DConditionModel, UNetConfig
 from .sd.vae import AutoencoderKL, VAEConfig
+from ..utils import draws
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,8 +81,9 @@ class ImageDecoder(nn.Module):
 
     def forward(self, image_tensors, context_features, context_attention_mask,
                 image_loss_mask=None, mmfs_features=None, mmfs_mask=None, *,
-                generator: Optional[torch.Generator] = None,
-                vae_noise=None, noise=None, timesteps=None, uncond_drop=None):
+                generator: draws.Gen = None, vae_noise=None, noise=None,
+                timesteps=None, uncond_drop=None,
+                count_reduce: Optional[Callable] = None):
         """Diffusion training loss (a scalar): ``image_tensors [B, H, W, 3]``
         in [0, 1] are the targets; the context is resampled (with the
         resampler's dropout from ``generator`` in training mode) and
@@ -89,7 +91,11 @@ class ImageDecoder(nn.Module):
         with probability ``uncond_prob``; the fp32 VAE latents, without
         gradient, are noised at ``timesteps [B]`` and the UNet's prediction
         is held against the training target, per image, masked by
-        ``image_loss_mask [B]`` and averaged over the batch."""
+        ``image_loss_mask [B]`` and averaged over the batch.  In a sharded
+        step ``generator`` is a `utils.draws.RowDraws` (every draw made at
+        the global batch, this rank's slots kept) and ``count_reduce`` sums
+        the slot count over the ranks that hold rows, so that the loss is
+        this rank's share of the global mean."""
         c = self.cfg
         B = image_tensors.shape[0]
         dev = image_tensors.device
@@ -98,8 +104,8 @@ class ImageDecoder(nn.Module):
                                        context_attention_mask, generator)
         if c.uncond_prob > 0:
             if uncond_drop is None:
-                uncond_drop = torch.rand((B,), generator=generator,
-                                         device=dev) < c.uncond_prob
+                uncond_drop = draws.rand((B,), generator,
+                                         dev) < c.uncond_prob
             ctx = torch.where(uncond_drop.to(dev)[:, None, None],
                               self.neg_prompt_embeds.to(ctx.dtype), ctx)
 
@@ -107,14 +113,14 @@ class ImageDecoder(nn.Module):
         n = c.latent_size
         shape = (B, n, n, c.vae.latent_channels)
         if vae_noise is None:
-            vae_noise = torch.randn(shape, generator=generator, device=dev)
+            vae_noise = draws.randn(shape, generator, dev)
         with torch.no_grad():
             latents = self.vae_encode(image, vae_noise.float())
         if noise is None:
-            noise = torch.randn(shape, generator=generator, device=dev)
+            noise = draws.randn(shape, generator, dev)
         if timesteps is None:
-            timesteps = torch.randint(0, c.schedule.num_train_timesteps, (B,),
-                                      generator=generator, device=dev)
+            timesteps = draws.randint(0, c.schedule.num_train_timesteps, (B,),
+                                      generator, dev)
         noise = noise.float()
         noisy = c.schedule.add_noise(latents, noise, timesteps)
         target = c.schedule.training_target(latents, noise, timesteps)
@@ -124,7 +130,10 @@ class ImageDecoder(nn.Module):
         loss = (pred.float() - target).square().mean(dim=(1, 2, 3))
         if image_loss_mask is not None:
             loss = loss * image_loss_mask.float()
-        return loss.mean()
+        if count_reduce is None:
+            return loss.mean()
+        slots = torch.tensor(B, dtype=torch.int64, device=dev)
+        return loss.sum() / count_reduce(slots)
 
     def resample_context(self, context_features: torch.Tensor,
                          context_attention_mask: torch.Tensor

@@ -30,7 +30,7 @@ import torch.nn.functional as F
 from ..ops.attention import dot_product_attention
 from ..ops.rmsnorm import rms_norm
 from ..ops.rotary import apply_rotary_embedding, rotary_cos_sin
-from ..parallel.tensor import tensor_all_reduce
+from ..parallel.tensor import tensor_all_reduce, tensor_enter
 from .mmfs import MMFS
 from .remat import remat_call
 
@@ -155,6 +155,7 @@ class LlamaMLP(nn.Module):
         self.tensor_group = None
 
     def forward(self, x):
+        x = tensor_enter(x, self.tensor_group)
         return tensor_all_reduce(
             self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x)),
             self.tensor_group)
@@ -188,6 +189,7 @@ class LlamaAttention(nn.Module):
         cfg = self.cfg
         B, T, _ = x.shape
         n_q, n_kv, hd = self.n_q, self.n_kv, cfg.head_dim
+        x = tensor_enter(x, self.tensor_group)
         q = self.q_proj(x).view(B, T, n_q, hd)
         k = self.k_proj(x).view(B, T, n_kv, hd)
         v = self.v_proj(x).view(B, T, n_kv, hd)

@@ -16,7 +16,7 @@ image decoder's diffusion loss.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional
+from typing import Callable, List, Optional
 
 import torch
 from torch import nn
@@ -194,7 +194,8 @@ class MMInterleaved(nn.Module):
                 image_loss_mask=None, gt_text_ids=None,
                 ignore_prompt_token_offset=0,
                 ignore_noimage_cond_loss: bool = False,
-                generator: Optional[torch.Generator] = None, **draws):
+                generator=None, count_reduce: Optional[Callable] = None,
+                **draws):
         """The training losses ``{"loss_txt", "loss_img", "loss"}``: the
         cache-free LLM pass, the CE over `stream_ops.prepare_gt_text_ids`
         labels (or ``gt_text_ids[:, 1:]``), and, with the image decoder, its
@@ -202,7 +203,10 @@ class MMInterleaved(nn.Module):
         real images with more than 2 context tokens, times
         ``image_loss_mask``.  ``generator`` draws the resamplers' dropout
         in training mode; it and ``draws`` (``vae_noise``, ``noise``,
-        ``timesteps``, ``uncond_drop``) go to `ImageDecoder.forward`."""
+        ``timesteps``, ``uncond_drop``) go to `ImageDecoder.forward`.  A
+        sharded step passes a `utils.draws.RowDraws` as ``generator`` and
+        ``count_reduce``, which sums a count over the ranks that hold rows:
+        both losses are then this rank's share of the global means."""
         c = self.cfg
         if attention_mask is None:
             attention_mask = (text_ids != c.special.pad_token_id).int()
@@ -223,7 +227,8 @@ class MMInterleaved(nn.Module):
                 ignore_prompt_token_offset=ignore_prompt_token_offset,
                 ignore_noimage_cond_loss=ignore_noimage_cond_loss,
             )
-        loss_txt = so.cross_entropy_ignore(logits[:, :-1], labels)
+        loss_txt = so.cross_entropy_ignore(logits[:, :-1], labels,
+                                           count_reduce=count_reduce)
         out = dict(loss_txt=loss_txt, loss=loss_txt * c.loss_txt_weight)
         if c.image_decoder is None:
             return out
@@ -241,7 +246,8 @@ class MMInterleaved(nn.Module):
             img_valid = img_valid * image_loss_mask.reshape(-1).float()
         loss_img = self.image_decoder(
             rearrange(targets, "b n h w c -> (b n) h w c"), ctx, ctx_mask,
-            img_valid, mmfs_values, mmfs_mask, generator=generator, **draws)
+            img_valid, mmfs_values, mmfs_mask, generator=generator,
+            count_reduce=count_reduce, **draws)
         out["loss_img"] = loss_img
         out["loss"] = out["loss"] + loss_img * c.loss_img_weight
         return out

@@ -34,7 +34,10 @@ Two branches, chosen by whether `forward` is given an image side:
 The head count and the value width are read from the projections'
 widths: the LLM's MMFS cut over ``tensor`` (`parallel.tensor`) holds this
 rank's heads, sums its output projection over ``tensor_group`` and adds
-the bias once, after the sum.  The UNet's MMFSNet is never cut.
+the bias once, after the sum.  In training the inputs of its column-parallel
+projections (the value, the offset/mask query and the relpos table) pass
+`parallel.tensor.tensor_enter`, so their gradients are summed over the
+heads of every rank.  The UNet's MMFSNet is never cut.
 """
 
 from __future__ import annotations
@@ -49,7 +52,7 @@ from einops import rearrange
 from ..ops.cuda_build import needs_grad
 from ..ops.ms_deform_attn import ms_deform_attn_multi_image
 from ..ops.ms_deform_attn_mi import build_delta, mmfs_deform_factorized
-from ..parallel.tensor import tensor_all_reduce
+from ..parallel.tensor import tensor_all_reduce, tensor_enter
 
 
 def image_relpos_from_mask(mask: torch.Tensor,
@@ -122,7 +125,8 @@ class MMFS(nn.Module):
         ``Dense(x) - Dense(0)``), and the logit max ``m_t [H]``."""
         H, P, R = self.n_heads, self.n_points, self.max_num_image_per_seq
         L = len(self.level_shapes)
-        emb_mat = self.query_relpos.weight  # [R, d_query]
+        emb_mat = tensor_enter(self.query_relpos.weight,  # [R, d_query]
+                               self.tensor_group)
         zero_row = torch.zeros((1, self.d_query), dtype=emb_mat.dtype,
                                device=emb_mat.device)
         off_tab = (self.sampling_offsets(emb_mat)
@@ -163,6 +167,9 @@ class MMFS(nn.Module):
         tok = (torch.eye(H, dtype=torch.float32, device=dev)[:, :, None]
                * ignore_heads[:, None, :]).reshape(H, self.d_val_proj)
         tok = tok.to(out_dtype)
+        if self.tensor_group is not None:
+            # the bias is added once, after the sum over tensor
+            return F.linear(tok, self.output_proj.weight)
         return (self.output_proj(tok)
                 - self.output_proj(torch.zeros_like(tok[:1])))
 
@@ -183,7 +190,8 @@ class MMFS(nn.Module):
             return self._forward_image_mask(query, reference_points,
                                             image_side), None
         if projected_value is None:
-            projected_value = self.value_proj(input_flatten)
+            projected_value = self.value_proj(
+                tensor_enter(input_flatten, self.tensor_group))
         return self._forward_query_mask(query, attention_mask,
                                         projected_value), projected_value
 
@@ -191,7 +199,7 @@ class MMFS(nn.Module):
         B, Lq, _ = query.shape
         H, P = self.n_heads, self.n_points
         L = len(self.level_shapes)
-        q = self.dynamic_offset_mask(query)
+        q = tensor_enter(self.dynamic_offset_mask(query), self.tensor_group)
         off_q = self.sampling_offsets(q).float().reshape(B, Lq, H, P, 2)
         lq = self.attention_weights(q).reshape(B, Lq, H, L, P + 1)[..., :P]
         lq = lq.float()

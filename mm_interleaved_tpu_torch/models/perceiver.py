@@ -19,16 +19,18 @@ from torch import nn
 import torch.nn.functional as F
 
 from ..ops.attention import dot_product_attention
+from ..utils import draws
 
 
 def dropout(x: torch.Tensor, rate: float, training: bool,
             generator: Optional[torch.Generator]) -> torch.Tensor:
     """flax's ``nn.Dropout``: in training, keep each element with
-    probability ``1 - rate`` (the mask drawn from ``generator``) and scale
+    probability ``1 - rate`` (the mask drawn from ``generator``, a
+    `torch.Generator` or a `utils.draws.RowDraws`) and scale
     the kept ones by ``1 / (1 - rate)``; otherwise ``x``."""
     if not training or rate == 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    keep = draws.rand(x.shape, generator, x.device) >= rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
 
 

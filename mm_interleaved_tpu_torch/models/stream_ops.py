@@ -8,7 +8,7 @@ relation are masked computations over those padded axes.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -192,11 +192,19 @@ def prepare_gt_text_ids(
 
 
 def cross_entropy_ignore(logits: torch.Tensor, labels: torch.Tensor,
-                         ignore_index: int = -100) -> torch.Tensor:
+                         ignore_index: int = -100,
+                         count_reduce: Optional[Callable] = None
+                         ) -> torch.Tensor:
     """Mean cross-entropy in fp32 over the positions whose label is not
-    ``ignore_index`` (0 when there are none)."""
+    ``ignore_index`` (0 when there are none).  ``count_reduce`` sums the
+    count of valid labels over the ranks of a sharded step, so that the
+    result is this rank's share of the global mean (the global sum over
+    the global count, as GSPMD computes it)."""
     valid = labels != ignore_index
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, labels.clamp(min=0)[..., None])[..., 0]
     nll = torch.where(valid, nll, torch.zeros_like(nll))
-    return nll.sum() / valid.sum().clamp(min=1)
+    count = valid.sum()
+    if count_reduce is not None:
+        count = count_reduce(count)
+    return nll.sum() / count.clamp(min=1)

@@ -207,13 +207,14 @@ def _world() -> int:
             if dist.is_available() and dist.is_initialized() else 1)
 
 
-def runtime_mesh_shape(mesh_cfg: Optional[Dict[str, Any]]):
+def runtime_mesh_shape(mesh_cfg: Optional[Dict[str, Any]],
+                       default_data: int = 1):
     """The ``(data, fsdp, tensor)`` sizes a ``mesh:`` stanza asks for
-    (``data`` default 1, as the JAX runtime's; -1 is the rest of the
-    world).  A stanza over more than one device with no process group, or
-    whose size is not the world's, raises."""
+    (``data`` default 1, as the JAX runtime's, or ``default_data``; -1 is
+    the rest of the world).  A stanza over more than one device with no
+    process group, or whose size is not the world's, raises."""
     mesh_cfg = dict(mesh_cfg or {})
-    data, fsdp, tensor = (int(mesh_cfg.get("data", 1)),
+    data, fsdp, tensor = (int(mesh_cfg.get("data", default_data)),
                           int(mesh_cfg.get("fsdp", 1)),
                           int(mesh_cfg.get("tensor", 1)))
     world = _world()
@@ -247,14 +248,21 @@ def build_generation_runtime(model, mesh_cfg=None,
                             quantize=quantize)
 
 
-def init_distributed(device: str) -> torch.device:
-    """Under torchrun (``WORLD_SIZE`` above 1): the process group (nccl on
-    the card, gloo with ``--device cpu``) and this rank's device,
-    ``cuda:LOCAL_RANK``; otherwise ``device`` as given."""
+def init_distributed(device: str, initialize: bool = False) -> torch.device:
+    """Under torchrun (``WORLD_SIZE`` above 1, or any ``WORLD_SIZE`` with
+    ``initialize``): the process group (nccl on the card, gloo with
+    ``--device cpu``) and this rank's device, ``cuda:LOCAL_RANK``;
+    otherwise ``device`` as given.  ``initialize`` without torchrun's
+    environment raises."""
     import torch.distributed as dist
 
     dev = torch.device(device)
-    if int(os.environ.get("WORLD_SIZE", "1")) == 1:
+    if initialize and "WORLD_SIZE" not in os.environ:
+        raise RuntimeError(
+            "distributed.initialize: no process group to join (no "
+            "torchrun environment: WORLD_SIZE, MASTER_ADDR); run under "
+            "torchrun")
+    if int(os.environ.get("WORLD_SIZE", "1")) == 1 and not initialize:
         return dev
     if dev.type == "cuda":
         dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))

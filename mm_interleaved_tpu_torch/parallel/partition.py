@@ -35,9 +35,14 @@ plan differs from the JAX rules over ``tensor`` (ROADMAP.md §3):
 weights inside its own forward, or in a method of `FSDP_METHODS`,
 registered) shards the parameters the plan shards along the plan's dim and
 keeps the rest whole (``ignored_params``).  A weight the plan shards that no
-unit holds raises.  `batch_rows` is a rank's rows of a global batch: the
-batch is split over ``(data, fsdp)`` as JAX's `batch_sharding` splits it,
-and runs replicated where that does not divide it.
+unit holds raises.  For training (``train=True``) FSDP2 reduce-scatters
+each unit's gradients summed in fp32 (no division: the losses are already
+normalised globally) and casts the shard back to the parameter's dtype.
+`batch_rows` is a rank's rows of a global batch: the batch is split over
+``(data, fsdp)`` as JAX's `batch_sharding` splits it, and runs replicated
+where that does not divide it; `row_sum` sums a tensor over the ranks that
+hold rows.  `RankLayout` maps a global tensor to a rank's shard of it and
+back (the trainer's masters, moments and checkpoints).
 """
 
 from __future__ import annotations
@@ -221,13 +226,16 @@ def rank_bytes(model: nn.Module, mesh, pattern: str = "") -> int:
     return total
 
 
-def shard_fsdp(model: nn.Module, mesh, rules=DEFAULT_RULES) -> int:
+def shard_fsdp(model: nn.Module, mesh, rules=DEFAULT_RULES,
+               train: bool = False) -> int:
     """FSDP2 over the mesh's ``fsdp`` dim on each module of `FSDP_UNITS`:
     the parameters the plan shards along their plan dim, the others kept
-    whole; each unit's `FSDP_METHODS` registered.  Returns the units made
-    (0 where ``fsdp`` is 1).  A parameter the plan shards outside every
-    unit raises."""
-    from torch.distributed.fsdp import (fully_shard,
+    whole; each unit's `FSDP_METHODS` registered.  With ``train``, each
+    unit reduce-scatters its gradients as a sum in fp32.  Returns the units
+    made (0 where ``fsdp`` is 1).  A parameter the plan shards outside
+    every unit raises."""
+    import torch
+    from torch.distributed.fsdp import (MixedPrecisionPolicy, fully_shard,
                                         register_fsdp_forward_method)
     from torch.distributed.tensor import Shard
 
@@ -254,9 +262,15 @@ def shard_fsdp(model: nn.Module, mesh, rules=DEFAULT_RULES) -> int:
                 ignored.add(p)
         if not shard:
             continue
+        mp = (MixedPrecisionPolicy(reduce_dtype=torch.float32) if train
+              else MixedPrecisionPolicy())
         fully_shard(unit, mesh=mesh["fsdp"], reshard_after_forward=True,
                     shard_placement_fn=lambda p, s=shard: Shard(s[p]),
-                    ignored_params=ignored)
+                    ignored_params=ignored, mp_policy=mp)
+        if train:
+            # a plain SUM: no average and no PREMUL_SUM (gloo has none)
+            unit.set_gradient_divide_factor(1.0)
+            unit.set_force_sum_reduction_for_comms(True)
         for method in FSDP_METHODS:
             if hasattr(unit, method):
                 register_fsdp_forward_method(unit, method)
@@ -281,3 +295,71 @@ def batch_rows(mesh, batch: int) -> slice:
              + mesh.get_local_rank("fsdp"))
     per = batch // n
     return slice(block * per, (block + 1) * per)
+
+
+def row_sum(x, mesh):
+    """``x`` summed in place over the ranks that hold rows of a batch: over
+    ``fsdp``, then over ``data`` (a fixed order; an axis of size 1 is
+    skipped).  Returns ``x``."""
+    import torch.distributed as dist
+
+    sizes = axis_sizes(mesh)
+    for axis in ("fsdp", "data"):
+        if sizes[axis] > 1:
+            dist.all_reduce(x, group=mesh.get_group(axis))
+    return x
+
+
+class RankLayout:
+    """Where this rank's parameters lie in the global ones on ``mesh``:
+    ``cuts`` (`parallel.tensor.tensor_cuts`, taken on the whole model)
+    gives the dim each is cut along over ``tensor``; FSDP2's placement, the
+    dim each `DTensor` is sharded along over ``fsdp``.  `local` takes a
+    rank's part of a global tensor, `gather` makes the global one of the
+    ranks' parts (a collective: every rank calls it, in the same order)."""
+
+    def __init__(self, model: nn.Module, mesh, cuts: Mapping[str, int]):
+        from torch.distributed.tensor import DTensor, Shard
+
+        self.mesh = mesh
+        self.sizes = axis_sizes(mesh)
+        self.cuts = dict(cuts)
+        self.fsdp = {}
+        for name, p in model.named_parameters():
+            if isinstance(p, DTensor):
+                dims = [pl.dim for pl in p.placements if isinstance(pl, Shard)]
+                if dims:
+                    self.fsdp[name] = dims[0]
+
+    def _rank(self, axis: str) -> int:
+        return self.mesh.get_local_rank(axis)
+
+    def split_axes(self, name: str) -> Tuple[str, ...]:
+        """The axes ``name`` is split over (``fsdp``, ``tensor``)."""
+        return tuple(a for a, d in (("fsdp", self.fsdp), ("tensor", self.cuts))
+                     if name in d)
+
+    def local(self, name: str, full):
+        """This rank's part of the global tensor ``full`` of ``name``."""
+        x = full
+        if name in self.cuts:
+            x = x.chunk(self.sizes["tensor"], self.cuts[name])[
+                self._rank("tensor")]
+        if name in self.fsdp:
+            x = x.chunk(self.sizes["fsdp"], self.fsdp[name])[
+                self._rank("fsdp")]
+        return x.contiguous()
+
+    def gather(self, name: str, x):
+        """The global tensor of ``name`` from each rank's part ``x``."""
+        import torch
+        import torch.distributed as dist
+
+        for axis, dims in (("fsdp", self.fsdp), ("tensor", self.cuts)):
+            if name in dims:
+                x = x.contiguous()
+                parts = [torch.empty_like(x)
+                         for _ in range(self.sizes[axis])]
+                dist.all_gather(parts, x, group=self.mesh.get_group(axis))
+                x = torch.cat(parts, dims[name])
+        return x

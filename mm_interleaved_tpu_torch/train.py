@@ -27,10 +27,22 @@ batch (the prefetching thread's own iterator runs ahead of it; the JAX
 one batch a step); `Trainer.fit` moves each batch to the device as it
 takes it.
 
-Runs on the card; ``--device cpu`` runs on the CPU.  It refuses what the
-port cannot do yet rather than ignore it: a mesh of more than one device
-and ``distributed.initialize`` (the sharded Trainer, ROADMAP.md §1 item 6b).
-Errors propagate: a failed run exits nonzero.
+Runs on the card; ``--device cpu`` runs on the CPU.  A ``mesh:`` stanza
+over more than one device trains sharded (`engine.trainer.Trainer` on the
+``(data, fsdp, tensor)`` mesh; ``data: -1``, the default, is the rest of
+the world), one process a device under torchrun::
+
+    torchrun --nproc_per_node N -m mm_interleaved_tpu_torch.train \
+        --config configs/pretrain.yaml [--device cpu]
+
+With ``distributed.initialize`` or a ``WORLD_SIZE`` above 1 the process
+group comes from torchrun's environment (nccl on the card, gloo with
+``--device cpu``); a mesh over more than one device without one raises.
+Every rank builds the same global batch of ``per_device_batch_size`` rows
+(as JAX's processes do) and the Trainer takes its rows; rank 0 prints the
+lines, dumps the config and writes the checkpoints, which hold global
+tensors: a run resumes on any mesh.  Errors propagate: a failed run exits
+nonzero.
 """
 
 from __future__ import annotations
@@ -46,6 +58,7 @@ from .engine.trainer import Trainer, TrainerConfig
 from .models.mm_interleaved import build_model
 from .utils.config import build_model_config, dump_config, load_config
 from .utils.device import resolve_device
+from .utils.logging import rank
 
 
 def optim_config(tr: Dict[str, Any], max_steps: Optional[int]) -> OptimConfig:
@@ -62,20 +75,24 @@ def optim_config(tr: Dict[str, Any], max_steps: Optional[int]) -> OptimConfig:
     )
 
 
-def check_supported(cfg: Dict[str, Any]) -> None:
-    """Refuse the settings the port does not implement yet."""
-    mesh = cfg.get("mesh", {}) or {}
-    axes = {k: mesh.get(k, d) for k, d in (("data", -1), ("fsdp", 1),
-                                            ("tensor", 1))}
-    if axes["fsdp"] > 1 or axes["tensor"] > 1 or axes["data"] > 1:
-        raise NotImplementedError(
-            f"mesh {axes} asks for more than one device; the port trains on "
-            "one (the sharded Trainer is ROADMAP.md §1 item 6b; serving "
-            "runs sharded)")
-    if (cfg.get("distributed", {}) or {}).get("initialize", False):
-        raise NotImplementedError(
-            "distributed.initialize: the port trains in one process (the "
-            "sharded Trainer is ROADMAP.md §1 item 6b)")
+def training_mesh(cfg: Dict[str, Any], device):
+    """This rank's device and mesh: the process group from torchrun's
+    environment under ``distributed.initialize`` or a ``WORLD_SIZE`` above
+    1, then the ``mesh:`` stanza's `DeviceMesh` (None for one device).  A
+    mesh over more than one device with no process group raises
+    `RuntimeError`."""
+    from .parallel.inference import init_distributed, runtime_mesh_shape
+    from .parallel.partition import make_mesh
+
+    initialize = bool((cfg.get("distributed", {}) or {}).get("initialize"))
+    device = init_distributed(str(device), initialize)
+    shape = runtime_mesh_shape(cfg.get("mesh"), default_data=-1)
+    import torch.distributed as dist
+
+    if not (dist.is_available() and dist.is_initialized()) \
+            or dist.get_world_size() == 1:
+        return device, None
+    return device, make_mesh(*shape, device.type)
 
 
 def print_parameter_counts(model) -> None:
@@ -107,18 +124,20 @@ def main(argv=None) -> Dict[str, Any]:
 
     cfg = load_config(args.config)
     tr = cfg.get("training", {}) or {}
-    check_supported(cfg)
     load_from = args.load_from or tr.get("load_from")
-    device = resolve_device(args.device)
+    device, mesh = training_mesh(cfg, resolve_device(args.device))
+    writer = rank() == 0
     output_dir = args.output_dir or cfg.get("output_dir", "OUTPUT/run")
     os.makedirs(output_dir, exist_ok=True)
-    dump_config(cfg, output_dir)
+    if writer:
+        dump_config(cfg, output_dir)
 
     model_cfg = build_model_config(cfg["model"])
     optim = optim_config(tr, args.max_steps)
     seed = tr.get("seed", 32)
     model = build_model(model_cfg, device, seed=seed, optim=optim)
-    print_parameter_counts(model)
+    if writer:
+        print_parameter_counts(model)
     trainer = Trainer(model, TrainerConfig(
         optim=optim,
         max_steps=optim.total_steps,
@@ -127,20 +146,21 @@ def main(argv=None) -> Dict[str, Any]:
         keep_checkpoints=tr.get("save_total_limit", 5),
         seed=seed,
         checkpoint_dir=os.path.join(output_dir, "checkpoints"),
-    ), device)
+    ), device, mesh=mesh)
 
     data_iter, _ = build_train_iterator(cfg.get("data", {}) or {}, model_cfg)
+    say = print if writer else (lambda *a, **k: None)
     if trainer.restore(data_iter):
-        print(f"resumed at step {trainer.step}, data position "
-              f"{data_iter.state()}", flush=True)
+        say(f"resumed at step {trainer.step}, data position "
+            f"{data_iter.state()}", flush=True)
     elif load_from:
         trainer.warm_start(load_from)
-        print(f"warm-started params from {load_from}", flush=True)
+        say(f"warm-started params from {load_from}", flush=True)
     batches = prefetch(data_iter, size=2)
     logged = []
 
     def log_fn(step, metrics):
-        print(f"step {step}: " + " ".join(
+        say(f"step {step}: " + " ".join(
             f"{k}={v:.4g}" for k, v in metrics.items()), flush=True)
         logged.append((step, dict(metrics)))
 
@@ -154,8 +174,7 @@ def main(argv=None) -> Dict[str, Any]:
     finally:
         batches.close()
     size = path.stat().st_size
-    print(f"saved {path} ({size / 1e9:.3f} GB) in {save_s:.1f} s",
-          flush=True)
+    say(f"saved {path} ({size / 1e9:.3f} GB) in {save_s:.1f} s", flush=True)
     return dict(logged=logged, trainer=trainer, checkpoint=path,
                 checkpoint_bytes=size, save_s=save_s)
 

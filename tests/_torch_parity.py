@@ -11,10 +11,29 @@ from __future__ import annotations
 import numpy as np
 import jax
 import jax.numpy as jnp
+import pytest
 import torch
 
 from mm_interleaved_tpu.configs import tiny_config
 from mm_interleaved_tpu.models.mm_interleaved import MMInterleaved
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_native_build():
+    """The JAX package's image kernels from the port's build of the same
+    source (`mm_interleaved_tpu_torch/data/native.py`), for the module that
+    imports this fixture.  The JAX package builds `native/mmi_native.cpp`
+    with ``-march=native``, whose FMAs round the resampler differently from
+    one host and compiler to the next; the port builds it with IEEE
+    arithmetic only (ROADMAP.md §3).  The pipelines are held to each other
+    bit for bit on one build."""
+    from mm_interleaved_tpu.data import native as j_native
+    from mm_interleaved_tpu_torch.data import native as t_native
+
+    saved = j_native._build_and_load
+    j_native._build_and_load = t_native._build_and_load
+    yield
+    j_native._build_and_load = saved
 
 
 def noised(params, seed: int = 1):

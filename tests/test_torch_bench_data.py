@@ -55,6 +55,7 @@ from mm_interleaved_tpu_torch.data.transforms import create_transform
 from mm_interleaved_tpu_torch.engine.evaluator import EvalConfig, Evaluator
 from mm_interleaved_tpu_torch.utils.fid import CLIPViTFeatures
 
+from _torch_parity import one_native_build  # noqa: F401 (autouse)
 from _torch_eval_parity import (REPO, InjectedPort, RecordingJax, jax_entry,
                                 tiny_pair, tokenizers)
 

@@ -33,6 +33,8 @@ from mm_interleaved_tpu_torch.data.pipeline import (
 )
 from mm_interleaved_tpu_torch.utils import config as t_config
 
+from _torch_parity import one_native_build  # noqa: F401 (autouse)
+
 # each epoch holds 4 batches, so the first 6 cross into epoch 1
 DATA = {
     "interleaved": {"per_device_batch_size": 2, "seed": 0,
@@ -227,3 +229,44 @@ def test_test_tokenizer_takes_the_model_special_ids():
     assert not np.isin(jb["text_ids"], [S.soi_token_id,
                                         S.image_token_id]).any()
     assert int((jb["text_ids"] == 31995).sum()) == n_soi
+
+
+def test_native_pixels_do_not_depend_on_the_build_host(tmp_path):
+    """The image kernels built with the port's flags
+    (`data.native.FLAGS`: IEEE arithmetic, no FMA contraction) for the
+    baseline x86-64 and for x86-64-v3 (AVX2 and FMA) give the same pixels,
+    and so does the port's own library: every host computes the same image
+    tensors.  With ``-march=native`` (the JAX package's build) the FMAs of
+    an AVX2 host round the resampler differently: the first text turn's
+    tied greedy token then followed the machine that built the library
+    (ROADMAP.md §3)."""
+    import ctypes
+    import subprocess
+
+    with open("/proc/cpuinfo") as f:
+        flags = f.read()
+    if " fma" not in flags or " avx2" not in flags:
+        pytest.skip("the host runs no x86-64-v3 code")
+    src = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "native", "mmi_native.cpp")
+    rs = np.random.RandomState(0)
+    img = rs.randint(0, 256, (120, 160, 3)).astype(np.uint8)
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    f32p = ctypes.POINTER(ctypes.c_float)
+
+    def pixels(extra):
+        so = str(tmp_path / f"lib{extra[0][7:]}.so")
+        subprocess.run(["g++", *t_native.FLAGS, *extra, src, "-o", so],
+                       check=True, capture_output=True)
+        fn = ctypes.CDLL(so).crop_resize_to_f32
+        fn.argtypes = [u8p] + [ctypes.c_int] * 7 + [f32p, ctypes.c_int,
+                                                   ctypes.c_int]
+        out = np.empty((56, 56, 3), np.float32)
+        fn(img.ctypes.data_as(u8p), 120, 160, 3, 5, 7, 110, 150,
+           out.ctypes.data_as(f32p), 56, 56)
+        return out
+
+    base = pixels(["-march=x86-64"])
+    assert np.array_equal(base, pixels(["-march=x86-64-v3", "-mtune=native"]))
+    assert np.array_equal(base, t_native.crop_resize_to_f32(
+        img, 5, 7, 110, 150, 56, 56))

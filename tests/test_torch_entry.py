@@ -271,15 +271,17 @@ def test_train_step_runs_with_deterministic_cudnn(pipeline_step):
 @pytest.mark.parametrize("case", ["mesh", "distributed", "load_from",
                                   "no_cuda"])
 def test_train_main_refuses_what_the_port_lacks(case, tmp_path, monkeypatch):
-    """A multi-device mesh and ``distributed.initialize`` raise with the
-    ROADMAP item that brings them; a ``--load_from`` that is not a
-    checkpoint is refused; without CUDA and without ``--device cpu``
+    """A multi-device mesh and ``distributed.initialize`` outside torchrun
+    raise: there is no process group to train on; a ``--load_from`` that is
+    not a checkpoint is refused; without CUDA and without ``--device cpu``
     nothing runs on the CPU."""
     sections = {"mesh": {"mesh": {"fsdp": 2}},
                 "distributed": {"distributed": {"initialize": True}}}
     argv = ["--config", write_config(tmp_path, **sections.get(case, {})),
             "--output_dir", str(tmp_path / "out")]
-    err, match = NotImplementedError, "ROADMAP.md"
+    for var in ("WORLD_SIZE", "RANK", "LOCAL_RANK"):
+        monkeypatch.delenv(var, raising=False)
+    err, match = RuntimeError, "no process group"
     if case == "load_from":
         (tmp_path / "ckpt").write_text("not a checkpoint")
         argv += ["--load_from", str(tmp_path / "ckpt"), "--device", "cpu"]

@@ -59,6 +59,7 @@ from mm_interleaved_tpu_torch.parallel.inference import (
 from mm_interleaved_tpu_torch.utils import metrics as M
 from mm_interleaved_tpu_torch.utils.checkpoint import load_model
 
+from _torch_parity import one_native_build  # noqa: F401 (autouse)
 from _torch_eval_parity import RecordingJax, jax_entry, tiny_pair, tokenizers
 
 J_EVALUATE = jax_entry("evaluate")

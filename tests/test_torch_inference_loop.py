@@ -21,6 +21,7 @@ from mm_interleaved_tpu_torch.inference_loop import (
     InterleavedInferencePipeline,
 )
 
+from _torch_parity import one_native_build  # noqa: F401 (autouse)
 from _torch_eval_parity import (InjectedPort, RecordingJax, tiny_pair,
                                 tokenizers)
 

@@ -407,3 +407,50 @@ def test_fit_logs_and_saves_the_data_position(setup, tmp_path):
     state = torch.load(tmp_path / "step_2.pt", weights_only=False)
     assert state["step"] == 2 and state["data_state"] == {"epoch": 0,
                                                           "offset": 2}
+
+
+def test_sharded_step_matches_jax(setup, tmp_path):
+    """The sharded `Trainer` at ``(data, fsdp, tensor)`` = (2, 1, 1), one
+    row a rank (`_torch_train_worker.py` as two gloo processes, no JAX),
+    against JAX's one-device step (GSPMD keeps its arithmetic): the batch's
+    two rows hold different numbers of valid labels, so each rank's loss
+    is normalised by the global count.  JAX's draws, given at the global
+    batch, are sliced to each rank's image slots.  The loss within rtol
+    1e-5 of JAX's; the summed gradient of every trainable leaf within
+    1e-4 of its scale (`test_trainable_grads_match_jax`'s bound); the norm
+    over the trainable leaves within rtol 1e-5; every master after the
+    update within 2e-6 of JAX's parameters after optax's update on JAX's
+    gradients (`test_adamw_steps_match_optax`'s optimizer; a first Adam
+    step moves an entry by ``lr * g / (|g| + eps)``, lr 1e-4, so a gradient
+    that differs in its sixth digit moves it by under 1e-6 unless it is
+    within a few eps of 0), frozen leaves unchanged."""
+    from _torch_train_cases import launch
+
+    params, jgrads = setup["params"], setup["jgrads"]
+    jcfg = jopt.OptimConfig(**OPTIM)
+    labels = jax.tree_util.tree_map(
+        lambda p: jopt.label_for_path(p, jcfg), jopt.path_strings(params))
+    grads = jax.tree_util.tree_map(
+        lambda g, lab: g * 0 if lab == "frozen" else g, jgrads, labels)
+    tx = jopt.make_optimizer(jcfg, params)
+    upd, _ = jax.jit(tx.update)(grads, tx.init(params), params)
+    want = convert_params(optax.apply_updates(params, upd))
+    g_want = convert_params(grads)
+
+    state = convert_params(params)
+    res = launch(dict(state=state, optim=OPTIM, mesh=(2, 1, 1), cases=dict(
+        step=dict(kind="step", batch=_torch_batch(setup["batch"]),
+                  draws=[setup["draws"]], grads="summed"))), tmp_path, 2)
+    got = res["step"]
+    close(got["metrics"]["loss"], setup["jout"]["loss"], 1e-5, 0)
+    top = max(float(g_want[n].abs().max()) for n in got["grads"])
+    for n, g in got["grads"].items():
+        scale = max(float(g_want[n].abs().max()), 1e-3 * top)
+        close(g, g_want[n], 0, 1e-4 * scale)
+    norm = np.sqrt(sum(float((g_want[n].double() ** 2).sum())
+                       for n in got["grads"]))
+    np.testing.assert_allclose(got["metrics"]["grad_norm"], norm, rtol=1e-5)
+    for n, x in got["weights"].items():
+        close(x, want[n], 0, 2e-6)
+        if n not in got["grads"]:
+            assert torch.equal(x, state[n]), n
