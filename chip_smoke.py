@@ -498,7 +498,7 @@ def _site_flash(q, k, v, causal=False, **kw):
         return "llm_prefix"
     if Tq == Tk == 257:
         return "vit"
-    if H == 12:
+    if H in (12, 6):  # the Q-Former's heads, all or a rank's at tensor = 2
         return "qformer_self" if Tq == Tk else "qformer_cross"
     if Tq == Tk == 77:
         return "decoder_perceiver"
@@ -5458,17 +5458,92 @@ def run_quant_phase(greedy_tokens, bf16_peak_gb: float,
 # the sharded runtime (phase 17)
 
 # phase 17b's model: the flagship's widths with TP_LAYERS LLM layers (2 of
-# them MMFS: cross_attention_frequency 4), no image decoder
+# them MMFS: cross_attention_frequency 4) and its image decoder
 TP_LAYERS = 8
 TP_TOKENS = 4
-# phase 17a's denoise of the first two images of row 0
+# phases 17a's and 17b's denoise of the first two images of row 0
 SHARD_STEPS = 5
 TP_TIMEOUT = 600
-# the two-rank run's logits against the same weights' fp32 one-process
-# logits: the row-parallel sums round each rank's bf16 partial before the
-# sum, so its error is held to that of the one-process bf16 run (max and
-# mean over the logits), within this factor
+# the two-rank run's logits and images against the same weights' fp32
+# one-process ones: the row-parallel sums round each rank's bf16 partial
+# before the sum, so its error is held to that of the one-process bf16 run
+# (max and mean), within this factor
 TP_ERR_FACTOR = 1.5
+# 17b's captured sites held against their plain versions at the local
+# shapes (rank 0)
+TP_SITES = {
+    "ms_deform_attn_fwd": ["injector", "extractor", "mmfs_prefill",
+                           "mmfs_decode"],
+    "ms_deform_attn_mi_fwd": ["unet_32px"],
+    "flash_attention_fwd": ["llm_prefix", "vit", "qformer_self",
+                            "decoder_perceiver", "unet_attn1_32px",
+                            "unet_attn1_16px"],
+    "geglu_fwd": ["C320", "C640"],
+}
+# 18b's: the LLM's and the towers' training sites
+TRAIN_TP_SITES = {
+    "ms_deform_attn_fwd": ["mmfs_prefill", "injector"],
+    "flash_attention_fwd": ["llm_prefix", "vit"],
+    "ms_deform_attn_bwd_value": ["mmfs_llm", "unet_64px"],
+    "ms_deform_attn_bwd_loc_weight": ["mmfs_llm", "extractor"],
+    "flash_attention_bwd": ["llm_prefix", "qformer_self", "unet_attn1_32px"],
+}
+
+
+def tp_local_heads(cfg, name: str, site: str, parts: int = 2) -> int:
+    """The heads (GEGLU: the hidden width) of ``name``'s call at ``site``
+    on a rank at ``tensor = parts``, derived from the config: a pair's
+    heads over ``parts`` where ``parts`` divides them, else all."""
+    def local(n):
+        return n // parts if n % parts == 0 else n
+
+    if name == "geglu_fwd":
+        return local(4 * int(site[1:]))
+    if name.startswith("ms_deform_attn") and site in ("injector",
+                                                      "extractor"):
+        return local(cfg.visual.encoder.vit.num_attention_heads)
+    if name.startswith("ms_deform_attn") and site.startswith("mmfs"):
+        return local(cfg.llm.mmfs_heads)
+    if name.startswith("ms_deform_attn"):
+        return local(cfg.image_decoder.unet.mmfs.n_heads)
+    u = cfg.image_decoder.unet
+    heads = {"llm_prefix": cfg.llm.num_attention_heads,
+             "vit": cfg.visual.encoder.vit.num_attention_heads,
+             "qformer_self": cfg.visual.perceiver.num_attention_heads,
+             "qformer_cross": cfg.visual.perceiver.num_attention_heads,
+             "decoder_perceiver":
+                 cfg.image_decoder.perceiver.num_attention_heads}
+    if site in heads:
+        return local(heads[site])
+    # unet_attn{1,2}_{px}px: the block width at that resolution
+    px = int(site.rsplit("_", 1)[1][:-2])
+    level = int(round(np.log2(u.sample_size // px)))
+    return local(u.block_out_channels[level] // u.attention_head_dim)
+
+
+def site_heads(name: str, args) -> int:
+    """The heads (GEGLU: the hidden width) of a captured call."""
+    if name == "geglu_fwd":
+        return args[3].shape[1]
+    if name in ("ms_deform_attn_fwd", "ms_deform_attn_bwd_value",
+                "ms_deform_attn_bwd_loc_weight"):
+        return args[2].shape[2]
+    if name == "ms_deform_attn_mi_fwd":
+        return args[0].shape[3]
+    return args[0].shape[-2]
+
+
+def check_local_heads(tag: str, cfg, cases, sites) -> None:
+    """Every captured site of ``sites`` ran at its rank's heads."""
+    for name, want in sites.items():
+        for site in want:
+            if site not in cases.get(name, {}):
+                raise AssertionError(f"{tag} {name}: no call at {site}")
+            got = site_heads(name, cases[name][site][0])
+            if got != tp_local_heads(cfg, name, site):
+                raise AssertionError(
+                    f"{tag} {name} {site}: {got} heads (or hidden columns), "
+                    f"not {tp_local_heads(cfg, name, site)}")
 
 
 def free_port() -> int:
@@ -5486,15 +5561,36 @@ def param_bytes(model, pattern: str) -> int:
                for n, p in model.named_parameters() if re.search(pattern, n))
 
 
-def cut_bytes(model) -> int:
-    """The bytes of the weights the plan cuts over tensor (the LLM's
-    attention, MLP and MMFS projections, by head or column): each rank
-    holds half of them at tensor = 2."""
-    from mm_interleaved_tpu_torch.parallel.partition import placement_for
-
+def cut_bytes(model, cuts) -> int:
+    """The bytes of ``model``'s weights of ``cuts`` (`parallel.tensor.
+    tensor_cuts` of the whole model at tensor = 2: the LLM's, the towers'
+    and the vocabulary's pairs, by head, column or row): each rank holds
+    half of them."""
     return sum(p.numel() * p.element_size()
-               for n, p in model.named_parameters()
-               if placement_for(n, p.shape, {"tensor": 2}).tensor is not None)
+               for n, p in model.named_parameters() if n in cuts)
+
+
+def plan_bytes() -> dict:
+    """A rank's weight bytes of the flagship (bf16, on ``meta``: shapes
+    only) under the plan at tensor = 2 and 4 (`rank_bytes`), beside the
+    plan that cut the LLM's layers alone (the towers and the vocabulary
+    whole)."""
+    import torch
+
+    from mm_interleaved_tpu_torch.configs import flagship_config
+    from mm_interleaved_tpu_torch.models.mm_interleaved import MMInterleaved
+    from mm_interleaved_tpu_torch.parallel.partition import rank_bytes
+
+    with torch.device("meta"):
+        model = MMInterleaved(flagship_config()).to(torch.bfloat16)
+    llm = r"^mm_decoder\.layers\."
+    out = dict(whole=rank_bytes(model, {}))
+    for t in (2, 4):
+        out[f"tensor_{t}"] = rank_bytes(model, {"tensor": t})
+        out[f"tensor_{t}_llm_layers_alone"] = (
+            rank_bytes(model, {"tensor": t}, llm)
+            + rank_bytes(model, {}, r"^(?!mm_decoder\.layers\.)"))
+    return out
 
 
 def run_sharded_one() -> dict:
@@ -5584,8 +5680,8 @@ def tp_config():
     from mm_interleaved_tpu_torch.configs import flagship_config
 
     cfg = flagship_config(max_num_images=N_IMG)
-    return dc.replace(cfg, image_decoder=None, llm=dc.replace(
-        cfg.llm, num_hidden_layers=TP_LAYERS))
+    return dc.replace(cfg, llm=dc.replace(cfg.llm,
+                                          num_hidden_layers=TP_LAYERS))
 
 
 def tp_model():
@@ -5598,12 +5694,15 @@ def tp_model():
     return model
 
 
-def tp_forward(rt, cases=None) -> dict:
+def tp_forward(rt, cases=None, denoise=True) -> dict:
     """Through the runtime ``rt``: ``TP_TOKENS`` greedy tokens on the phase
     5 prompt (counts at 0 before, read after); with its model, the
     teacher-forced logits along them and the cache-free causal forward's
     logits of the whole prompt (kernel 5 at the LLM's heads), kernels 1
-    and 5 captured into ``cases`` when given."""
+    and 5 captured into ``cases`` when given; with ``denoise``, the
+    ``SHARD_STEPS``-step denoise of row 0's two images (phase 17a's, one
+    seeded generator) in a launch window of its own, kernels 1, 4, 5 and
+    7 captured."""
     import torch
 
     from mm_interleaved_tpu_torch.generation.text import TextGenerationConfig
@@ -5627,15 +5726,31 @@ def tp_forward(rt, cases=None) -> dict:
                 vision_hidden_states=prep["mmfs_values"],
                 cross_attention_mask=prep["cross_attention_mask"])
             full = model.text_decoder(hidden).float()
-    return dict(tokens=tokens.cpu(), tf=tf.cpu(), full=full.cpu(),
-                launches=launches)
+    out = dict(tokens=tokens.cpu(), tf=tf.cpu(), full=full.cpu(),
+               launches=launches)
+    if not denoise:
+        return out
+    reset_counts()
+    with (contextlib.nullcontext() if cases is None else capture(
+            ["ms_deform_attn_fwd", "ms_deform_attn_mi_fwd",
+             "flash_attention_fwd", "geglu_fwd"], cases)):
+        inp = rt.generate_image_inputs(ids, images, n_img, att)
+        g = torch.Generator(device="cuda")
+        g.manual_seed(SEED + 7)
+        imgs = rt.denoise(*(x[:2] for x in inp), g,
+                          num_inference_steps=SHARD_STEPS,
+                          guidance_scale=GUIDANCE)
+    torch.cuda.synchronize()
+    out.update(images=imgs.float().cpu(), image_launches=read_counts())
+    return out
 
 
 def tensor_rank_main(rank: str, port: str, out_dir: str) -> int:
     """One rank of phase 17b (``chip_smoke.py --tensor-rank R PORT DIR``):
     gloo over two processes on the one card, ``make_mesh(1, 1, 2)``; the
-    seeded 8-layer model cut by `ShardedGenerator` (its cut weights'
-    bytes), `tp_forward` with kernels 1 and 5 captured; then a second build
+    seeded 8-layer model with its image decoder cut by `ShardedGenerator`
+    (its cut weights' bytes and all of its weights'), `tp_forward` with
+    kernels 1, 4, 5 and 7 captured; then a second build
     quantized whole and cut (``quantize="int8"``), its greedy tokens with
     the int8 kernel's decode calls captured.  Rank 0 holds each captured
     kernel against its plain version at the local-head and local-K shapes.
@@ -5665,8 +5780,9 @@ def tensor_rank_main(rank: str, port: str, out_dir: str) -> int:
                                                            [1.0] * 2])
     mesh = make_mesh(1, 1, 2, "cuda")
     rt = ShardedGenerator(tp_model(), mesh)
-    res = dict(gloo_cuda=gloo, cut_bytes=cut_bytes(rt.model),
-               layers_bytes=param_bytes(rt.model, r"^mm_decoder\.layers\."))
+    res = dict(gloo_cuda=gloo, cut_bytes=cut_bytes(rt.model, rt.cuts),
+               layers_bytes=param_bytes(rt.model, r"^mm_decoder\.layers\."),
+               rank_bytes=param_bytes(rt.model, ""), cuts=len(rt.cuts))
     cases = {}
     res.update(tp_forward(rt, cases))
     del rt
@@ -5689,16 +5805,8 @@ def tensor_rank_main(rank: str, port: str, out_dir: str) -> int:
     dist.destroy_process_group()
     del rt
     if r == 0:
-        heads = {"ms_deform_attn_fwd": cfg.llm.mmfs_heads // 2,
-                 "flash_attention_fwd": cfg.llm.num_attention_heads // 2}
-        tp_sites = {"ms_deform_attn_fwd": ["mmfs_prefill", "mmfs_decode"],
-                    "flash_attention_fwd": ["llm_prefix"]}
-        for name, want in tp_sites.items():
-            for site in want:
-                q = cases[name][site][0][0]
-                if q.shape[-2] != heads[name]:
-                    raise AssertionError(f"17b {name} {site}: {q.shape[-2]} "
-                                         f"heads, not {heads[name]}")
+        check_local_heads("17b", cfg, cases, TP_SITES)
+        for name, want in TP_SITES.items():
             res[name] = compare_kernel(name, cases[name], want)
         res["int8_linear"] = compare_int8(sites)
     torch.save(res, Path(out_dir) / f"rank{r}.pt")
@@ -5708,32 +5816,39 @@ def tensor_rank_main(rank: str, port: str, out_dir: str) -> int:
 def run_tensor_parallel() -> dict:
     """Phase 17b: `ShardedGenerator` with tensor = 2 over two gloo
     processes on the one card (NCCL refuses two ranks on one device), the
-    flagship's widths with ``TP_LAYERS`` LLM layers (each rank first checks
-    that gloo carries CUDA tensors' ``all_reduce``, ``broadcast`` and
-    ``all_gather``), against the one-process
-    run of the same seeded model here: the teacher-forced logits and the
-    prompt's (at its real tokens) no farther from the same weights' fp32
-    logits than ``TP_ERR_FACTOR`` times the one-process bf16 run's
-    distance (max and mean), the two ranks' equal, the first greedy token
-    the one-process run's; each rank's cut weights half of their
-    one-process bytes within 2%; each rank's launches the count derived
-    from the config; kernels 1, 5 and the int8 kernel at the local-head
-    and local-K shapes against their plain versions (rank 0).  Every
-    failure is gathered; the phase fails after the last check.  Each
-    rank's log is under ``build/smoke_tp/``."""
+    flagship's widths with ``TP_LAYERS`` LLM layers and the image decoder
+    (each rank first checks that gloo carries CUDA tensors'
+    ``all_reduce``, ``broadcast`` and ``all_gather``), against the
+    one-process run of the same seeded model here: the teacher-forced
+    logits, the prompt's (at its real tokens) and the ``SHARD_STEPS``-step
+    images no farther from the same weights' fp32 ones than
+    ``TP_ERR_FACTOR`` times the one-process bf16 run's distance (max and
+    mean), the two ranks' equal, the first greedy token the one-process
+    run's; each rank's cut weights (the LLM's, the towers' and the
+    vocabulary's) half of their one-process bytes within 2%, and a rank's
+    weights the plan's count (`rank_bytes`) exactly; each rank's launches,
+    text and image windows, the count derived from the config; kernels 1,
+    4, 5, 7 and the int8 kernel at the local-head and local-K shapes
+    against their plain versions (rank 0).  Every failure is gathered; the
+    phase fails after the last check.  Each rank's log is under
+    ``build/smoke_tp/``."""
     import subprocess
 
     import torch
 
     from mm_interleaved_tpu_torch.parallel.inference import LocalGenerator
+    from mm_interleaved_tpu_torch.parallel.partition import rank_bytes
+    from mm_interleaved_tpu_torch.parallel.tensor import tensor_cuts
 
     t0 = time.perf_counter()
     model = tp_model()
     one = tp_forward(LocalGenerator(model))
-    one_bytes = dict(cut=cut_bytes(model),
-                     layers=param_bytes(model, r"^mm_decoder\.layers\."))
+    one_bytes = dict(cut=cut_bytes(model, tensor_cuts(model, {"tensor": 2})),
+                     layers=param_bytes(model, r"^mm_decoder\.layers\."),
+                     whole=param_bytes(model, ""),
+                     plan=rank_bytes(model, {"tensor": 2}))
     one["int8_tokens"] = tp_forward(LocalGenerator(
-        model, quantize="int8"))["tokens"]
+        model, quantize="int8"), denoise=False)["tokens"]
     del model
     torch.cuda.empty_cache()
     # the same weights in fp32: the yardstick of both bf16 runs' rounding
@@ -5767,7 +5882,8 @@ def run_tensor_parallel() -> dict:
     ranks = [torch.load(out_dir / f"rank{r}.pt", weights_only=False)
              for r in range(2)]
     res = dict(one_bytes=one_bytes, gloo_cuda=[rk["gloo_cuda"]
-                                               for rk in ranks])
+                                               for rk in ranks],
+               cuts=ranks[0]["cuts"], plan_bytes=plan_bytes())
     fails = [f"rank {r}: gloo refused or garbled CUDA {k}"
              for r, rk in enumerate(ranks)
              for k, ok in rk["gloo_cuda"].items() if not ok]
@@ -5793,6 +5909,21 @@ def run_tensor_parallel() -> dict:
                              f"process bf16 run's {one_err}")
         if not torch.equal(ranks[1][key], ranks[0][key]):
             fails.append(f"{key} logits differ between ranks")
+    for stat, fn in (("max", torch.max), ("mean", torch.mean)):
+        tp_err = float(fn((ranks[0]["images"] - ref["images"]).abs()))
+        one_err = float(fn((one["images"] - ref["images"]).abs()))
+        res[f"images_tp_{stat}_err"] = tp_err
+        res[f"images_one_{stat}_err"] = one_err
+        if not tp_err <= TP_ERR_FACTOR * one_err:
+            fails.append(f"images' {stat} error against fp32 {tp_err} over "
+                         f"{TP_ERR_FACTOR} x the one-process bf16 run's "
+                         f"{one_err}")
+    res["images_tp_vs_one_max"] = float(
+        (ranks[0]["images"] - one["images"]).abs().max())
+    if not torch.equal(ranks[1]["images"], ranks[0]["images"]):
+        fails.append("images differ between ranks")
+    if not torch.isfinite(ranks[0]["images"]).all():
+        fails.append("non-finite images")
     top2 = one["tf"][:, 0].topk(2, dim=-1).values
     res["first_token_margin"] = float((top2[:, 0] - top2[:, 1]).min())
     if not torch.equal(ranks[0]["tokens"][:, 0], one["tokens"][:, 0]):
@@ -5808,20 +5939,30 @@ def run_tensor_parallel() -> dict:
         if abs(res[f"rank{r}_cut_ratio"] / 0.5 - 1) > 0.02:
             fails.append(f"rank {r}: cut weights {rk['cut_bytes']} B, not "
                          f"half of {one_bytes['cut']}")
+        res[f"rank{r}_bytes"] = rk["rank_bytes"]
+        if rk["rank_bytes"] != one_bytes["plan"]:
+            fails.append(f"rank {r}: {rk['rank_bytes']} B of weights, the "
+                         f"plan counts {one_bytes['plan']}")
     want = bench_text_launches(tp_config(), TP_TOKENS)
+    want_image = expected_image_launches(tp_config(), SHARD_STEPS, 2)
+    if one["image_launches"] != want_image:
+        fails.append(f"one-process image launches {one['image_launches']} "
+                     f"!= {want_image}")
     for r, rk in enumerate(ranks):
         if rk["launches"] != want:
             fails.append(f"rank {r} launches {rk['launches']} != {want}")
+        if rk["image_launches"] != want_image:
+            fails.append(f"rank {r} image launches {rk['image_launches']} "
+                         f"!= {want_image}")
     if ranks[0]["int8_launches"]["int8_linear"] == 0:
         fails.append("the int8 kernel was not launched")
     if fails:
         log(f"phase 17b: {json.dumps(res)}")
         raise AssertionError("17b: " + "; ".join(fails))
-    res.update(launches=ranks[0]["launches"],
+    res.update(launches=add_launches(ranks[0]["launches"],
+                                     ranks[0]["image_launches"]),
                int8_launches=ranks[0]["int8_launches"],
-               sites={k: ranks[0][k] for k in ("ms_deform_attn_fwd",
-                                               "flash_attention_fwd",
-                                               "int8_linear")},
+               sites={k: ranks[0][k] for k in (*TP_SITES, "int8_linear")},
                tokens=ranks[0]["tokens"][:, :TP_TOKENS].tolist(),
                wall_s=time.perf_counter() - t0)
     return res
@@ -5949,7 +6090,7 @@ def train_tp_step(dtype, mesh=None, cases=None) -> dict:
     `Trainer` (on ``mesh`` when given): the metrics, the summed fp32
     gradients by leaf (host), the launches (counts at 0 before, read after)
     and the cut leaves' names; kernels 1, 2, 3, 5 and 5b captured at the
-    LLM's sites into ``cases`` when given."""
+    LLM's and the towers' sites into ``cases`` when given."""
     import torch
 
     from mm_interleaved_tpu_torch.engine.optim import OptimConfig
@@ -5993,8 +6134,8 @@ def train_tensor_rank_main(rank: str, port: str, out_dir: str) -> int:
     """One rank of phase 18b (``chip_smoke.py --train-tensor-rank R PORT
     DIR``): gloo over two processes on the one card, ``make_mesh(1, 1,
     2)``, `train_tp_step` in bf16 with kernels 1, 2, 3, 5 and 5b captured;
-    rank 0 holds each against its plain version at the LLM's local-head
-    sites and saves its gradients; each rank saves a digest of each
+    rank 0 holds each against its plain version at the LLM's and the
+    towers' local-head sites (`TRAIN_TP_SITES`) and saves its gradients; each rank saves a digest of each
     gradient of a leaf the plan keeps whole over ``tensor``, to
     ``DIR/rank{R}.pt``."""
     import torch
@@ -6015,30 +6156,15 @@ def train_tensor_rank_main(rank: str, port: str, out_dir: str) -> int:
     res["whole_digests"] = {n: int(_digest(g)) for n, g in
                             res["grads"].items() if n not in res["cuts"]}
     if r == 0:
-        cfg = train_tp_config()
-        heads = {"ms_deform_attn": cfg.llm.mmfs_heads // 2,
-                 "flash_attention": cfg.llm.num_attention_heads // 2}
-        sites = {"ms_deform_attn_fwd": "mmfs_prefill",
-                 "flash_attention_fwd": "llm_prefix",
-                 "ms_deform_attn_bwd_value": "mmfs_llm",
-                 "ms_deform_attn_bwd_loc_weight": "mmfs_llm",
-                 "flash_attention_bwd": "llm_prefix"}
-        for name, site in sites.items():
-            args = cases[name][site][0]
-            h = (args[2].shape[2] if name.startswith("ms_deform")
-                 else args[0].shape[-2])
-            want = heads["flash_attention" if name.startswith("flash")
-                         else "ms_deform_attn"]
-            if h != want:
-                raise AssertionError(f"18b {name} {site}: {h} heads, not "
-                                     f"{want}")
+        check_local_heads("18b", train_tp_config(), cases, TRAIN_TP_SITES)
+        for name, want in TRAIN_TP_SITES.items():
             # the training forward keeps its LSE for the backward; the
             # comparison is of the output
-            args, kw = cases[name][site]
-            one = {site: (args, {k: v for k, v in kw.items()
-                                 if k != "return_lse"})}
+            one = {site: (cases[name][site][0],
+                          {k: v for k, v in cases[name][site][1].items()
+                           if k != "return_lse"}) for site in want}
             compare = compare_kernel if name in FORWARD else compare_backward
-            res[name] = compare(name, one, [site])
+            res[name] = compare(name, one, want)
     else:
         res.pop("grads")
     torch.save(res, Path(out_dir) / f"rank{r}.pt")
@@ -6067,11 +6193,10 @@ def run_train_tensor_parallel() -> dict:
     the bf16 one-process step (a scalar at least half a bf16 ulp of its
     value: one scalar's bf16 distance may be near 0 by chance, where a
     group's max and mean over many entries are not); the gradient of every
-    leaf
-    kept whole over ``tensor`` the same bits on both ranks; each rank's
-    launches the one-process step's, which are the count derived from the
-    config; kernels 1, 2, 3, 5 and 5b at the local
-    heads against their plain versions (rank 0).  Every failure is
+    leaf kept whole over ``tensor`` the same bits on both ranks, and the
+    towers cut; each rank's launches the one-process step's, which are the
+    count derived from the config; kernels 1, 2, 3, 5 and 5b at the LLM's
+    and the towers' local heads against their plain versions (rank 0).  Every failure is
     gathered; the phase fails after the last check.  Rank logs under
     ``build/smoke_train_tp/``."""
     import subprocess
@@ -6141,10 +6266,13 @@ def run_train_tensor_parallel() -> dict:
     if uneq or set(d0) != set(d1):
         fails.append(f"{len(uneq)} gradients of leaves whole over tensor "
                      f"differ between the ranks: {uneq[:4]}")
-    towers = [n for n in d0 if n.startswith(("visual_tokenizer.",
-                                             "image_decoder."))]
-    if not towers:
-        fails.append("no tower gradient was compared between the ranks")
+    for tower in ("visual_tokenizer.", "image_decoder.unet.",
+                  "image_decoder.perceiver_resampler."):
+        if not any(n.startswith(tower) for n in tp["cuts"]):
+            fails.append(f"no leaf of {tower} is cut over tensor")
+        if not any(n.startswith(tower) for n in d0):
+            fails.append(f"no whole leaf of {tower} was compared between "
+                         "the ranks")
     derived = expected_train_launches(train_tp_config(),
                                       TRAIN_TP_ROWS * N_IMG)
     if one["launches"] != derived:
@@ -6485,9 +6613,15 @@ def main() -> int:
         f"{sh['wall_s']:.1f} s")
     tp = run_tensor_parallel()
     errs = {k: v for k, v in tp.items() if k.startswith(("tf_", "full_"))}
+    errs.update({k: v for k, v in tp.items() if k.startswith("images_")})
     log(f"tensor parallel, tensor = 2 (gloo, two processes on the card, "
-        f"{TP_LAYERS} LLM layers at the flagship's widths): logits against "
-        f"the fp32 one-process run {json.dumps(errs)}; first greedy token "
+        f"{TP_LAYERS} LLM layers at the flagship's widths with the image "
+        f"decoder, {tp['cuts']} leaves cut): logits and {SHARD_STEPS}-step "
+        f"images against the fp32 one-process run {json.dumps(errs)}; a "
+        f"rank's weights {tp['rank0_bytes'] / 1e9:.4f} GB (the plan's count; "
+        f"one process {tp['one_bytes']['whole'] / 1e9:.4f}); the flagship "
+        f"under the plan (meta, bytes a rank) "
+        f"{json.dumps(tp['plan_bytes'])}; first greedy token "
         f"equal (top-2 "
         f"margin {tp['first_token_margin']:.4g}), {TP_TOKENS} tokens equal "
         f"at {tp['tokens_equal']:.3f} of positions, int8 at "
@@ -6499,7 +6633,7 @@ def main() -> int:
         f"collectives {json.dumps(tp['gloo_cuda'])} | {smi}; launches "
         f"{json.dumps(tp['launches'])}, int8 "
         f"{json.dumps(tp['int8_launches'])}; phase 17b {tp['wall_s']:.1f} s")
-    for name in ("ms_deform_attn_fwd", "flash_attention_fwd"):
+    for name in TP_SITES:
         line_of[name]["tensor_parallel_sites"] = tp["sites"][name]
     int8_line["tensor_parallel_sites"] = tp["sites"]["int8_linear"]
     lap("17 sharded runtime")

@@ -102,10 +102,9 @@ class Trainer:
         self.layout = None
         if mesh is not None:
             from ..parallel.partition import RankLayout, shard_fsdp
-            from ..parallel.tensor import shard_tensor_parallel, tensor_cuts
+            from ..parallel.tensor import shard_tensor_parallel
 
-            cuts = tensor_cuts(model, mesh)
-            shard_tensor_parallel(model, mesh)
+            cuts = shard_tensor_parallel(model, mesh)
             shard_fsdp(model, mesh, train=True)
             self.layout = RankLayout(model, mesh, cuts)
         named = [(n, p, self.labels[n]) for n, p in model.named_parameters()

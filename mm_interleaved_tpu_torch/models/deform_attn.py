@@ -1,6 +1,10 @@
 """Single-image multi-scale deformable attention, Deformable-DETR style
 (counterpart of `mm_interleaved_tpu/models/deform_attn.py`), used by the
-ViT-Adapter's Injector and Extractor blocks."""
+ViT-Adapter's Injector and Extractor blocks.  Cut over ``tensor``
+(`parallel.tensor`), it holds this rank's heads: ``value_proj``'s columns,
+the head-major rows of ``sampling_offsets`` and ``attention_weights``, and
+``output_proj``'s input columns, whose partial output is summed over
+``tensor_group`` before the bias."""
 
 from __future__ import annotations
 
@@ -12,6 +16,7 @@ import torch
 from torch import nn
 
 from ..ops.ms_deform_attn import ms_deform_attn
+from ..parallel.tensor import row_parallel, tensor_enter
 
 
 def grid_reference_points(
@@ -48,7 +53,6 @@ class MSDeformAttn(nn.Module):
                  n_points: int = 4, ratio: float = 1.0,
                  level_shapes: Sequence[Tuple[int, int]] = ((16, 16),)):
         super().__init__()
-        self.n_heads = n_heads
         self.n_points = n_points
         self.level_shapes = tuple(tuple(s) for s in level_shapes)
         L = len(self.level_shapes)
@@ -57,6 +61,18 @@ class MSDeformAttn(nn.Module):
         self.sampling_offsets = nn.Linear(d_model, n_heads * L * n_points * 2)
         self.attention_weights = nn.Linear(d_model, n_heads * L * n_points)
         self.output_proj = nn.Linear(d_val, d_model)
+        self.tensor_group = None
+
+    @property
+    def n_heads(self) -> int:
+        """The heads this module holds (all, or this rank's)."""
+        return self.attention_weights.out_features // (
+            len(self.level_shapes) * self.n_points)
+
+    def tensor_pairs(self):
+        return (("tensor_group", self.n_heads,
+                 ("value_proj", "sampling_offsets", "attention_weights",
+                  "output_proj")),)
 
     def init_weights(self, g: torch.Generator) -> None:
         L = len(self.level_shapes)
@@ -75,7 +91,9 @@ class MSDeformAttn(nn.Module):
         P = self.n_points
         nh = self.n_heads
         B, Lq, _ = query.shape
-        value = self.value_proj(feat)
+        group = self.tensor_group
+        query = tensor_enter(query, group)
+        value = self.value_proj(tensor_enter(feat, group))
         value = value.view(B, value.shape[1], nh, -1)
         offsets = self.sampling_offsets(query).view(B, Lq, nh, L, P, 2)
         logits = self.attention_weights(query).view(B, Lq, nh, L * P)
@@ -98,4 +116,4 @@ class MSDeformAttn(nn.Module):
             locations.to(value.dtype).contiguous(),
             weights.to(value.dtype).contiguous(),
         )
-        return self.output_proj(out)
+        return row_parallel(self.output_proj, out, group)

@@ -9,7 +9,8 @@ of `mm_interleaved_tpu/models/llama.py`).
   * fp32 softmax attention, GQA, and left-padded positions;
   * tensor parallelism (`parallel.tensor`): the head counts come from the
     projections' widths, which a cut makes this rank's, and a row-parallel
-    output is summed over the module's ``tensor_group`` (None: whole).
+    output is summed over the module's ``tensor_group`` (None: whole); the
+    embedding and the text head are cut by vocabulary row.
 
 The stack is one unrolled list of layers; the JAX ``scan_layers`` layout
 is unstacked by the weight bridge (`utils/from_flax.py`), and
@@ -30,7 +31,8 @@ import torch.nn.functional as F
 from ..ops.attention import dot_product_attention
 from ..ops.rmsnorm import rms_norm
 from ..ops.rotary import apply_rotary_embedding, rotary_cos_sin
-from ..parallel.tensor import tensor_all_reduce, tensor_enter
+from ..parallel.tensor import (tensor_all_gather, tensor_all_reduce,
+                               tensor_enter)
 from .mmfs import MMFS
 from .remat import remat_call
 
@@ -154,6 +156,10 @@ class LlamaMLP(nn.Module):
                                    bias=False)
         self.tensor_group = None
 
+    def tensor_pairs(self):
+        return (("tensor_group", self.gate_proj.out_features,
+                 ("gate_proj", "up_proj", "down_proj")),)
+
     def forward(self, x):
         x = tensor_enter(x, self.tensor_group)
         return tensor_all_reduce(
@@ -172,6 +178,10 @@ class LlamaAttention(nn.Module):
         self.v_proj = nn.Linear(c, cfg.kv_heads * hd, bias=False)
         self.o_proj = nn.Linear(cfg.num_attention_heads * hd, c, bias=False)
         self.tensor_group = None
+
+    def tensor_pairs(self):
+        return (("tensor_group", self.n_kv,
+                 ("q_proj", "k_proj", "v_proj", "o_proj")),)
 
     @property
     def n_q(self) -> int:
@@ -305,9 +315,14 @@ class LlamaModel(nn.Module):
             [LlamaDecoderLayer(cfg, i) for i in range(cfg.num_hidden_layers)]
         )
         self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
+        self.tensor_group = None
 
     def init_weights(self, g: torch.Generator) -> None:
         self.embed_tokens.weight.data.normal_(0.0, 0.02, generator=g)
+
+    def tensor_pairs(self):
+        return (("tensor_group", self.embed_tokens.num_embeddings,
+                 ("embed_tokens",)),)
 
     @property
     def kv_heads(self) -> int:
@@ -315,7 +330,19 @@ class LlamaModel(nn.Module):
         return self.layers[0].self_attn.n_kv
 
     def embed(self, text_ids: torch.Tensor) -> torch.Tensor:
-        return self.embed_tokens(text_ids)
+        """The embeddings of ``text_ids``; cut by row over ``tensor``, each
+        rank looks up the ids it holds, zeroes the others' rows and the
+        ranks' rows are summed (exact: one rank holds each id)."""
+        group = self.tensor_group
+        if group is None:
+            return self.embed_tokens(text_ids)
+        import torch.distributed as dist
+
+        rows = self.embed_tokens.num_embeddings
+        local = text_ids - dist.get_rank(group) * rows
+        mine = (local >= 0) & (local < rows)
+        out = self.embed_tokens(torch.where(mine, local, 0))
+        return tensor_all_reduce(out.masked_fill(~mine[..., None], 0), group)
 
     def forward(
         self,
@@ -384,7 +411,9 @@ class LlamaModel(nn.Module):
 class TextDecoder(nn.Module):
     """Dual-head text decoder: ``head`` over the full vocabulary (new-vocab
     bias -100) plus ``head_new`` over the new special-token slots (zero
-    weight, bias 95, so -5 net at init)."""
+    weight, bias 95, so -5 net at init).  Cut over ``tensor``, ``head``
+    holds this rank's rows of the vocabulary and its logits are gathered;
+    ``head_new`` stays whole."""
 
     def __init__(self, cfg: LlamaConfig, orig_vocab_size: int = 32000):
         super().__init__()
@@ -392,6 +421,10 @@ class TextDecoder(nn.Module):
         self.head = nn.Linear(cfg.hidden_size, cfg.vocab_size)
         self.head_new = nn.Linear(cfg.hidden_size,
                                   cfg.vocab_size - orig_vocab_size)
+        self.tensor_group = None
+
+    def tensor_pairs(self):
+        return (("tensor_group", self.head.out_features, ("head",)),)
 
     def init_weights(self, g: torch.Generator) -> None:
         self.head.bias.data.zero_()
@@ -400,7 +433,9 @@ class TextDecoder(nn.Module):
         self.head_new.bias.data.fill_(95.0)
 
     def forward(self, hidden_states: torch.Tensor) -> torch.Tensor:
-        logits = self.head(hidden_states)
+        group = self.tensor_group
+        logits = tensor_all_gather(
+            self.head(tensor_enter(hidden_states, group)), group)
         new = self.head_new(hidden_states)
         return torch.cat(
             [logits[..., :self.orig_vocab_size],

@@ -32,12 +32,14 @@ Two branches, chosen by whether `forward` is given an image side:
     differentiable deformable op).
 
 The head count and the value width are read from the projections'
-widths: the LLM's MMFS cut over ``tensor`` (`parallel.tensor`) holds this
-rank's heads, sums its output projection over ``tensor_group`` and adds
-the bias once, after the sum.  In training the inputs of its column-parallel
+widths: an MMFS cut over ``tensor`` (`parallel.tensor`; the LLM's and
+MMFSNet's alike) holds this rank's heads, sums its output projection over
+``tensor_group`` and adds the bias once, after the sum.  In the UNet branch
+the image side (the value, ``Et_g``, the offsets and the delta table) then
+holds the local heads.  In training the inputs of its column-parallel
 projections (the value, the offset/mask query and the relpos table) pass
 `parallel.tensor.tensor_enter`, so their gradients are summed over the
-heads of every rank.  The UNet's MMFSNet is never cut.
+heads of every rank; ``dynamic_offset_mask`` stays whole.
 """
 
 from __future__ import annotations
@@ -52,7 +54,7 @@ from einops import rearrange
 from ..ops.cuda_build import needs_grad
 from ..ops.ms_deform_attn import ms_deform_attn_multi_image
 from ..ops.ms_deform_attn_mi import build_delta, mmfs_deform_factorized
-from ..parallel.tensor import tensor_all_reduce, tensor_enter
+from ..parallel.tensor import partial_dtype, tensor_all_reduce, tensor_enter
 
 
 def image_relpos_from_mask(mask: torch.Tensor,
@@ -99,6 +101,11 @@ class MMFS(nn.Module):
         self.ignore_token = nn.Parameter(torch.empty(d_val_proj))
         self.output_proj = nn.Linear(d_val_proj, self.d_out)
         self.tensor_group = None
+
+    def tensor_pairs(self):
+        return (("tensor_group", self.n_heads,
+                 ("value_proj", "sampling_offsets", "attention_weights",
+                  "ignore_token", "output_proj")),)
 
     @property
     def n_heads(self) -> int:
@@ -169,7 +176,7 @@ class MMFS(nn.Module):
         tok = tok.to(out_dtype)
         if self.tensor_group is not None:
             # the bias is added once, after the sum over tensor
-            return F.linear(tok, self.output_proj.weight)
+            return F.linear(tok, self.output_proj.weight.to(out_dtype))
         return (self.output_proj(tok)
                 - self.output_proj(torch.zeros_like(tok[:1])))
 
@@ -240,18 +247,23 @@ class MMFS(nn.Module):
         )
 
     def _finish(self, out, w_ignore_tot):
+        """The output projection with the folded ignore path; cut over
+        ``tensor``, this rank's partial (in `parallel.tensor.partial_dtype`)
+        summed over the group, the bias added once after the sum."""
         proj = self.output_proj
+        dtype = out.dtype
         if self.tensor_group is None:
             out = proj(out)
         else:
-            out = F.linear(out, proj.weight)
+            out = out.to(partial_dtype(dtype))
+            out = F.linear(out, proj.weight.to(out.dtype))
         tok_w = self._ignore_table(out.dtype, out.device)
         out = out + torch.einsum("bqh,ho->bqo", w_ignore_tot.to(tok_w.dtype),
                                  tok_w)
         if self.tensor_group is None:
             return out
         out = tensor_all_reduce(out, self.tensor_group)
-        return out + proj.bias.to(out.dtype)
+        return (out + proj.bias.to(out.dtype)).to(dtype)
 
     def _forward_image_mask(self, query, reference_points, side):
         B, Lq, _ = query.shape

@@ -7,7 +7,12 @@ optional q/k LayerNorm over ``head_dim``.  An ``encoder_attention_mask
 the plain attention path; the mask-free self-attention takes the flash
 kernel on the card).  In training mode, ``dropout`` applies where the JAX
 module's ``nn.Dropout`` does (the input, each attention output, the FFN
-output), its keep masks drawn from the ``generator`` of the call."""
+output), its keep masks drawn from the ``generator`` of the call.  Cut
+over ``tensor`` (`parallel.tensor`), each attention holds this rank's heads
+(``query/key/value`` columns, the per-head q/k LayerNorm applied to them)
+and each FFN its hidden columns; the row-parallel outputs are summed over
+the pair's group before the bias, and dropout comes after both, its mask
+the same on every tensor rank (they hold the same rows)."""
 
 from __future__ import annotations
 
@@ -19,6 +24,7 @@ from torch import nn
 import torch.nn.functional as F
 
 from ..ops.attention import dot_product_attention
+from ..parallel.tensor import entered_layer_norm, row_parallel, tensor_enter
 from ..utils import draws
 
 
@@ -71,22 +77,30 @@ class _MHA(nn.Module):
             self.q_norm = nn.LayerNorm(hd, eps=cfg.layer_norm_eps)
             self.k_norm = nn.LayerNorm(hd, eps=cfg.layer_norm_eps)
         self.output = nn.Linear(c, c)
+        self.tensor_group = None
+
+    def tensor_pairs(self):
+        return (("tensor_group", self.cfg.num_attention_heads,
+                 ("query", "key", "value", "output")),)
 
     def forward(self, x, kv, kv_mask=None, generator=None):
         c = self.cfg
         B, T, _ = x.shape
         S = kv.shape[1]
-        nh = c.num_attention_heads
-        hd = c.hidden_size // nh
-        q = self.query(x).view(B, T, nh, hd)
+        hd = c.hidden_size // c.num_attention_heads
+        nh = self.query.out_features // hd  # all heads, or this rank's
+        group = self.tensor_group
+        xin = tensor_enter(x, group)
+        kv = xin if kv is x else tensor_enter(kv, group)
+        q = self.query(xin).view(B, T, nh, hd)
         k = self.key(kv).view(B, S, nh, hd)
         v = self.value(kv).view(B, S, nh, hd)
         if c.qk_normalization:
-            q = self.q_norm(q)
-            k = self.k_norm(k)
+            q = entered_layer_norm(self.q_norm, q, group)
+            k = entered_layer_norm(self.k_norm, k, group)
         mask = None if kv_mask is None else kv_mask[:, None, None, :].bool()
         out = dot_product_attention(q, k, v, mask=mask)
-        out = self.output(out.reshape(B, T, c.hidden_size))
+        out = row_parallel(self.output, out.reshape(B, T, nh * hd), group)
         return dropout(out, c.dropout, self.training, generator)
 
 
@@ -105,13 +119,20 @@ class PerceiverLayer(nn.Module):
         self.intermediate = nn.Linear(c, cfg.ffn_size)
         self.ffn_output = nn.Linear(cfg.ffn_size, c)
         self.output_norm = nn.LayerNorm(c, eps=eps)
+        self.ffn_group = None
+
+    def tensor_pairs(self):
+        return (("ffn_group", self.intermediate.out_features,
+                 ("intermediate", "ffn_output")),)
 
     def forward(self, x, enc, enc_mask=None, generator=None):
         x = self.attention_norm(x + self.attention(x, x, generator=generator))
         if self.has_cross:
             x = self.crossattention_norm(
                 x + self.crossattention(x, enc, enc_mask, generator))
-        h = self.ffn_output(F.gelu(self.intermediate(x)))
+        group = self.ffn_group
+        h = row_parallel(self.ffn_output, F.gelu(
+            self.intermediate(tensor_enter(x, group))), group)
         h = dropout(h, self.rate, self.training, generator)
         return self.output_norm(x + h)
 

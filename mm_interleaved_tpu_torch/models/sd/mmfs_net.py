@@ -5,7 +5,8 @@ UNet down-block residual and to the mid-block sample.
 The JAX denoise loop reaches each block's value projection through a pass
 with dummy queries; here `MMFSNet.project_values` returns them, and
 `MMFSNet.prepare` the whole image side of every block (see `models.mmfs`),
-so the loop computes both once.
+so the loop computes both once.  Cut over ``tensor``, each block's MMFS
+holds this rank's heads (see `models.mmfs`), its image side too.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from torch import nn
 import torch.nn.functional as F
 
 from ...ops.pos_embed import resized_sincos_table
+from ...parallel.tensor import tensor_enter
 from ..deform_attn import grid_reference_points
 from ..mmfs import MMFS
 
@@ -73,7 +75,10 @@ class MMFSBlock(nn.Module):
         self.conv.bias.data.zero_()
 
     def project_value(self, mmfs_values: torch.Tensor) -> torch.Tensor:
-        return self.mmfs.value_proj(self.feat_norm(mmfs_values))
+        """The value projection (this rank's heads where it is cut over
+        ``tensor``)."""
+        return self.mmfs.value_proj(tensor_enter(
+            self.feat_norm(mmfs_values), self.mmfs.tensor_group))
 
     def prepare(self, mmfs_values: torch.Tensor, mmfs_mask: torch.Tensor):
         """The image side of ``mmfs_values [Bv, n_img, sum(hw), Cv]`` and

@@ -10,7 +10,12 @@ on the card), the ResnetBlock norms through the GroupNorm+SiLU kernel, and
 the feed-forward of the blocks of width <= 640 through the fused GEGLU
 kernel when autograd does not record the call.  With ``remat``, each
 ResnetBlock and SpatialTransformer is recomputed in the backward of a call
-that autograd records.
+that autograd records.  Cut over ``tensor`` (`parallel.tensor`), a
+`TransformerBlock` holds this rank's heads of both attentions and its
+GEGLU's hidden columns, ``ff_in`` as ``[value_r | gate_r]``: the fused
+kernel then runs at ``Fh = 4C / tensor``, and ``ff_out``'s bias is added
+after the sum.  A block whose heads ``tensor`` does not divide keeps its
+attention whole (the plan's choice) and its GEGLU cut.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ import torch.nn.functional as F
 from ...ops.attention import dot_product_attention
 from ...ops.geglu import geglu_fused_eligible, geglu_mlp
 from ...ops.group_norm import GroupNorm, GroupNormSiLU
+from ...parallel.tensor import row_parallel, tensor_all_reduce, tensor_enter
 from ..remat import remat_call
 from .mmfs_net import MMFSNet, MMFSNetConfig
 from .nhwc import Conv2d, upsample2x
@@ -104,6 +110,7 @@ class TransformerBlock(nn.Module):
     def __init__(self, dim: int, n_heads: int, cross_dim: int):
         super().__init__()
         self.n_heads = n_heads
+        self.head_dim = dim // n_heads
         for p, kv in (("attn1", dim), ("attn2", cross_dim)):
             setattr(self, f"{p}_q", nn.Linear(dim, dim, bias=False))
             setattr(self, f"{p}_k", nn.Linear(kv, dim, bias=False))
@@ -114,30 +121,49 @@ class TransformerBlock(nn.Module):
         self.norm3 = nn.LayerNorm(dim, eps=1e-5)
         self.ff_in = nn.Linear(dim, 8 * dim)
         self.ff_out = nn.Linear(4 * dim, dim)
+        self.attn_group = None
+        self.ffn_group = None
+
+    def tensor_pairs(self):
+        return (("attn_group", self.n_heads,
+                 tuple(f"attn{i}_{w}" for i in (1, 2)
+                       for w in ("q", "k", "v", "out"))),
+                ("ffn_group", self.ff_out.in_features, ("ff_in", "ff_out")))
 
     def _attend(self, h, kv, p):
-        B, T, d = h.shape
+        B, T, _ = h.shape
         S = kv.shape[1]
-        nh = self.n_heads
-        q = getattr(self, f"{p}_q")(h).reshape(B, T, nh, d // nh)
-        k = getattr(self, f"{p}_k")(kv).reshape(B, S, nh, d // nh)
-        v = getattr(self, f"{p}_v")(kv).reshape(B, S, nh, d // nh)
-        o = dot_product_attention(q, k, v).reshape(B, T, d)
-        return getattr(self, f"{p}_out")(o)
+        hd = self.head_dim
+        q = getattr(self, f"{p}_q")(h)
+        nh = q.shape[-1] // hd  # all heads, or this rank's
+        q = q.reshape(B, T, nh, hd)
+        k = getattr(self, f"{p}_k")(kv).reshape(B, S, nh, hd)
+        v = getattr(self, f"{p}_v")(kv).reshape(B, S, nh, hd)
+        o = dot_product_attention(q, k, v).reshape(B, T, nh * hd)
+        return row_parallel(getattr(self, f"{p}_out"), o, self.attn_group)
+
+    def _ffn(self, h):
+        """The GEGLU feed-forward of this rank's hidden columns, summed over
+        the pair's group; ``ff_out``'s bias added once."""
+        group = self.ffn_group
+        h = tensor_enter(h, group)
+        w1, b1 = self.ff_in.weight, self.ff_in.bias
+        w2, b2 = self.ff_out.weight, self.ff_out.bias
+        if geglu_fused_eligible(h.shape[-1], h, w1, b1, w2, b2):
+            if group is None:
+                return geglu_mlp(h, w1, b1, w2, b2)
+            out = geglu_mlp(h, w1, b1, w2, torch.zeros_like(b2))
+            return tensor_all_reduce(out, group) + b2
+        a, g = self.ff_in(h).chunk(2, dim=-1)
+        return row_parallel(self.ff_out, a * F.gelu(g), group)
 
     def forward(self, x, context):
-        h = self.norm1(x)
+        group = self.attn_group
+        h = tensor_enter(self.norm1(x), group)
         x = x + self._attend(h, h, "attn1")
-        h = self.norm2(x)
-        x = x + self._attend(h, context, "attn2")
-        h = self.norm3(x)
-        if geglu_fused_eligible(x.shape[-1], h, self.ff_in.weight,
-                                self.ff_in.bias, self.ff_out.weight,
-                                self.ff_out.bias):
-            return x + geglu_mlp(h, self.ff_in.weight, self.ff_in.bias,
-                                 self.ff_out.weight, self.ff_out.bias)
-        a, g = self.ff_in(h).chunk(2, dim=-1)
-        return x + self.ff_out(a * F.gelu(g))
+        h = tensor_enter(self.norm2(x), group)
+        x = x + self._attend(h, tensor_enter(context, group), "attn2")
+        return x + self._ffn(self.norm3(x))
 
 
 class SpatialTransformer(nn.Module):

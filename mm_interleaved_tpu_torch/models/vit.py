@@ -1,7 +1,9 @@
 """CLIP vision transformer (counterpart of `mm_interleaved_tpu/models/vit.py`).
 
 Public tensors are NHWC / ``[B, T, C]`` as in the JAX package; the patch
-convolution permutes to NCHW internally.
+convolution permutes to NCHW internally.  Cut over ``tensor``
+(`parallel.tensor`), a `ViTLayer` holds this rank's heads and hidden
+columns and sums each row-parallel output over its pair's group.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import torch.nn.functional as F
 
 from ..ops.attention import dot_product_attention
 from ..ops.pos_embed import resize_abs_pos_embed
+from ..parallel.tensor import row_parallel, tensor_enter
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,17 +105,26 @@ class ViTLayer(nn.Module):
         self.fc1 = nn.Linear(c, config.intermediate_size)
         self.fc2 = nn.Linear(config.intermediate_size, c)
         self.act = _act(config.hidden_act)
+        self.attn_group = None
+        self.ffn_group = None
+
+    def tensor_pairs(self):
+        c = self.config
+        return (("attn_group", c.num_attention_heads,
+                 ("q_proj", "k_proj", "v_proj", "out_proj")),
+                ("ffn_group", c.intermediate_size, ("fc1", "fc2")))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, T, C = x.shape
-        nh = self.config.num_attention_heads
-        hd = C // nh
-        h = self.layer_norm1(x)
+        hd = C // self.config.num_attention_heads
+        nh = self.q_proj.out_features // hd  # all heads, or this rank's
+        h = tensor_enter(self.layer_norm1(x), self.attn_group)
         q = self.q_proj(h).view(B, T, nh, hd)
         k = self.k_proj(h).view(B, T, nh, hd)
         v = self.v_proj(h).view(B, T, nh, hd)
         attn = dot_product_attention(q, k, v, causal=self.causal)
-        attn = attn.reshape(B, T, C)
-        x = x + self.out_proj(attn)
-        h = self.fc2(self.act(self.fc1(self.layer_norm2(x))))
+        attn = attn.reshape(B, T, nh * hd)
+        x = x + row_parallel(self.out_proj, attn, self.attn_group)
+        h = tensor_enter(self.layer_norm2(x), self.ffn_group)
+        h = row_parallel(self.fc2, self.act(self.fc1(h)), self.ffn_group)
         return x + h

@@ -4,6 +4,10 @@
 Feature maps are NHWC at every interface, as in the JAX package; the
 convolutions permute to NCHW and back.  Resizes follow `jax.image.resize`
 (antialiased when they shrink), through `ops.pos_embed.resize_nhwc`.
+Cut over ``tensor`` (`parallel.tensor`), the deformable attentions hold
+this rank's heads and the `ConvFFN` its hidden channels (``fc1``'s rows,
+``dwconv``'s channels: a depthwise conv is per channel); the SPM stays
+whole.
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ from torch import nn
 import torch.nn.functional as F
 
 from ..ops.pos_embed import resize_nhwc
+from ..parallel.tensor import row_parallel, tensor_enter
 from .deform_attn import MSDeformAttn, grid_reference_points
 from .vit import ViTConfig, ViTEmbeddings, ViTLayer
 
@@ -112,10 +117,15 @@ class ConvFFN(nn.Module):
         self.fc1 = nn.Linear(dim, hidden)
         self.dwconv = nn.Conv2d(hidden, hidden, 3, padding=1, groups=hidden)
         self.fc2 = nn.Linear(hidden, dim)
+        self.tensor_group = None
+
+    def tensor_pairs(self):
+        return (("tensor_group", self.fc1.out_features,
+                 ("fc1", "dwconv", "fc2")),)
 
     def forward(self, x):  # [B, sum(HW), dim]
         B = x.shape[0]
-        x = self.fc1(x)
+        x = self.fc1(tensor_enter(x, self.tensor_group))
         C = x.shape[-1]
         outs, start = [], 0
         for h, w in self.level_shapes:
@@ -123,7 +133,7 @@ class ConvFFN(nn.Module):
             outs.append(conv_nhwc(self.dwconv, chunk).reshape(B, h * w, C))
             start += h * w
         x = F.gelu(torch.cat(outs, dim=1))  # exact erf GELU
-        return self.fc2(x)
+        return row_parallel(self.fc2, x, self.tensor_group)
 
 
 def _deform(c: ViTAdapterConfig, levels) -> MSDeformAttn:

@@ -13,8 +13,9 @@ runtimes quantize their variables), so every generation call of the model
 (text, beam, scores and the image-prefix forward) runs the quantized LLM.
 
 `ShardedGenerator` runs one rank of a ``(data, fsdp, tensor)`` mesh
-(`parallel.partition`): the LLM cut over ``tensor`` into head-local shards
-(`parallel.tensor`; an int8 model is quantized whole first, then cut), the
+(`parallel.partition`): the model cut over ``tensor`` into head-local
+shards, the vocabulary by row (`parallel.tensor`; an int8 model is
+quantized whole first, then cut), the
 weights the plan shards over ``fsdp`` under FSDP2.  Every rank receives the
 global batch, as one host does in JAX, runs its rows (the batch split over
 ``(data, fsdp)``, replicated where that does not divide it) and all-gathers
@@ -109,13 +110,14 @@ class LocalGenerator:
 class ShardedGenerator(LocalGenerator):
     """One rank of the sharded runtime on ``mesh`` (`parallel.partition.
     make_mesh`); ``model`` (whole, on this rank's device) is quantized if
-    asked, then cut over ``tensor`` and sharded over ``fsdp`` in place."""
+    asked, then cut over ``tensor`` (``cuts``: each cut parameter's dim)
+    and sharded over ``fsdp`` in place."""
 
     def __init__(self, model, mesh, quantize: Optional[str] = None):
         super().__init__(model, quantize)
         self.mesh = mesh
         self.sizes = axis_sizes(mesh)
-        shard_tensor_parallel(model, mesh)
+        self.cuts = shard_tensor_parallel(model, mesh)
         shard_fsdp(model, mesh)
 
     def _gather(self, x: Optional[torch.Tensor], rows: slice, batch: int):

@@ -11,24 +11,38 @@ the transpose of a flax kernel; an embedding is ``[rows, width]`` in both),
 first match wins, fitted by `fit_spec` as JAX's `_fit_spec` fits a spec:
 right-aligned to the trailing dims, an axis dropped where it does not
 divide its dim.  `placement_for` reads a parameter's fitted spec as the dim
-it is cut along over ``tensor`` and the dim FSDP2 shards over ``fsdp``.
+it is cut along over ``tensor`` and the dim FSDP2 shards over ``fsdp``;
+`plan` places every parameter of a whole model, pairs included.
 
-Eager PyTorch has no GSPMD to keep a cut layer's function whole, so the
-plan differs from the JAX rules over ``tensor`` (ROADMAP.md §3):
+Eager PyTorch has no GSPMD to keep a cut layer's function whole, so a
+cut over ``tensor`` is a Megatron pair (`parallel.tensor`): whole heads or
+whole hidden columns on each rank, the column layer's bias with its rows,
+the row layer's bias whole (added once, after the sum).  Over ``tensor``
+the plan cuts the whole model where JAX's rules do: the LLM's attention,
+MLP and MMFS, the ViT (``q/k/v_proj``, ``out_proj``, ``fc1``/``fc2``), the
+adapter's deformable attention and ConvFFN, both Q-Formers
+(``query/key/value``, ``output``, ``intermediate``/``ffn_output``), the
+UNet's transformer blocks (``attn[12]_*``, ``ff_in``/``ff_out``), MMFSNet,
+``embed_tokens`` and the text head by vocabulary row.  It departs from
+them (ROADMAP.md §3):
 
-  * only the LLM's Megatron pairs are cut over ``tensor``
-    (`parallel.tensor`): attention by head (``q/k/v_proj`` columns,
-    ``o_proj`` rows), the MLP by hidden column (``gate/up_proj``,
-    ``down_proj``), and the LLM's MMFS by head: ``value_proj`` (its bias
-    too), the head-major rows of ``sampling_offsets`` and
-    ``attention_weights`` (weight and bias), ``ignore_token``, and
-    ``output_proj`` by row; an int8 column layer's scales follow its rows;
+  * by head where JAX keeps whole: the deformable attentions' (the
+    adapter's, the LLM's and MMFSNet's MMFS) head-major rows of
+    ``sampling_offsets`` and ``attention_weights`` (weight and bias) and
+    ``ignore_token``; the column layers' biases; an int8 column layer's
+    scales; the ConvFFN's depthwise ``dwconv`` by channel, with ``fc1``;
+  * ``ff_in`` is ``[value | gate]``: each rank holds the same rows of both
+    halves, ``[value_r | gate_r]`` (`tensor_blocks`), not a slice of the
+    concatenation;
   * kept whole over ``tensor`` where JAX cuts them (still sharded over
     ``fsdp``): ``dynamic_offset_mask`` (its output feeds
-    ``sampling_offsets`` whole), ``embed_tokens``, the text heads, and the
-    towers (the ViT and its adapter, the Q-Formers, the UNet with MMFSNet,
-    the VAE): the UNet's ``ff_in`` is ``[value | gate]``, which a column cut
-    would hand out as halves.
+    ``sampling_offsets`` whole), the adapter's SPM 1x1 convs (their outputs
+    are the pyramid, read whole), the VAE's one-head attention, and
+    ``head_new``;
+  * a pair whose heads (or hidden columns) ``tensor`` does not divide is
+    kept whole over ``tensor`` (`plan`, from each module's
+    ``tensor_pairs``): JAX's drop rule at the unit eager PyTorch can cut,
+    where GSPMD cuts mid-head (the flagship UNet's 5-head blocks).
 
 `shard_fsdp` applies the fsdp half with FSDP2 (`fully_shard`) on the mesh's
 ``fsdp`` dim: each unit of `FSDP_UNITS` (a module that reads its sharded
@@ -62,35 +76,50 @@ COLUMN = ("tensor", "fsdp")
 ROW = ("fsdp", "tensor")
 
 _LLM = r"^mm_decoder\.layers\.\d+\."
-_MMFS = _LLM + r"llama_cross_attn\.attn\."
+# the column layers (by output row over tensor) and the row layers (by
+# input column) of every Megatron pair outside the LLM's own rules
+_COL = (r"(fc1|intermediate|ff_in|q_proj|k_proj|v_proj|query|key|value|"
+        r"attn[12]_[qkv]|value_proj)")
+_ROW = r"(fc2|ffn_output|ff_out|out_proj|output|attn[12]_out|output_proj)"
 
 DEFAULT_RULES: Tuple[Tuple[str, Tuple], ...] = (
-    # --- the LLM's tensor-parallel pairs
+    # --- the LLM's tensor-parallel pairs (an int8 layer's scales follow
+    # its rows)
     (_LLM + r"(self_attn\.[qkv]_proj|mlp\.(gate|up)_proj)\.weight$", COLUMN),
     (_LLM + r"(self_attn\.[qkv]_proj|mlp\.(gate|up)_proj)\.scale$",
      ("tensor",)),
     (_LLM + r"(self_attn\.o_proj|mlp\.down_proj)\.weight$", ROW),
-    # --- the LLM's MMFS, by head
-    (_MMFS + r"value_proj\.weight$", COLUMN),
-    (_MMFS + r"(value_proj\.bias|ignore_token)$", ("tensor",)),
-    (_MMFS + r"(sampling_offsets|attention_weights)\.(weight|bias)$",
+    # --- the vocabulary: embedding and text head by row
+    (r"(^|\.)embed_tokens\.weight$", COLUMN),
+    (r"^text_decoder\.head\.weight$", COLUMN),
+    (r"^text_decoder\.head\.(bias|scale)$", ("tensor",)),
+    (r"^text_decoder\.head_new\.weight$", (None, "fsdp")),
+    # --- kept whole over tensor: the SPM's 1x1 convs, the VAE's attention
+    (r"\.adapter_spm\.fc1\.weight$", (None, "fsdp")),
+    (r"\.adapter_spm\.fc2\.weight$", ("fsdp", None)),
+    (r"\.adapter_spm\.", ()),
+    (r"^image_decoder\.vae\..*\.to_[qkv]\.weight$", (None, "fsdp")),
+    (r"^image_decoder\.vae\..*\.to_out\.weight$", ("fsdp", None)),
+    (r"\.dynamic_offset_mask\.weight$", (None, "fsdp")),
+    # --- the deformable attentions by head: head-major rows, ignore token
+    (r"\.(sampling_offsets|attention_weights)\.(weight|bias)$",
      ("tensor", None)),
-    (_MMFS + r"output_proj\.weight$", ROW),
-    # --- JAX's other rules, whole over tensor
-    (r"(^|\.)embed_tokens\.weight$", (None, "fsdp")),
-    (r"^text_decoder\.(head|head_new)\.weight$", (None, "fsdp")),
-    (r"\.(value_proj|dynamic_offset_mask)\.weight$", (None, "fsdp")),
-    (r"\.output_proj\.weight$", ("fsdp", None)),
+    (r"\.ignore_token$", ("tensor",)),
+    # --- the ConvFFN's depthwise conv by channel, with fc1
+    (r"\.dwconv\.weight$", ("tensor", None, None, None)),
+    (r"\.dwconv\.bias$", ("tensor",)),
+    # --- every other pair: column layers with their biases, row layers
+    (r"\." + _COL + r"\.weight$", COLUMN),
+    (r"\." + _COL + r"\.bias$", ("tensor",)),
+    (r"\." + _ROW + r"\.weight$", ROW),
     (r"\.query_relpos\.weight$", (None, "fsdp")),
-    (r"\.(fc1|intermediate|ff_in)\.weight$", (None, "fsdp")),
-    (r"\.(fc2|ffn_output|ff_out)\.weight$", ("fsdp", None)),
-    (r"\.(q_proj|k_proj|v_proj|gate_proj|up_proj|query|key|value|to_q|to_k|"
-     r"to_v|attn[12]_[qkv])\.weight$", (None, "fsdp")),
-    (r"\.(o_proj|down_proj|output|to_out|attn[12]_out|out_proj)\.weight$",
-     ("fsdp", None)),
-    # --- everything else (convs, norms, biases, embeddings of positions)
+    # --- everything else (convs, norms, row biases, embeddings of
+    # positions)
     (r".*", ()),
 )
+# a dim cut over tensor as this many equal blocks, each cut alike: GEGLU's
+# ff_in is [value | gate], each rank [value_r | gate_r]
+BLOCKS = ((r"\.ff_in\.(weight|bias)$", 2),)
 
 # FSDP2's units: each reads the weights the plan shards only inside its own
 # forward or a method of FSDP_METHODS (the MMFSNet blocks' image side,
@@ -207,17 +236,78 @@ def placement_for(name: str, shape: Sequence[int], mesh,
     return Placement(dim_of("tensor"), dim_of("fsdp"))
 
 
+def tensor_pairs(model: nn.Module):
+    """``(module, group attribute, units, parameter names)`` of every
+    Megatron pair of ``model``: each module with a ``tensor_pairs()``
+    method names its pairs there, as ``(attribute, units, leaves)``: the
+    attribute that holds the pair's ``tensor`` group once cut, its heads or
+    hidden columns (read on the whole model) and the submodules and
+    parameters that make it up."""
+    for mname, module in model.named_modules():
+        pairs = getattr(module, "tensor_pairs", None)
+        if pairs is None:
+            continue
+        prefix = f"{mname}." if mname else ""
+        names = [prefix + n for n, _ in module.named_parameters()]
+        for attr, units, leaves in pairs():
+            yield module, attr, units, [
+                n for n in names if any(
+                    n == prefix + leaf or n.startswith(f"{prefix}{leaf}.")
+                    for leaf in leaves)]
+
+
+def plan(model: nn.Module, mesh, rules=DEFAULT_RULES) -> dict:
+    """``{name: Placement}`` of every parameter of the whole ``model`` on
+    ``mesh``: `placement_for` each, with the tensor cut of every pair whose
+    units ``tensor`` does not divide dropped (the pair kept whole)."""
+    sizes = axis_sizes(mesh)
+    out = {n: placement_for(n, p.shape, sizes, rules)
+           for n, p in model.named_parameters()}
+    for _, _, units, names in tensor_pairs(model):
+        if units % sizes["tensor"]:
+            for n in names:
+                out[n] = out[n]._replace(tensor=None)
+    return out
+
+
+def tensor_blocks(name: str) -> int:
+    """The equal blocks ``name``'s tensor dim is cut as (`BLOCKS`; 1: one
+    contiguous cut)."""
+    return next((n for pattern, n in BLOCKS if re.search(pattern, name)), 1)
+
+
+def tensor_part(x, name: str, dim: int, rank: int, parts: int):
+    """Rank ``rank``'s part of ``x`` (of parameter ``name``) cut along
+    ``dim`` into ``parts``: of each of its `tensor_blocks`, the rank's
+    chunk, concatenated."""
+    import torch
+
+    return torch.cat([b.chunk(parts, dim)[rank]
+                      for b in x.chunk(tensor_blocks(name), dim)], dim)
+
+
+def tensor_join(xs: Sequence, name: str, dim: int):
+    """The whole tensor of ``name`` from every rank's part ``xs`` (the
+    inverse of `tensor_part`)."""
+    import torch
+
+    n = tensor_blocks(name)
+    blocks = [x.chunk(n, dim) for x in xs]
+    return torch.cat([b[i] for i in range(n) for b in blocks], dim)
+
+
 def rank_bytes(model: nn.Module, mesh, pattern: str = "") -> int:
     """The bytes of the parameters whose names ``pattern`` matches
     (`re.search`) that one rank holds under the plan on ``mesh`` (a
-    `DeviceMesh` or a mapping of axis sizes: the model may be whole, on
-    ``meta``)."""
+    `DeviceMesh` or a mapping of axis sizes: the model is whole, and may
+    be on ``meta``)."""
     sizes = axis_sizes(mesh)
+    placed = plan(model, sizes)
     total = 0
     for name, p in model.named_parameters():
         if not re.search(pattern, name):
             continue
-        pl = placement_for(name, p.shape, sizes)
+        pl = placed[name]
         n = p.numel()
         for axis, dim in (("tensor", pl.tensor), ("fsdp", pl.fsdp)):
             if dim is not None:
@@ -343,8 +433,8 @@ class RankLayout:
         """This rank's part of the global tensor ``full`` of ``name``."""
         x = full
         if name in self.cuts:
-            x = x.chunk(self.sizes["tensor"], self.cuts[name])[
-                self._rank("tensor")]
+            x = tensor_part(x, name, self.cuts[name], self._rank("tensor"),
+                            self.sizes["tensor"])
         if name in self.fsdp:
             x = x.chunk(self.sizes["fsdp"], self.fsdp[name])[
                 self._rank("fsdp")]
@@ -361,5 +451,6 @@ class RankLayout:
                 parts = [torch.empty_like(x)
                          for _ in range(self.sizes[axis])]
                 dist.all_gather(parts, x, group=self.mesh.get_group(axis))
-                x = torch.cat(parts, dims[name])
+                x = (tensor_join(parts, name, dims[name]) if axis == "tensor"
+                     else torch.cat(parts, dims[name]))
         return x

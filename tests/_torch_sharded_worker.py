@@ -28,6 +28,16 @@ from mm_interleaved_tpu_torch.parallel.inference import ShardedGenerator
 from mm_interleaved_tpu_torch.parallel.partition import make_mesh
 
 
+# tower and vocabulary weights a tensor cut halves by row
+CUT_ROWS = ("visual_tokenizer.encoder.layers.0.q_proj.weight",
+            "visual_tokenizer.encoder.injectors.0.attn.sampling_offsets.weight",
+            "visual_tokenizer.perceiver_resampler.layers.0.attention.query."
+            "weight",
+            "image_decoder.unet.mid_attn.block.ff_in.weight",
+            "image_decoder.unet.mmfs_net.mid_block.mmfs.value_proj.weight",
+            "mm_decoder.embed_tokens.weight", "text_decoder.head.weight")
+
+
 def tiny_model(state):
     cfg = tcfg.tiny_config(with_image_decoder=True)
     cfg = dataclasses.replace(cfg, image_decoder=dataclasses.replace(
@@ -124,7 +134,11 @@ def main(job_path: str, out_path: str) -> None:
     job = torch.load(job_path, weights_only=False)
     mesh = make_mesh(*job["mesh"], device_type="cpu")
     gen = ShardedGenerator(tiny_model(job["state"]), mesh)
-    out = run(gen, job)
+    # the rows of a rank's tower and vocabulary layers (a `DTensor`'s shape
+    # is the whole over fsdp: the tensor cut's)
+    params = dict(gen.model.named_parameters())
+    out = {"rows": {n: params[n].shape[0] for n in CUT_ROWS}}
+    out.update(run(gen, job))
     model = tiny_model(job["state"])
     whole = copy.deepcopy(model)
     quantize_llm_weights(whole)

@@ -29,36 +29,57 @@ import mm_interleaved_tpu_torch.configs as tcfg
 from mm_interleaved_tpu_torch.models.mm_interleaved import MMInterleaved
 from mm_interleaved_tpu_torch.ops.quant import QLinear, quantize_llm_weights
 from mm_interleaved_tpu_torch.parallel.partition import (
-    FSDP_UNITS, fit_spec, mesh_shape, placement_for, rank_bytes)
+    FSDP_UNITS, fit_spec, mesh_shape, plan, rank_bytes)
 from mm_interleaved_tpu_torch.utils.from_flax import param_jax_paths
 
 SIZES = dict(data=1, fsdp=4, tensor=2)
 
 _LLM = r"^mm_decoder\.layers\.\d+\."
-_MMFS = _LLM + r"llama_cross_attn\.attn\."
 _PROJ = _LLM + r"(self_attn\.[qkvo]_proj|mlp\.(gate|up|down)_proj)\."
+_WHOLE_PAIR = "a pair whose heads tensor does not divide stays whole"
 
 # Where the port's plan departs from the JAX rules, and why: (pattern,
 # reason, the port's dims from JAX's: "no tensor" keeps JAX's fsdp dim and
 # drops its tensor dim; a dict gives the port's dims outright)
 DEVIATIONS = (
-    (r"(^|\.)embed_tokens\.weight$", "the vocab-parallel embedding is "
-     "ROADMAP item 6c", "no tensor"),
-    (r"^text_decoder\.", "the vocab-parallel text heads are item 6c",
-     "no tensor"),
     (r"\.dynamic_offset_mask\.weight$", "its output feeds sampling_offsets "
      "whole: a column shard computes another function", "no tensor"),
-    (r"^(visual_tokenizer|image_decoder)\.", "the towers stay whole over "
-     "tensor (the UNet's ff_in is [value | gate]); item 6c", "no tensor"),
-    (_MMFS + r"(sampling_offsets|attention_weights)\.(weight|bias)$",
-     "the LLM's MMFS by head: the head-major rows go with their heads "
-     "(GSPMD keeps JAX's whole)", dict(tensor=0, fsdp=None)),
-    (_MMFS + r"(value_proj\.bias|ignore_token)$", "by head, with "
-     "value_proj's columns", dict(tensor=0, fsdp=None)),
-    (_LLM + r"(self_attn\.[qkv]_proj|mlp\.(gate|up)_proj)\.scale$",
+    (r"\.adapter_spm\.fc[1-4]\.", "the SPM's 1x1 convs stay whole: their "
+     "outputs are the pyramid, read whole (a few MB)", "no tensor"),
+    (r"^image_decoder\.vae\..*\.to_(q|k|v|out)\.weight$", "the VAE's "
+     "attention has one head: a column cut splits its dot product (2 MB)",
+     "no tensor"),
+    (r"^text_decoder\.head_new\.", "head_new's 2 columns stay whole: they "
+     "are added to the gathered tail", "no tensor"),
+    (r"\.(sampling_offsets|attention_weights)\.(weight|bias)$",
+     "the deformable attentions by head: the head-major rows go with their "
+     "heads (GSPMD keeps JAX's whole)", dict(tensor=0, fsdp=None)),
+    (r"\.(value_proj\.bias|ignore_token)$", "by head, with value_proj's "
+     "columns", dict(tensor=0, fsdp=None)),
+    (r"\.dwconv\.(weight|bias)$", "the ConvFFN's depthwise conv by "
+     "channel, with fc1's rows (JAX keeps the conv whole)",
+     dict(tensor=0, fsdp=None)),
+    (r"\.(fc1|intermediate|ff_in|q_proj|k_proj|v_proj|query|key|value)"
+     r"\.bias$|^text_decoder\.head\.bias$", "a column layer's bias goes "
+     "with its rows (JAX's biases are whole)", dict(tensor=0, fsdp=None)),
+    (_LLM + r"(self_attn\.[qkv]_proj|mlp\.(gate|up)_proj)\.scale$|"
+     r"^text_decoder\.head\.scale$",
      "an int8 column layer's scales follow its rows (JAX's qscale is "
      "whole)", dict(tensor=0, fsdp=None)),
 )
+
+
+def whole_pairs(model, tensor: int) -> set:
+    """The parameters of the UNet blocks' attention whose heads ``tensor``
+    does not divide (GSPMD cuts them mid-head)."""
+    from mm_interleaved_tpu_torch.models.sd.unet import TransformerBlock
+
+    out = set()
+    for mname, m in model.named_modules():
+        if isinstance(m, TransformerBlock) and m.n_heads % tensor:
+            out |= {f"{mname}.{n}" for n, _ in m.named_parameters()
+                    if n.startswith("attn")}
+    return out
 
 
 def test_mesh_shape_arithmetic():
@@ -120,6 +141,9 @@ def _check_plan(model, sizes):
     mods = dict(model.named_modules())
     units = [n for n in mods if any(re.fullmatch(p, n) for p in FSDP_UNITS)]
     seen = {reason: 0 for _, reason, _ in DEVIATIONS}
+    seen[_WHOLE_PAIR] = 0
+    whole = whole_pairs(model, sizes["tensor"])
+    placed = plan(model, sizes)
     sharded = 0
     for name, p in model.named_parameters():
         mod_name, _, leaf = name.rpartition(".")
@@ -131,7 +155,10 @@ def _check_plan(model, sizes):
                 want = (dict(want, tensor=None) if how == "no tensor"
                         else dict(how))
                 break
-        pl = placement_for(name, p.shape, sizes)
+        if name in whole:
+            seen[_WHOLE_PAIR] += 1
+            want = dict(want, tensor=None)
+        pl = placed[name]
         assert dict(tensor=pl.tensor, fsdp=pl.fsdp) == want, name
         if pl.fsdp is not None:
             sharded += 1
@@ -158,10 +185,25 @@ def test_plan_equals_jax_rules_but_the_named_deviations(models, name, int8):
         quantize_llm_weights(model)
     seen, sharded = _check_plan(model, SIZES)
     # every deviation names parameters that exist (the int8 one only in
-    # the int8 model)
+    # the int8 model; every head count of the tiny preset divides)
     for reason, n in seen.items():
-        assert n > 0 or (not int8 and "int8" in reason), reason
+        assert n > 0 or (not int8 and "int8" in reason) or (
+            name == "tiny" and reason == _WHOLE_PAIR), reason
     assert sharded > 10
+    # the towers and the vocabulary are cut over tensor
+    placed = plan(model, SIZES)
+    for pattern in (r"^visual_tokenizer\.encoder\.layers\.0\.q_proj\.",
+                    r"\.injectors\.0\.attn\.value_proj\.weight",
+                    r"\.extractors\.0\.ffn\.fc1\.",
+                    r"^visual_tokenizer\.perceiver_resampler\..*\.query\.",
+                    r"^image_decoder\.perceiver_resampler\..*\.value\.",
+                    r"^image_decoder\.unet\.mid_attn\.block\.attn1_q\.",
+                    r"^image_decoder\.unet\..*\.ff_in\.weight",
+                    r"^image_decoder\.unet\.mmfs_net\..*\.value_proj\.",
+                    r"embed_tokens\.weight$", r"^text_decoder\.head\."):
+        hits = [n for n in placed if re.search(pattern, n)]
+        assert hits and all(placed[n].tensor is not None for n in hits), \
+            pattern
 
 
 def test_flagship_llm_projections_at_one_eighth_per_rank(models):
@@ -183,13 +225,21 @@ def test_flagship_llm_projections_at_one_eighth_per_rank(models):
 
 def test_rank_bytes_counts_the_tiny_plan(models):
     """At the tiny preset (widths 4 to 64) every split divides: the LLM's
-    projections at 1/8, the towers' sharded weights at 1/4."""
+    projections at 1/8, the towers' pairs (weights cut over tensor and
+    sharded over fsdp) at 1/8, their cut biases at 1/2, the vocabulary at
+    1/8."""
     model = models["tiny"]
-    whole = rank_bytes(model, dict(data=1, fsdp=1, tensor=1), _PROJ)
+    one = dict(data=1, fsdp=1, tensor=1)
+    whole = rank_bytes(model, one, _PROJ)
     assert rank_bytes(model, SIZES, _PROJ) * 8 == whole
-    ff = r"^image_decoder\.unet\..*\.ff_(in|out)\.weight$"
-    assert rank_bytes(model, SIZES, ff) * 4 == rank_bytes(
-        model, dict(data=1, fsdp=1, tensor=1), ff)
+    for pattern, part in (
+            (r"^image_decoder\.unet\..*\.ff_(in|out)\.weight$", 8),
+            (r"^image_decoder\.unet\..*\.attn[12]_[qkv]\.weight$", 8),
+            (r"^visual_tokenizer\.encoder\.layers\..*\.fc[12]\.weight$", 8),
+            (r"^visual_tokenizer\..*\.(query|key|value|output)\.weight$", 8),
+            (r"^image_decoder\.unet\..*\.ff_in\.bias$", 2),
+            (r"embed_tokens\.weight$|^text_decoder\.head\.weight$", 8)):
+        assert rank_bytes(model, SIZES, pattern) * part == rank_bytes(
+            model, one, pattern), pattern
     assert np.isclose(rank_bytes(model, SIZES, r"norm"),
-                      rank_bytes(model, dict(data=1, fsdp=1, tensor=1),
-                                 r"norm"))
+                      rank_bytes(model, one, r"norm"))

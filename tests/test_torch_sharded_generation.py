@@ -23,7 +23,10 @@ group run once and killed at its timeout.  Checked on each mesh:
     quantized whole, then cut (every rank);
   * a rank's KV cache holds ``n_kv / tensor`` heads and ``B / (data *
     fsdp)`` rows; a 3-row batch, which ``data * fsdp = 2`` does not
-    divide, runs replicated and equals the local run.
+    divide, runs replicated and equals the local run;
+  * the towers and the vocabulary are cut: a rank's ViT, adapter,
+    Q-Former, UNet, MMFSNet, embedding and text-head rows are ``1 /
+    tensor`` of the whole model's.
 """
 
 import numpy as np
@@ -180,6 +183,17 @@ def test_kv_cache_holds_local_heads_and_rows(setup, sharded):
     assert got["cache_shape"] == (llm.num_hidden_layers, 4 // (data * fsdp),
                                   L + NEW, llm.kv_heads // tensor,
                                   llm.head_dim)
+
+
+def test_towers_and_vocabulary_are_cut_over_tensor(setup, sharded):
+    """A rank's ViT ``q_proj``, deformable offsets, Q-Former query, GEGLU
+    ``ff_in``, MMFSNet value, embedding and text head hold ``1 / tensor``
+    of the whole model's rows."""
+    mesh, got = sharded
+    state = setup["job"]["state"]
+    assert set(got["rows"]) == set(worker.CUT_ROWS)
+    for n, rows in got["rows"].items():
+        assert rows * mesh[2] == state[n].shape[0], n
 
 
 def test_odd_batch_runs_replicated(setup, sharded):

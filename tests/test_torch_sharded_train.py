@@ -25,13 +25,15 @@ one group, killed at its timeout.  This file: ``(data, fsdp, tensor)`` =
   * a non-finite loss on one rank's rows skips the update on every rank;
   * a warm start from a full checkpoint takes each rank's part of it;
   * at tensor = 2 the gradients of every leaf the plan keeps whole over
-    ``tensor`` (the towers, the MMFS gate, norms, ...) are the same bits on
-    both ranks before any sum.
+    ``tensor`` (the norms, the row layers' biases, the MMFS gate, the
+    soi token, ...) are the same bits on both ranks before any sum; the
+    towers' pairs are cut.
 """
 
 import pytest
 import torch
 
+from mm_interleaved_tpu_torch.parallel.tensor import tensor_cuts
 from mm_interleaved_tpu_torch.utils.checkpoint import (read_full_checkpoint,
                                                       save_full_checkpoint)
 
@@ -163,12 +165,19 @@ def test_nonfinite_loss_on_one_rank_skips_every_rank(setup):
 def test_tensor_ranks_agree_on_replicated_gradients(setup):
     """Megatron's f and g: every leaf that the plan keeps whole over
     ``tensor`` gets the same gradient bits on both tensor ranks; the cut
-    ones differ (each rank holds its heads)."""
+    ones (the LLM's MMFS and the towers' pairs) differ (each rank holds its
+    heads)."""
     ranks = setup["runs"][(1, 1, 2)]["ranks"]
     g0, g1 = ranks[0]["step"]["grads"], ranks[1]["step"]["grads"]
-    cut = [n for n in g0 if g0[n].shape != setup["state"][n].shape]
-    assert cut and any(n.endswith("value_proj.weight") for n in cut)
-    whole = [n for n in g0 if n not in cut]
+    cuts = tensor_cuts(tiny_model(setup["state"], optim=OPTIM),
+                       {"tensor": 2})
+    cut = [n for n in g0 if n in cuts]
+    assert all(g0[n].shape != setup["state"][n].shape for n in cut)
+    for prefix in ("mm_decoder.", "visual_tokenizer.encoder.",
+                   "visual_tokenizer.perceiver_resampler.",
+                   "image_decoder.unet.", "image_decoder.perceiver"):
+        assert any(n.startswith(prefix) for n in cut), prefix
+    whole = [n for n in g0 if n not in cuts]
     assert any(n.startswith("image_decoder.") for n in whole)
     assert "soi_token" in whole
     for n in whole:
